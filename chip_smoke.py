@@ -12,14 +12,18 @@ Phases, each of which must pass:
    same CUDA tensors at the shapes TPC-H Q3 at SF1 gives it (insert: 2^21
    rows into 2^22 slots, with one key component of unique keys and with
    three components with duplicates and masked rows; probe: a 2^20-row page
-   of hits, misses and masked rows), bit-identical, and time both;
+   of hits, misses and masked rows), bit-identical, and time both; print
+   the insert's cooperative grid and its rows pending per round at the
+   unique-key shape (checked against what its outputs imply);
 4. run hand-built TPC-H Q3 at SF1 on the card with ``hash_kernels="auto"``:
    the launch counters are set to 0 just before the warm run and read just
    after; both kernels must have launched, the join build must have taken
    the open-addressing table (``pallas.join_builds == 1``, no fallback), and
    the rows must equal a numpy-only Q3 over the port's generator and the
    port's own ``hash_kernels="sorted"`` run, exactly (Decimals and dates);
-5. print the kernels line (JSON), the card line, and last the result line.
+5. one more warm Q3 under ``torch.profiler``: device idle share, top
+   kernels, and the insert's device launches (at most 3 per insert call);
+6. print the kernels line (JSON), the card line, and last the result line.
 
 Exits non-zero, printing no result, when CUDA is absent, when the package is
 not beside the script, or when any phase fails. It imports nothing of JAX.
@@ -69,6 +73,27 @@ def time_ms(fn, reps: int, device) -> float:
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int, name: str) -> float:
+    """Device time of one call of ``fn`` from ``torch.profiler``: for each
+    CUDA kernel whose name holds ``name``, the median of its times over
+    ``reps`` calls, summed over the kernels. Host time is not in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
+            times.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    if not times:
+        raise AssertionError(f"the profiler saw no kernel named like {name!r}")
+    return sum(float(np.median(t)) for t in times.values()) / 1e3
 
 
 def build_kernels() -> None:
@@ -130,25 +155,62 @@ def probe_bytes(slot_keys, slot_rows, keys, mask, trips: int) -> int:
     return table + n * 8 + n + n * 4
 
 
-def check_kernels(device, n: int = 1 << 21, n_probe: int = 1 << 20,
-                  reps: int = 20, plain_reps: int = 3):
+def insert_rounds(device, comps, mask, slots) -> None:
+    """The insert kernel's launch shape and its rows pending per round at
+    this shape, which must equal what its outputs imply."""
+    from presto_tpu_torch.ops import pallas_hash as ph
+
+    cfg = ph.insert_kernel_config(device)
+    trips = ph.INSERT_TRIPS
+    _sc, _sr, gid, _stats, counts = ph._insert_cuda(comps, mask, slots, trips)
+    counts = counts.tolist()
+    if counts != ph.insert_round_profile(comps, mask, gid, slots, trips):
+        raise AssertionError(f"insert round counts disagree with its outputs: {counts}")
+    worked = counts.index(0) if 0 in counts else trips
+    tail = 0 if comps.shape[1] <= cfg["tail_rows"] else next(
+        (d for d in range(1, worked) if counts[d] <= cfg["tail_rows"]), worked)
+    log(f"INSERT grid {cfg['grid_blocks']} blocks x {cfg['block_threads']} threads "
+        f"(cooperative); {worked} working rounds, block 0 alone from round {tail} "
+        f"(<= {cfg['tail_rows']} rows pending)")
+    log(f"INSERT pending rows per round: {counts[:worked + 1]}")
+
+
+def kernel_inputs(device, n: int = 1 << 21, n_probe: int = 1 << 20) -> dict:
+    """The kernels' inputs at the shapes TPC-H Q3 at SF1 gives them, from
+    SEED: insert keys with one unique component (the ``orders`` build) and
+    with three components, duplicates and masked rows; a probe page of hits,
+    misses and masked rows against the unique keys."""
+    import torch
+
+    from presto_tpu_torch.ops import pallas_hash as ph
+
+    rng = np.random.RandomState(SEED)
+    keys1 = torch.from_numpy(rng.permutation(8 * n)[:n].astype(np.int64) * 32 + 1)
+    mask1 = torch.from_numpy(rng.rand(n) < 0.9)
+    comps3 = torch.from_numpy(rng.randint(0, 96, size=(3, n)).astype(np.int64))
+    mask3 = torch.from_numpy(rng.rand(n) < 0.75)
+    hits = keys1[torch.from_numpy(rng.randint(0, n, n_probe // 2))]
+    misses = torch.from_numpy(rng.randint(0, 8 * n, n_probe - n_probe // 2) * 32 + 2)
+    pkeys = torch.cat([hits, misses])[torch.from_numpy(rng.permutation(n_probe))]
+    pmask = torch.from_numpy(rng.rand(n_probe) < 0.9)
+    on = lambda t: t.contiguous().to(device)  # noqa: E731
+    return {"n": n, "slots": ph.table_slots(n), "comps1": on(keys1.unsqueeze(0)),
+            "mask1": on(mask1), "comps3": on(comps3), "mask3": on(mask3),
+            "pkeys": on(pkeys), "pmask": on(pmask)}
+
+
+def check_kernels(device, reps: int = 20, plain_reps: int = 3):
     """Each kernel against its plain version on the same tensors; returns
     {kernel: measurements}."""
     import torch
 
     from presto_tpu_torch.ops import pallas_hash as ph
 
-    rng = np.random.RandomState(SEED)
-    slots = ph.table_slots(n)
+    inp = kernel_inputs(device)
+    n, slots = inp["n"], inp["slots"]
+    comps1, mask1, comps3, mask3 = (inp[k] for k in ("comps1", "mask1", "comps3", "mask3"))
     out = {}
 
-    # insert, 1 component, unique keys (the Q3 orders build's shape)
-    keys1 = torch.from_numpy(rng.permutation(8 * n)[:n].astype(np.int64) * 32 + 1)
-    comps1 = keys1.unsqueeze(0).contiguous().to(device)
-    mask1 = torch.from_numpy(rng.rand(n) < 0.9).to(device)
-    # insert, 3 components, duplicates and masked rows
-    comps3 = torch.from_numpy(rng.randint(0, 96, size=(3, n)).astype(np.int64)).to(device)
-    mask3 = torch.from_numpy(rng.rand(n) < 0.75).to(device)
     err = 0.0
     for comps, mask in ((comps1, mask1), (comps3, mask3)):
         got = ph.insert_table(comps, mask, slots)
@@ -163,21 +225,21 @@ def check_kernels(device, n: int = 1 << 21, n_probe: int = 1 << 20,
     slot_comps, slot_rows, _gid, stats = ph.insert_table(comps1, mask1, slots)
     if stats[0].item() != 0:
         raise AssertionError("unique-key insert overflowed")
+    insert_rounds(device, comps1, mask1, slots)
     ms = time_ms(lambda: ph.insert_table(comps1, mask1, slots), reps, device)
     plain_ms = time_ms(lambda: ph.insert_table_reference(comps1, mask1, slots),
                        plain_reps, device)
     nbytes = n * 8 + n + slots * 8 + slots * 4 + n * 4 + 3 * 4
     out["insert"] = {"max_abs_err": err, "ms": ms,
+                     "device_ms": device_ms(lambda: ph.insert_table(comps1, mask1, slots),
+                                            reps, "ht_insert_"),
                      "plain_ms": plain_ms, "bound_ms": nbytes / HBM_RATE * 1e3,
                      "bytes": nbytes}
 
     # probe: hits, misses and masked rows against the unique-key table
     trips = ph.probe_trips_for(int(stats[1].item()))
-    hits = keys1[torch.from_numpy(rng.randint(0, n, n_probe // 2))]
-    misses = torch.from_numpy(rng.randint(0, 8 * n, n_probe - n_probe // 2) * 32 + 2)
-    pkeys = torch.cat([hits, misses])[torch.from_numpy(rng.permutation(n_probe))]
-    pkeys = pkeys.contiguous().to(device)
-    pmask = torch.from_numpy(rng.rand(n_probe) < 0.9).to(device)
+    pkeys, pmask = inp["pkeys"], inp["pmask"]
+    n_probe = pkeys.shape[0]
     got = ph.probe_table(slot_comps[0], slot_rows, pkeys, pmask, trips)
     want = ph.probe_table_reference(slot_comps[0], slot_rows, pkeys, pmask, trips)
     err = _max_abs_err([(got, want)])
@@ -196,10 +258,14 @@ def check_kernels(device, n: int = 1 << 21, n_probe: int = 1 << 20,
                                                         pmask, trips), plain_reps, device)
     nbytes = probe_bytes(slot_comps[0], slot_rows, pkeys, pmask, trips)
     out["probe"] = {"max_abs_err": err, "ms": ms,
+                    "device_ms": device_ms(lambda: ph.probe_table(slot_comps[0], slot_rows,
+                                                                  pkeys, pmask, trips),
+                                           reps, "ht_probe_rows"),
                     "plain_ms": plain_ms, "bound_ms": nbytes / HBM_RATE * 1e3,
                     "bytes": nbytes}
     for name, m in out.items():
-        log(f"TIME {name}: kernel {m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, "
+        log(f"TIME {name}: kernel {m['ms']:.4f} ms (wrapper call, CUDA events; device "
+            f"time {m['device_ms']:.4f} ms), plain {m['plain_ms']:.4f} ms, "
             f"bound {m['bound_ms']:.4f} ms ({m['bytes']} bytes at {HBM_RATE:.3g} B/s)")
     return out
 
@@ -300,19 +366,28 @@ def run_q3_phase(device, schema: str = "sf1"):
 
 def profile_q3(device, schema: str = "sf1", top: int = 12) -> None:
     """One more warm Q3 under torch.profiler: the device's busy share of the
-    wall and the CUDA kernels that took the most device time."""
+    wall, the CUDA kernels that took the most device time, and the device
+    launches of the insert kernel for each insert call (at most 3)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from presto_tpu_torch.models.hand_queries import run_q3
+    from presto_tpu_torch.ops import pallas_hash as ph
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    calls = ph.insert_table.launches
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run_q3(schema, device=device, hash_kernels="auto")
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    calls = ph.insert_table.launches - calls
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    insert_kern = [e.name for e in kern if "ht_insert_" in e.name]
+    log(f"PROFILE Q3 {schema}: {len(insert_kern)} insert-kernel device launches for "
+        f"{calls} insert call(s): {sorted(set(n[:60] for n in insert_kern))}")
+    if calls < 1 or not 1 <= len(insert_kern) <= 3 * calls:
+        raise AssertionError(f"insert device launches {len(insert_kern)} for {calls} calls")
     busy_us = sum(e.time_range.elapsed_us() for e in kern)
     log(f"PROFILE Q3 {schema}: wall {wall_us / 1e3:.1f} ms under the profiler, device "
         f"kernels {busy_us / 1e3:.1f} ms in {len(kern)} launches, device idle share "

@@ -28,8 +28,10 @@ _lib = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # ht_insert(comps, mask, ncomps, n, slots, trips, slot_comps, slot_rows,
-    #           gid, stats, claims, cand, pending, counts, stream)
-    "ht_insert": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    #           gid, stats, claims, work, counts, stream)
+    "ht_insert": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+    # ht_insert_config(&grid_blocks, &block_threads, &tail_rows)
+    "ht_insert_config": [_P, _P, _P],
     # ht_probe(slot_keys, slot_rows, slots, keys, mask, n, trips, out, stream)
     "ht_probe": [_P, _P, _I, _P, _P, _I, _I, _P, _P],
 }

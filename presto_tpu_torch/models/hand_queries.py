@@ -136,7 +136,7 @@ def build_q3(schema: str = "sf1", page_capacity: int = 1 << 20, device="cuda",
     calls = [AggregateCall(resolve_aggregate("sum", [DecimalType(18, 4)]), [1])]
     agg = HashAggregationOperatorFactory(
         7, [0, 2, 3], [BIGINT, DATE, oprio], [None, None, None], calls, SINGLE,
-        page_capacity)
+        page_capacity, device=device)
     out_types = [BIGINT, DATE, oprio, DecimalType(18, 4)]
     # final order: l_orderkey, revenue, o_orderdate, o_shippriority
     topn = TopNOperatorFactory(8, 10, [SortOrder(3, descending=True), SortOrder(1)],

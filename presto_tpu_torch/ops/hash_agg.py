@@ -126,7 +126,7 @@ class GroupedAggregationBuilder:
     """Sort-strategy accumulator: per-page partials folded into a compact table."""
 
     def __init__(self, key_types: Sequence[Type], calls: Sequence[AggregateCall],
-                 max_groups: int = 1 << 20):
+                 max_groups: int = 1 << 20, device="cuda"):
         # internal key signature interleaves a BOOLEAN null flag per key
         self.key_types = [x for t in key_types for x in (t, BOOLEAN)]
         self.calls = list(calls)
@@ -138,14 +138,13 @@ class GroupedAggregationBuilder:
         self._pending: List = []  # (keys, states, valid) partials
         self._pending_rows = 0
         self._table_size: Optional[int] = None
-        self._device = torch.device("cpu")
+        self._device = torch.device(device)
 
     def set_channels(self, key_channels: Sequence[int]) -> "GroupedAggregationBuilder":
         self._key_channels = tuple(key_channels)
         return self
 
     def add_page(self, page: Page) -> None:
-        self._device = page.device
         keys = _null_safe_keys(page, self._key_channels)
         contribs = _call_contributions(self.calls, page)
         gkeys, gstates, gvalid, _ng = sort_group_reduce(
@@ -274,7 +273,7 @@ def _slice_pad(a: torch.Tensor, lo: int, cap: int) -> torch.Tensor:
 class HashAggregationOperatorFactory(OperatorFactory):
     def __init__(self, operator_id: int, key_channels, key_types,
                  key_dicts: Sequence[Optional[Dictionary]], calls, step: str,
-                 page_capacity: int, max_groups: int = 1 << 20):
+                 page_capacity: int, max_groups: int = 1 << 20, device="cuda"):
         super().__init__(operator_id, f"HashAggregation({step})")
         if step != SINGLE:
             raise NotImplementedError(f"aggregation step {step} is not ported yet")
@@ -286,9 +285,11 @@ class HashAggregationOperatorFactory(OperatorFactory):
         self.calls = list(calls)
         self.page_capacity = page_capacity
         self.max_groups = max_groups
+        self.device = torch.device(device)
 
     def create_operator(self) -> Operator:
-        builder = GroupedAggregationBuilder(self.key_types, self.calls, self.max_groups)
+        builder = GroupedAggregationBuilder(self.key_types, self.calls, self.max_groups,
+                                            self.device)
         return HashAggregationOperator(self.context(), builder, self.key_channels,
                                        self.key_types, self.key_dicts, self.calls,
                                        self.page_capacity)

@@ -4,9 +4,9 @@ Counterpart of ``presto_tpu/ops/pallas_hash.py``, whose two Pallas kernels
 become the hand-written CUDA kernels in ``kernels/hash_table.cu``:
 
 - **insert** (``insert_table``): a power-of-two-slot table at load <= 0.5,
-  built in ``INSERT_TRIPS`` fixed rounds. In round d every pending row bids
-  for slot ``(h(key) + d) & (S - 1)``; the lowest row id among the bidders
-  for an empty slot claims it; every pending row whose slot now holds its
+  built in at most ``INSERT_TRIPS`` rounds. In round d every pending row
+  bids for slot ``(h(key) + d) & (S - 1)``; the lowest row id among the
+  bidders for an empty slot claims it; every pending row whose slot now holds its
   key adopts the slot as its group id. Rows still pending after the last
   round raise the overflow flag. Also returns
   ``stats = [overflow, longest occupied run, distinct keys]``.
@@ -16,9 +16,9 @@ become the hand-written CUDA kernels in ``kernels/hash_table.cu``:
 
 Each wrapper launches its CUDA kernel for CUDA tensors and counts the launch
 in its ``launches`` attribute; for CPU tensors it runs the plain PyTorch
-version beside it (``insert_table_reference``, ``probe_table_reference``),
-which repeats the reference's arithmetic step for step. Any other device
-raises. The constants have the reference's values.
+version beside it (``insert_table_reference``, which takes the kernel's
+rounds step for step, and ``probe_table_reference``), whose outputs are the
+reference's bit for bit. Any other device raises. The constants have the reference's values.
 """
 from __future__ import annotations
 
@@ -36,6 +36,7 @@ MAX_TABLE_SLOTS = 1 << 22
 EMPTY = -1  # free-slot / miss sentinel
 
 _INT32_MAX = 2 ** 31 - 1
+_CLAIM_FREE = 2 ** 63 - 1  # claims entry of an empty slot: above every bid
 
 
 def table_slots(n_rows: int) -> Optional[int]:
@@ -78,48 +79,72 @@ def _max_occupied_run(used: torch.Tensor) -> torch.Tensor:
 
 def insert_table_reference(comps: torch.Tensor, mask: torch.Tensor, slots: int,
                            trips: int = INSERT_TRIPS):
-    """Plain PyTorch insert over (ncomps, n) int64 keys: the reference's
-    round loop, with scatter-min over an S + 1 array whose last entry is the
-    drop slot. Returns ``(slot_comps (ncomps, S) int64, slot_rows (S,) int32,
-    gid (n,) int32, stats (3,) int32)``."""
+    """Plain PyTorch insert over (ncomps, n) int64 keys, step for step the
+    kernel's rounds over a shrinking worklist of pending rows; the outputs
+    are the reference's. Returns ``(slot_comps (ncomps, S) int64,
+    slot_rows (S,) int32, gid (n,) int32, stats (3,) int32)``.
+
+    Every masked row first bids for its home slot in round 0: it
+    scatter-mins ``d << 32 | row`` into ``claims`` at its candidate slot
+    ``(h + d) & (S - 1)`` (a row pending in round d has walked exactly d
+    slots). A slot claimed in an earlier round holds a lower bid and keeps
+    its owner, so only the bids for a slot that was empty at the start of
+    the round compete, and the lowest row id wins. Round d then resolves its
+    rows: ``claims[c]`` names the row that owns slot c, whether it won just
+    now or in an earlier round, and every row whose input key equals the
+    owner's resolves to c. The others bid for round d + 1 (if there is one),
+    which cannot change an owner that round d reads.
+
+    The rounds stop at an empty worklist or after ``trips`` rounds; the
+    slot arrays then follow from ``claims``."""
     ncomps, n = comps.shape
     dev = comps.device
     h = _hash_base(comps, slots)
-    rowid = torch.arange(n, dtype=torch.int32, device=dev)
-    used = torch.zeros(slots + 1, dtype=torch.bool, device=dev)
-    slot_comps = torch.zeros((ncomps, slots + 1), dtype=torch.int64, device=dev)
-    slot_rows = torch.full((slots + 1,), EMPTY, dtype=torch.int32, device=dev)
+    claims = torch.full((slots,), _CLAIM_FREE, dtype=torch.int64, device=dev)
     gid = torch.full((n,), EMPTY, dtype=torch.int32, device=dev)
-    pending = mask.clone()
-    dist = torch.zeros(n, dtype=torch.int32, device=dev)
-    for _ in range(trips):
-        cand = (h + dist) & (slots - 1)
-        cl = cand.long()
-        # bid for empty slots: the scatter-min winner claims the slot
-        tryers = pending & ~used[cl]
-        bid_tgt = torch.where(tryers, cl, slots)
-        claims = torch.full((slots + 1,), n, dtype=torch.int32, device=dev)
-        claims.scatter_reduce_(0, bid_tgt, rowid, "amin")
-        winner = tryers & (claims[cl] == rowid)
-        wtgt = torch.where(winner, cl, slots)
-        used[wtgt] = True
-        slot_comps[:, wtgt] = comps
-        slot_rows[wtgt] = rowid
-        # a slot now holding this row's key resolves it
-        same = used[cl]
-        for k in range(ncomps):
-            same = same & (slot_comps[k, cl] == comps[k])
-        resolved = pending & same
-        gid = torch.where(resolved, cand, gid)
-        pending = pending & ~resolved
-        dist = torch.where(pending, dist + 1, dist)
-    used = used[:slots]
+
+    def bid(d, rows):
+        cand = ((h[rows] + d) & (slots - 1)).long()
+        claims.scatter_reduce_(0, cand, (d << 32) | rows, "amin")
+        return cand
+
+    work = mask.nonzero().squeeze(1)
+    cand = bid(0, work)
+    for d in range(trips):
+        if work.numel() == 0:
+            break
+        owner = claims[cand] & 0xFFFFFFFF
+        same = (comps[:, owner] == comps[:, work]).all(0)
+        gid[work[same]] = cand[same].to(torch.int32)
+        work = work[~same]
+        if d + 1 < trips:
+            cand = bid(d + 1, work)
+    used = claims != _CLAIM_FREE
+    slot_rows = torch.where(used, claims & 0xFFFFFFFF, EMPTY).to(torch.int32)
+    slot_comps = torch.zeros((ncomps, slots), dtype=torch.int64, device=dev)
+    slot_comps[:, used] = comps[:, slot_rows[used].long()]
     stats = torch.stack([
-        pending.any().to(torch.int32),              # overflow
+        torch.tensor(work.numel() > 0, dtype=torch.int32, device=dev),  # overflow
         _max_occupied_run(used).to(torch.int32),    # probe scan bound
         used.sum().to(torch.int32),                 # distinct keys
     ])
-    return slot_comps[:, :slots].contiguous(), slot_rows[:slots].contiguous(), gid, stats
+    return slot_comps, slot_rows, gid, stats
+
+
+def insert_round_profile(comps: torch.Tensor, mask: torch.Tensor, gid: torch.Tensor,
+                         slots: int, trips: int) -> list:
+    """Rows pending at the start of rounds 0..trips, derived from an
+    insert's outputs: a row that resolved in round d walked d slots from its
+    home (walks are shorter than the table), and an overflowed row never
+    resolved. Equal to the kernel's per-round ``counts``."""
+    home = _hash_base(comps, slots).long()
+    dist = (gid.long() - home) & (slots - 1)
+    resolved = mask & (gid >= 0)
+    overflowed = int((mask & (gid < 0)).sum())
+    walked = torch.bincount(dist[resolved], minlength=trips + 1)[:trips + 1]
+    # rows that resolved in round >= d, i.e. a suffix sum of the walk lengths
+    pending = walked.flip(0).cumsum(0).flip(0) + overflowed
+    return [int(c) for c in pending.tolist()]
 
 
 def probe_table_reference(slot_keys: torch.Tensor, slot_rows: torch.Tensor,
@@ -173,6 +198,8 @@ def insert_table(comps: torch.Tensor, mask: torch.Tensor, slots: int,
     - stats: (3,) int32, [overflow_flag, max_occupied_run, distinct_keys]
     """
     trips = trips or INSERT_TRIPS
+    if trips < 1:
+        raise ValueError(f"trips must be >= 1, got {trips}")
     if comps.dim() != 2 or comps.shape[0] < 1:
         raise ValueError(f"comps must be (ncomps >= 1, n), got {tuple(comps.shape)}")
     ncomps, n = comps.shape
@@ -186,27 +213,50 @@ def insert_table(comps: torch.Tensor, mask: torch.Tensor, slots: int,
         return insert_table_reference(comps, mask, slots, trips)
     if dev.type != "cuda":
         raise RuntimeError(f"insert_table: no kernel for device {dev}")
+    return _insert_cuda(comps, mask, slots, trips)[:4]
+
+
+def _insert_cuda(comps: torch.Tensor, mask: torch.Tensor, slots: int, trips: int):
+    """Launch the insert kernel on checked CUDA inputs; returns
+    ``(slot_comps, slot_rows, gid, stats, counts)``, where ``counts[d]`` is
+    the number of rows pending at the start of round d (0 past the last)."""
     from .. import kernels
 
     lib = kernels.library()
-    slot_comps = torch.zeros((ncomps, slots), dtype=torch.int64, device=dev)
-    slot_rows = torch.full((slots,), EMPTY, dtype=torch.int32, device=dev)
+    ncomps, n = comps.shape
+    dev = comps.device
+    slot_comps = torch.empty((ncomps, slots), dtype=torch.int64, device=dev)
+    slot_rows = torch.empty(slots, dtype=torch.int32, device=dev)
     gid = torch.empty(n, dtype=torch.int32, device=dev)
-    stats = torch.zeros(3, dtype=torch.int32, device=dev)
-    claims = torch.full((slots,), _INT32_MAX, dtype=torch.int32, device=dev)
-    cand = torch.empty(n, dtype=torch.int32, device=dev)
-    pending = torch.empty(n, dtype=torch.uint8, device=dev)
-    counts = torch.zeros(trips + 1, dtype=torch.int32, device=dev)
+    stats = torch.empty(3, dtype=torch.int32, device=dev)
+    claims = torch.empty(slots, dtype=torch.int64, device=dev)
+    work = torch.empty((2, n, 2), dtype=torch.int32, device=dev)
+    counts = torch.empty(trips + 1, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ht_insert(comps.data_ptr(), mask.data_ptr(), ncomps, n, slots,
                             trips, slot_comps.data_ptr(), slot_rows.data_ptr(),
                             gid.data_ptr(), stats.data_ptr(), claims.data_ptr(),
-                            cand.data_ptr(), pending.data_ptr(), counts.data_ptr(),
-                            stream)
+                            work.data_ptr(), counts.data_ptr(), stream)
     kernels.check(lib, err, "ht_insert")
     insert_table.launches += 1
-    return slot_comps, slot_rows, gid, stats
+    return slot_comps, slot_rows, gid, stats, counts
+
+
+def insert_kernel_config(device) -> dict:
+    """The insert kernel's launch shape on a CUDA device: cooperative grid
+    blocks, threads per block, and the worklist size at which one block
+    takes over the remaining rounds."""
+    import ctypes
+
+    from .. import kernels
+
+    lib = kernels.library()
+    vals = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(device):
+        err = lib.ht_insert_config(*(ctypes.byref(v) for v in vals))
+    kernels.check(lib, err, "ht_insert_config")
+    return dict(zip(("grid_blocks", "block_threads", "tail_rows"), (v.value for v in vals)))
 
 
 insert_table.launches = 0

@@ -12,8 +12,51 @@ import pytest
 import torch
 
 from presto_tpu_torch.ops import pallas_hash as ph
+from presto_tpu_torch.ops.aggregates import AggregateCall, resolve_aggregate
+from presto_tpu_torch.ops.hash_agg import SINGLE, HashAggregationOperatorFactory
+from presto_tpu_torch.types import BIGINT
 
 pytestmark = pytest.mark.cuda
+
+
+EDGE_CASES = ("all_masked", "one_row", "ragged", "tail_crossing", "one_trip")
+
+
+def insert_edge_case(name: str):
+    """``(comps (ncomps, n) int64, mask (n,) bool, slots, trips)`` as numpy,
+    for one edge of the insert's worklist."""
+    rng = np.random.RandomState(23)
+    trips = ph.INSERT_TRIPS
+    if name == "all_masked":
+        n = 300
+        comps = (rng.permutation(8 * n)[:n].astype(np.int64) * 5)[None]
+        mask = np.zeros(n, dtype=bool)
+    elif name == "one_row":
+        comps, mask = np.array([[42]], dtype=np.int64), np.ones(1, dtype=bool)
+    elif name == "ragged":  # n not a multiple of the kernels' 256-thread blocks
+        n = 1000
+        comps = rng.randint(-50, 50, size=(2, n)).astype(np.int64)
+        mask = rng.rand(n) < 0.8
+    elif name == "tail_crossing":
+        # 40 keys share one home slot, 60 rows each, beside 600 other keys:
+        # one key places per round, so the worklist stays above 1,024 rows
+        # for 24 rounds, then falls below it and empties after round 40
+        n_same, copies, n_other = 40, 60, 600
+        slots = ph.table_slots(n_same * copies + n_other)
+        cands = np.arange(1, 1 << 21, dtype=np.int64) * 7
+        home = ph._hash_base(torch.from_numpy(cands)[None], slots).numpy()
+        keys = np.concatenate([np.repeat(cands[home == home[0]][:n_same], copies),
+                               cands[home != home[0]][:n_other]])
+        comps = rng.permutation(keys)[None]
+        mask = np.ones(keys.shape[0], dtype=bool)
+    elif name == "one_trip":
+        n = 700
+        comps = rng.randint(0, 300, size=(1, n)).astype(np.int64)
+        mask = np.ones(n, dtype=bool)
+        trips = 1
+    else:
+        raise AssertionError(name)
+    return comps, mask, ph.table_slots(comps.shape[1]), trips
 
 
 @pytest.fixture
@@ -69,3 +112,51 @@ def test_probe_kernel_matches_plain_version(cuda):
     want = ph.probe_table_reference(slot_comps[0], slot_rows, probe, pmask, trips)
     assert torch.equal(got, want)
     assert (got >= 0).any() and (got < 0).any()
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_insert_kernel_worklist_edges(cuda, case):
+    comps, mask, slots, trips = insert_edge_case(case)
+    comps = torch.from_numpy(comps).to(cuda)
+    mask = torch.from_numpy(mask).to(cuda)
+    got = ph.insert_table(comps, mask, slots, trips)
+    want = ph.insert_table_reference(comps, mask, slots, trips)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_insert_kernel_stops_at_empty_worklist(cuda):
+    """The rounds end when the worklist empties, before ``trips``: nothing
+    is left pending, and the kernel's per-round counts are the ones its
+    outputs imply (across the grid-to-one-block hand-over at 1,024 rows)."""
+    comps, mask, slots, trips = insert_edge_case("tail_crossing")
+    comps = torch.from_numpy(comps).to(cuda)
+    mask = torch.from_numpy(mask).to(cuda)
+    _sc, _sr, gid, stats, counts = ph._insert_cuda(comps, mask, slots, trips)
+    counts = counts.tolist()
+    tail = ph.insert_kernel_config(cuda)["tail_rows"]
+    assert counts[0] == int(mask.sum()) > tail
+    assert any(0 < c <= tail for c in counts)
+    stop = counts.index(0)
+    assert 0 < stop < trips and not any(counts[stop:])
+    assert stats[0].item() == 0 and bool((gid[mask] >= 0).all())
+    assert counts == ph.insert_round_profile(comps, mask, gid, slots, trips)
+
+
+def test_insert_kernel_config(cuda):
+    cfg = ph.insert_kernel_config(cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    assert cfg["grid_blocks"] % props.multi_processor_count == 0
+    assert cfg["grid_blocks"] >= props.multi_processor_count
+    assert cfg["block_threads"] == 256 and cfg["tail_rows"] == 1024
+
+
+def test_aggregation_of_empty_input_stays_on_the_card(cuda):
+    calls = [AggregateCall(resolve_aggregate("sum", [BIGINT]), [1])]
+    op = HashAggregationOperatorFactory(0, [0], [BIGINT], [None], calls, SINGLE, 64,
+                                        device=cuda).create_operator()
+    op.finish()
+    page = op.get_output()
+    assert page is not None and page.mask.device == cuda
+    assert all(b.data.device == cuda for b in page.blocks)
+    assert not bool(page.mask.any())

@@ -21,7 +21,9 @@ from presto_tpu_torch import block as tblock, interop
 from presto_tpu_torch.connectors.tpch import generator as tg
 from presto_tpu_torch.ops import expressions as tx
 from presto_tpu_torch.ops.filter_project import PageProcessor as TPageProcessor
-from presto_tpu_torch.ops.hash_agg import sort_group_reduce
+from presto_tpu_torch.ops.aggregates import AggregateCall, resolve_aggregate
+from presto_tpu_torch.ops.hash_agg import (SINGLE, HashAggregationOperatorFactory,
+                                           sort_group_reduce)
 from presto_tpu_torch.ops.sorting import lexsort_fast
 from presto_tpu_torch.ops.topn import SortOrder, topn_merge_stage
 from presto_tpu_torch import types as tt
@@ -280,3 +282,21 @@ def test_semi_join_matches_reference(key, with_filter):
                      with_filter)
     np.testing.assert_array_equal(got, want)
     assert 0 < got.sum() < pmask.sum()
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda", None])
+def test_aggregation_builder_takes_the_factory_device(device):
+    """The builder works on the factory's device (default "cuda"), and an
+    empty input yields its zero groups there."""
+    calls = [AggregateCall(resolve_aggregate("sum", [tt.BIGINT]), [1])]
+    kw = {} if device is None else {"device": device}
+    factory = HashAggregationOperatorFactory(0, [0], [tt.BIGINT], [None], calls, SINGLE,
+                                             64, **kw)
+    op = factory.create_operator()
+    assert factory.device == op.builder._device == torch.device(device or "cuda")
+    if device == "cpu":
+        op.finish()
+        page = op.get_output()
+        assert page.mask.device.type == "cpu" and not bool(page.mask.any())
+        assert all(b.data.device.type == "cpu" for b in page.blocks)
+        assert op.get_output() is None and op.is_finished()

@@ -19,6 +19,7 @@ from presto_tpu_torch.ops import pallas_hash as tph
 from presto_tpu_torch.ops.hash_join import (INNER, LookupJoinOperatorFactory,
                                             LookupSourceFactory, _mix64)
 from presto_tpu_torch.types import BIGINT, DATE
+from test_torch_cuda import EDGE_CASES, insert_edge_case
 
 I64 = np.iinfo(np.int64)
 
@@ -110,6 +111,32 @@ def test_insert_forced_overflow_bit_identical(n, slots, trips):
     got = _port_insert(comps, mask, slots, trips)
     _assert_same(got, want)
     assert got[3][0] == 1
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_insert_worklist_edges_bit_identical(case):
+    """Edges of the plain version's worklist, held against the JAX insert."""
+    comps, mask, slots, trips = insert_edge_case(case)
+    want = _jax_insert(comps, mask, slots, trips)
+    got = _port_insert(comps, mask, slots, trips)
+    _assert_same(got, want)
+    counts = tph.insert_round_profile(torch.from_numpy(comps), torch.from_numpy(mask),
+                                      torch.from_numpy(got[2]), slots, trips)
+    assert counts[0] == mask.sum()
+    overflow, _run, distinct = got[3]
+    if case == "all_masked":
+        assert (got[3] == 0).all() and (got[2] == -1).all() and not any(counts)
+    elif case == "one_row":
+        assert list(got[3]) == [0, 1, 1] and got[1][got[2][0]] == 0
+    elif case == "ragged":
+        assert comps.shape[1] % 256 and overflow == 0 and (got[2][mask] >= 0).all()
+    elif case == "tail_crossing":
+        above = [d for d, c in enumerate(counts) if c > 1024]
+        assert len(above) >= 5 and overflow == 0 and distinct == 640
+        stop = counts.index(0)
+        assert any(0 < c <= 1024 for c in counts[above[-1]:stop]) and stop < trips
+    elif case == "one_trip":
+        assert trips == 1 and overflow == 1 and counts[1] > 0
 
 
 def _probe_inputs(rng, build_keys, n_probe):
