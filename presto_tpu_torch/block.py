@@ -124,12 +124,13 @@ class Page:
         return Page(self.blocks, mask)
 
     def to_pylists(self) -> List[list]:
-        """Rows of decoded Python values (host side)."""
-        idx = np.nonzero(self.mask.cpu().numpy())[0]
+        """Rows of decoded Python values (host side). Live rows are gathered
+        where the page lies, so only they cross to the host."""
+        idx = torch.nonzero(self.mask).squeeze(1)
         cols = []
         for b in self.blocks:
-            arr = b.data.cpu().numpy()[idx]
-            nulls = b.nulls.cpu().numpy()[idx] if b.nulls is not None else None
+            arr = b.data[idx].cpu().numpy()
+            nulls = b.nulls[idx].cpu().numpy() if b.nulls is not None else None
             if b.dictionary is not None:
                 vals = list(b.dictionary.lookup(arr.astype(np.int64)))
             else:

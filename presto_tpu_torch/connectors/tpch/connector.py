@@ -17,11 +17,11 @@ import numpy as np
 import torch
 
 from ...block import Block, Page
-from ...spi.connector import (ColumnHandle, ColumnMetadata, Connector,
-                              ConnectorMetadata, ConnectorPageSource,
+from ...spi.connector import (ColumnHandle, ColumnMetadata, ColumnStatistics,
+                              Connector, ConnectorMetadata, ConnectorPageSource,
                               ConnectorPageSourceProvider, ConnectorSplitManager,
                               Constraint, SchemaTableName, Split, TableHandle,
-                              TableMetadata)
+                              TableMetadata, TableStatistics)
 from ...utils.batching import clamp_capacity, take_rows
 from . import generator as g
 
@@ -43,6 +43,13 @@ class TpchMetadata(ConnectorMetadata):
     def __init__(self, connector_id: str):
         self.connector_id = connector_id
 
+    def list_schemas(self) -> List[str]:
+        return list(SCHEMAS)
+
+    def list_tables(self, schema: Optional[str] = None) -> List[SchemaTableName]:
+        schemas = [schema] if schema else list(SCHEMAS)
+        return [SchemaTableName(s, t) for s in schemas for t in _TABLE_NAMES]
+
     def get_table_handle(self, name: SchemaTableName) -> Optional[TableHandle]:
         if name.schema in SCHEMAS and name.table in _TABLE_NAMES:
             return TableHandle(self.connector_id, name, extra=(SCHEMAS[name.schema],))
@@ -52,6 +59,38 @@ class TpchMetadata(ConnectorMetadata):
         cols = tuple(ColumnMetadata(n, t, dictionary=d)
                      for (n, t, d) in _columns_of(table.schema_table.table))
         return TableMetadata(table.schema_table, cols)
+
+    _UNIQUE_KEYS = {
+        "region": [("r_regionkey",)],
+        "nation": [("n_nationkey",)],
+        "supplier": [("s_suppkey",)],
+        "part": [("p_partkey",)],
+        "partsupp": [("ps_partkey", "ps_suppkey")],
+        "customer": [("c_custkey",)],
+        "orders": [("o_orderkey",)],
+        "lineitem": [("l_orderkey", "l_linenumber")],
+    }
+
+    def get_unique_column_sets(self, table: TableHandle):
+        return list(self._UNIQUE_KEYS.get(table.schema_table.table, []))
+
+    def get_table_statistics(self, table: TableHandle,
+                             constraint: Constraint) -> TableStatistics:
+        """Row counts, plus distinct counts for dictionary columns (their
+        dictionary's size) and key columns (the row count): the reference's
+        statistics, so the cost-based join order is the reference's."""
+        name = table.schema_table.table
+        sf = table.extra[0]
+        rows = float(g.table_row_count(name, sf))
+        stats = TableStatistics(row_count=rows)
+        for (cname, _ctype, cdict) in _columns_of(name):
+            cs = ColumnStatistics(null_fraction=0.0)
+            if cdict is not None and type(cdict).__name__ == "Dictionary":
+                cs.distinct_count = float(len(cdict))
+            elif cname.endswith(("key",)):
+                cs.distinct_count = rows
+            stats.columns[cname] = cs
+        return stats
 
 
 class TpchSplitManager(ConnectorSplitManager):
@@ -208,7 +247,8 @@ class TpchPageSource(ConnectorPageSource):
 
 class TpchPageSourceProvider(ConnectorPageSourceProvider):
     def create_page_source(self, split: Split, columns: Sequence[ColumnHandle],
-                           page_capacity: int) -> ConnectorPageSource:
+                           page_capacity: int,
+                           constraint: Constraint = Constraint.all()) -> ConnectorPageSource:
         return TpchPageSource(split, columns, page_capacity)
 
 

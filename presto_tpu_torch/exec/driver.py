@@ -86,6 +86,10 @@ class Driver:
             if cur.is_finished() and not nxt.is_finished():
                 nxt.finish()
 
+    def close(self) -> None:
+        """Close every operator (idempotent); an abandoned driver's teardown."""
+        self._close_operators()
+
     def _close_operators(self) -> None:
         if not self._closed:
             for op in self.operators:

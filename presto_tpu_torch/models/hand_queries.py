@@ -26,24 +26,15 @@ from ..ops.expressions import InputLayout, call, constant, days_from_civil, inpu
 from ..ops.filter_project import PageProcessor
 from ..ops.hash_agg import SINGLE, HashAggregationOperatorFactory
 from ..ops.hash_join import (INNER, SEMI, JoinBuildOperatorFactory,
-                             LookupJoinOperatorFactory, pallas_join_eligible)
+                             LookupJoinOperatorFactory, join_strategy)
 from ..ops.scan import TableScanOperatorFactory
 from ..ops.topn import SortOrder, TopNOperatorFactory
-from ..spi.connector import ConnectorPageSource, Constraint, SchemaTableName
+from ..spi.connector import (ConcatPageSource, ConnectorPageSource, Constraint,
+                             SchemaTableName)
 from ..types import BIGINT, BOOLEAN, DATE, VARCHAR, DecimalType
 from ..utils.testing import PageConsumerFactory
 
 DEC = DecimalType(12, 2)
-HASH_KERNELS = ("sorted", "pallas", "auto")
-
-
-class ConcatPageSource(ConnectorPageSource):
-    def __init__(self, sources):
-        self.sources = list(sources)
-
-    def __iter__(self):
-        for s in self.sources:
-            yield from s
 
 
 def _table_source(schema: str, table: str, columns: List[str], page_capacity: int,
@@ -61,20 +52,6 @@ def _table_source(schema: str, table: str, columns: List[str], page_capacity: in
         info = {c.name: (c.type, c.dictionary) for c in g.TPCH_TABLES[table].columns}
     layout = InputLayout([info[c][0] for c in columns], [info[c][1] for c in columns])
     return ConcatPageSource(sources), layout
-
-
-def join_strategy(hash_kernels: str, device, join_type: str, key_channels,
-                  unique: bool) -> str:
-    """Build-strategy pick for ``hash_kernels`` (the reference planner's
-    ``_join_strategy``, with ``auto`` keyed on the device being CUDA)."""
-    if hash_kernels not in HASH_KERNELS:
-        raise ValueError(f"hash_kernels must be one of {HASH_KERNELS}, got {hash_kernels!r}")
-    hk = hash_kernels
-    if hk == "auto":
-        hk = "pallas" if resolve_device(device).type == "cuda" else "sorted"
-    if hk == "pallas" and pallas_join_eligible(join_type, key_channels, unique):
-        return "pallas"
-    return "sorted"
 
 
 def build_q3(schema: str = "sf1", page_capacity: int = 1 << 20, device="cuda",

@@ -17,13 +17,13 @@ Anything else raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..block import Dictionary, torch_dtype
-from ..types import (DecimalType, Type,
+from ..types import (BIGINT, DATE, DOUBLE, INTEGER, DecimalType, Type,
                      is_floating, is_integral, is_string)
 
 CompiledValue = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (data, null_mask)
@@ -55,6 +55,17 @@ class Constant(RowExpression):
 
 
 @dataclasses.dataclass(frozen=True)
+class SymbolRef(RowExpression):
+    """Planner-level column reference by symbol name. The local execution
+    planner rewrites every SymbolRef to a channel InputRef against the
+    child operator's layout (``resolve_symbols``)."""
+    name: str
+
+    def __str__(self):
+        return self.name
+
+
+@dataclasses.dataclass(frozen=True)
 class Call(RowExpression):
     name: str
     args: Tuple[RowExpression, ...]
@@ -77,6 +88,43 @@ def input_ref(channel: int, type_: Type) -> InputRef:
     return InputRef(type_, channel)
 
 
+def symbol_ref(name: str, type_: Type) -> SymbolRef:
+    return SymbolRef(type_, name)
+
+
+def rewrite_expression(expr: RowExpression, fn) -> RowExpression:
+    """Bottom-up rewrite: fn(node) -> replacement or None (keep). Children first."""
+    if isinstance(expr, Call):
+        expr = Call(expr.type, expr.name,
+                    tuple(rewrite_expression(a, fn) for a in expr.args))
+    elif isinstance(expr, SpecialForm):
+        expr = SpecialForm(expr.type, expr.form,
+                           tuple(rewrite_expression(a, fn) for a in expr.args))
+    out = fn(expr)
+    return expr if out is None else out
+
+
+def symbols_in(expr: RowExpression) -> set:
+    """Names of all SymbolRefs in the tree."""
+    out = set()
+
+    def visit(e):
+        if isinstance(e, SymbolRef):
+            out.add(e.name)
+        return None
+    rewrite_expression(expr, visit)
+    return out
+
+
+def resolve_symbols(expr: RowExpression, channels: Dict[str, int]) -> RowExpression:
+    """SymbolRef -> InputRef via a symbol->channel map (local-planning step)."""
+    def visit(e):
+        if isinstance(e, SymbolRef):
+            return InputRef(e.type, channels[e.name])
+        return None
+    return rewrite_expression(expr, visit)
+
+
 def constant(value: Any, type_: Type) -> Constant:
     return Constant(type_, value)
 
@@ -87,6 +135,38 @@ def call(name: str, type_: Type, *args: RowExpression) -> Call:
 
 def special(form: str, type_: Type, *args: RowExpression) -> SpecialForm:
     return SpecialForm(type_, form, tuple(args))
+
+
+# ---------------------------------------------------------------------------
+# type rules (the reference's built-in operator resolution)
+# ---------------------------------------------------------------------------
+
+def arithmetic_result_type(op: str, a: Type, b: Type) -> Type:
+    if is_string(a) or is_string(b):
+        raise TypeError(f"cannot {op} strings")
+    if op == "divide":
+        if isinstance(a, DecimalType) or isinstance(b, DecimalType) or \
+                is_floating(a) or is_floating(b):
+            return DOUBLE
+        return BIGINT if (a is BIGINT or b is BIGINT) else INTEGER
+    if isinstance(a, DecimalType) and isinstance(b, DecimalType):
+        if op == "multiply":
+            return DecimalType(min(18, a.precision + b.precision), a.scale + b.scale)
+        return DecimalType(min(18, max(a.precision, b.precision) + 1), max(a.scale, b.scale))
+    if isinstance(a, DecimalType):
+        if is_floating(b):
+            return DOUBLE
+        return a
+    if isinstance(b, DecimalType):
+        if is_floating(a):
+            return DOUBLE
+        return b
+    if is_floating(a) or is_floating(b):
+        return DOUBLE
+    if a is DATE or b is DATE:
+        return DATE  # date +/- interval days
+    order = ["smallint", "integer", "bigint"]
+    return a if order.index(a.name) >= order.index(b.name) else b
 
 
 # ---------------------------------------------------------------------------
@@ -206,7 +286,7 @@ class ExpressionCompiler:
         if form == "CAST":
             return self._compile_cast(expr)
 
-        raise NotImplementedError(f"special form {form}")
+        raise NotImplementedError(f"special form {form} is not ported yet")
 
     def _compile_in(self, expr: SpecialForm):
         value, items = expr.args[0], expr.args[1:]
@@ -278,7 +358,7 @@ class ExpressionCompiler:
                 d, n = f(datas, nulls)
                 return _civil_from_days(d.to(torch.int32))[part].to(torch.int64), n
             return fn
-        raise NotImplementedError(f"function {name}")
+        raise NotImplementedError(f"function {name} is not ported yet")
 
     def _compile_comparison(self, op: str, left: RowExpression, right: RowExpression):
         if is_string(left.type) or is_string(right.type):
@@ -313,7 +393,7 @@ class ExpressionCompiler:
                 and op in ("equal", "not_equal"):
             left, right = right, left
         if op not in ("equal", "not_equal"):
-            raise NotImplementedError(f"string comparison {op}")
+            raise NotImplementedError(f"string comparison {op} is not ported yet")
         neq = op == "not_equal"
         lf, ld_ = self._compile(left)
         if isinstance(right, Constant):
@@ -375,7 +455,7 @@ class ExpressionCompiler:
                 b = b * (10 ** (oscale - rscale))
                 return (a + b if name == "add" else a - b), n
             if not is_integral(out):
-                raise NotImplementedError(f"{name} on {out.display_name()}")
+                raise NotImplementedError(f"{name} on {out.display_name()} is not ported yet")
             d = {"add": torch.add, "subtract": torch.sub, "multiply": torch.mul}[name](ld, rd)
             return d.to(torch_dtype(out)), n
         return fn

@@ -27,6 +27,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..block import Block, Dictionary, Page, _compact, torch_dtype
 from ..types import Type
 from .operator import Operator, OperatorContext, OperatorFactory, timed
@@ -262,6 +263,26 @@ def pallas_join_eligible(join_type: str, key_channels, unique: bool) -> bool:
     """May this join's build use the open-addressing strategy? Unique
     single-key INNER/LEFT only; everything else keeps the sorted strategy."""
     return unique and len(key_channels) == 1 and join_type in (INNER, LEFT)
+
+
+HASH_KERNELS = ("sorted", "pallas", "auto")
+
+
+def join_strategy(hash_kernels: str, device, join_type: str, key_channels,
+                  unique: bool) -> str:
+    """Build-strategy pick for ``hash_kernels`` (the reference planner's
+    ``_join_strategy``): ``pallas`` takes the open-addressing table where the
+    join is eligible and ``sorted`` elsewhere; ``auto`` is ``pallas``
+    exactly when the device is CUDA, so the hand-written kernels run on the
+    card (the reference keys the same choice on its TPU backend)."""
+    if hash_kernels not in HASH_KERNELS:
+        raise ValueError(f"hash_kernels must be one of {HASH_KERNELS}, got {hash_kernels!r}")
+    hk = hash_kernels
+    if hk == "auto":
+        hk = "pallas" if resolve_device(device).type == "cuda" else "sorted"
+    if hk == "pallas" and pallas_join_eligible(join_type, key_channels, unique):
+        return "pallas"
+    return "sorted"
 
 
 # ---------------------------------------------------------------------------

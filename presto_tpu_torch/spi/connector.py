@@ -19,6 +19,7 @@ class ColumnMetadata:
     name: str
     type: Type
     dictionary: Optional[Dictionary] = None
+    hidden: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +59,25 @@ class TableMetadata:
         raise KeyError(name)
 
 
+@dataclasses.dataclass
+class ColumnStatistics:
+    """Per-column statistics that feed the cost-based join ordering."""
+    distinct_count: Optional[float] = None
+    null_fraction: float = 0.0
+    min_value: Optional[float] = None
+    max_value: Optional[float] = None
+
+
+@dataclasses.dataclass
+class TableStatistics:
+    row_count: Optional[float] = None
+    columns: Dict[str, ColumnStatistics] = dataclasses.field(default_factory=dict)
+
+    @staticmethod
+    def empty() -> "TableStatistics":
+        return TableStatistics()
+
+
 @dataclasses.dataclass(frozen=True)
 class Split:
     """A schedulable unit of data (a row range for TPC-H)."""
@@ -77,6 +97,21 @@ class ConnectorPageSource(abc.ABC):
         pass
 
 
+class ConcatPageSource(ConnectorPageSource):
+    """The pages of several sources, one source after the other."""
+
+    def __init__(self, sources):
+        self.sources = list(sources)
+
+    def __iter__(self):
+        for s in self.sources:
+            yield from s
+
+    def close(self) -> None:
+        for s in self.sources:
+            s.close()
+
+
 @dataclasses.dataclass
 class Constraint:
     """Pushed-down predicate summary (per-column domains)."""
@@ -88,6 +123,14 @@ class Constraint:
 
 
 class ConnectorMetadata(abc.ABC):
+    @abc.abstractmethod
+    def list_schemas(self) -> List[str]:
+        ...
+
+    @abc.abstractmethod
+    def list_tables(self, schema: Optional[str] = None) -> List[SchemaTableName]:
+        ...
+
     @abc.abstractmethod
     def get_table_handle(self, name: SchemaTableName) -> Optional[TableHandle]:
         ...
@@ -101,6 +144,15 @@ class ConnectorMetadata(abc.ABC):
         return {c.name: ColumnHandle(table.connector_id, c.name, c.type, i)
                 for i, c in enumerate(meta.columns)}
 
+    def get_table_statistics(self, table: TableHandle,
+                             constraint: Constraint) -> TableStatistics:
+        return TableStatistics.empty()
+
+    def get_unique_column_sets(self, table: TableHandle) -> List[Tuple[str, ...]]:
+        """Column sets that identify a row (primary or unique keys): they
+        let the planner prove a join build unique."""
+        return []
+
 
 class ConnectorSplitManager(abc.ABC):
     @abc.abstractmethod
@@ -112,7 +164,8 @@ class ConnectorSplitManager(abc.ABC):
 class ConnectorPageSourceProvider(abc.ABC):
     @abc.abstractmethod
     def create_page_source(self, split: Split, columns: Sequence[ColumnHandle],
-                           page_capacity: int) -> ConnectorPageSource:
+                           page_capacity: int,
+                           constraint: Constraint = Constraint.all()) -> ConnectorPageSource:
         ...
 
 

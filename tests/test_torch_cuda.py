@@ -59,6 +59,26 @@ def insert_edge_case(name: str):
     return comps, mask, ph.table_slots(comps.shape[1]), trips
 
 
+def grouping_case(n: int, groups: int, ncomps: int, live: float, seed: int = 31):
+    """The aggregation's use of the insert (``GroupedAggregationBuilder.
+    _page_hash_partial``): ``(comps (ncomps, n) int64, mask (n,) bool, slots)``
+    as numpy, for a page whose live rows carry ``groups`` distinct keys, many
+    copies of each. Three components are Q3's (orderkey, orderdate,
+    shippriority); six add the builder's null flag after each. ``slots`` is
+    the table the builder sizes for that group count."""
+    rng = np.random.RandomState(seed)
+    okey = rng.permutation(1 << 22)[:groups].astype(np.int64) * 4 + 1
+    cols = [okey, 8000 + okey % 2000, np.zeros(groups, np.int64)]
+    if ncomps == 6:
+        cols = [x for c in cols for x in (c, np.zeros(groups, np.int64))]
+    elif ncomps != 3:
+        raise AssertionError(ncomps)
+    comps = np.stack(cols)[:, rng.randint(0, groups, n)]
+    mask = rng.rand(n) < live
+    slots = max(1 << 10, 1 << max(4, (4 * groups - 1).bit_length()))
+    return np.ascontiguousarray(comps), mask, slots
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -160,3 +180,19 @@ def test_aggregation_of_empty_input_stays_on_the_card(cuda):
     assert page is not None and page.mask.device == cuda
     assert all(b.data.device == cuda for b in page.blocks)
     assert not bool(page.mask.any())
+
+
+@pytest.mark.parametrize("ncomps", [3, 6])
+def test_insert_kernel_matches_plain_version_at_q3_sf1_grouping_shape(cuda, ncomps):
+    """A 2^20-row page with ~1,500 groups among its live rows into 8,192
+    slots: Q3's grouping at SF1."""
+    comps, mask, slots = grouping_case(1 << 20, 1500, ncomps, live=0.02)
+    assert slots == 8192
+    comps, mask = torch.from_numpy(comps).to(cuda), torch.from_numpy(mask).to(cuda)
+    before = ph.insert_table.launches
+    got = ph.insert_table(comps, mask, slots)
+    assert ph.insert_table.launches == before + 1
+    want = ph.insert_table_reference(comps, mask, slots)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert got[3][0].item() == 0 and 1400 < got[3][2].item() <= 1500

@@ -19,7 +19,7 @@ from presto_tpu_torch.ops import pallas_hash as tph
 from presto_tpu_torch.ops.hash_join import (INNER, LookupJoinOperatorFactory,
                                             LookupSourceFactory, _mix64)
 from presto_tpu_torch.types import BIGINT, DATE
-from test_torch_cuda import EDGE_CASES, insert_edge_case
+from test_torch_cuda import EDGE_CASES, grouping_case, insert_edge_case
 
 I64 = np.iinfo(np.int64)
 
@@ -218,3 +218,16 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         tph.probe_table(torch.zeros(16, dtype=torch.int64), torch.zeros(16, dtype=torch.int64),
                         torch.zeros(4, dtype=torch.int64), torch.ones(4, dtype=torch.bool), 8)
+
+
+@pytest.mark.parametrize("ncomps", [3, 6])
+def test_grouping_insert_bit_identical(ncomps):
+    """The aggregation's regime: every page key repeats many times (200
+    groups over 3,000 rows), a fifth of the rows masked, the builder's
+    1,024-slot floor; three key components, or six with the null flags."""
+    comps, mask, slots = grouping_case(3000, 200, ncomps, live=0.8)
+    assert slots == 1024
+    want = _jax_insert(comps, mask, slots)
+    got = _port_insert(comps, mask, slots)
+    _assert_same(got, want)
+    assert got[3][0] == 0 and got[3][2] == len(np.unique(comps[:, mask], axis=1).T)
