@@ -38,7 +38,19 @@ Phases, each of which must pass:
    SQL Q3 grouping gives it (its first hash-grouped page: the key
    components, the live rows, and the slots the first page's group count
    sized), and time it;
-8. print the kernels line (JSON), the card line, and last the result line.
+8. run TPC-H Q5, Q9 and Q13 as SQL at SF1 with ``hash_kernels="pallas"``
+   (multi-key joins, duplicate-key INNER and LEFT expansion, LIKE): a cold
+   and a warm run each, rows equal to numpy-only oracles and to the
+   ``hash_kernels="sorted"`` run. The counters are set to 0 just before each
+   warm run: the unique single-key builds on the table (Q5 3, Q9 4, Q13 0),
+   no fallback, insert launches equal to ``join_builds + agg_pages``, and
+   each table probed by the probe kernel at least once. Q5 prints its
+   expansion chunks, expanded rows and peak device memory; Q9 and Q13 get a
+   profiler pass; all three get the host-clock layers. Both kernels are
+   held against their plain versions at the shapes Q9 gives them;
+9. print the kernels line (JSON, with each kernel's warm-run launches per
+   SQL query under ``launches_by_query``), the card line, and last the
+   result line.
 
 Exits non-zero, printing no result, when CUDA is absent, when the package is
 not beside the script, or when any phase fails. It imports nothing of JAX.
@@ -484,6 +496,130 @@ def oracle_q6(schema: str):
 SQL_ORACLES = {1: oracle_q1, 3: oracle_q3, 6: oracle_q6}
 
 
+def _table(name: str, sf: float, cols):
+    from presto_tpu_torch.connectors.tpch import generator as g
+
+    return g.generate_rows(name, 0, g.table_row_count(name, sf), sf, cols)
+
+
+def _find(keys, probe):
+    """Positions of ``probe`` in the unique ``keys`` and whether each is
+    there (numpy)."""
+    order = np.argsort(keys, kind="stable")
+    pos = np.clip(np.searchsorted(keys[order], probe), 0, max(len(keys) - 1, 0))
+    hit = keys[order][pos] == probe if len(keys) else np.zeros(len(probe), bool)
+    return order[pos], hit
+
+
+def oracle_q5(schema: str):
+    """TPC-H Q5 in numpy over the port's generator. Each lineitem row is
+    joined by key to its order (in the year), the order's customer and its
+    supplier; a row counts where the customer's nation is the supplier's and
+    lies in ASIA. No (lineitem, customer) pair is made."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+    from presto_tpu_torch.ops.expressions import days_from_civil
+
+    sf = SCHEMAS[schema]
+    r = _table("region", sf, ["r_regionkey", "r_name"])
+    asia = r["r_regionkey"][r["r_name"] == g.DICT_REGION_NAME.code_of("ASIA")]
+    n = _table("nation", sf, ["n_nationkey", "n_name", "n_regionkey"])
+    s = _table("supplier", sf, ["s_suppkey", "s_nationkey"])
+    c = _table("customer", sf, ["c_custkey", "c_nationkey"])
+    o = _table("orders", sf, ["o_orderkey", "o_custkey", "o_orderdate"])
+    li = g.lineitem_for_orders(0, len(o["o_orderkey"]), sf,
+                               ["l_orderkey", "l_suppkey", "l_extendedprice", "l_discount"])
+    in_year = (o["o_orderdate"] >= days_from_civil(1994, 1, 1)) & \
+        (o["o_orderdate"] < days_from_civil(1995, 1, 1))
+    opos, ohit = _find(o["o_orderkey"], li["l_orderkey"])
+    ohit &= in_year[opos]
+    cpos, chit = _find(c["c_custkey"], o["o_custkey"][opos])
+    spos, shit = _find(s["s_suppkey"], li["l_suppkey"])
+    snation = s["s_nationkey"][spos]
+    npos, nhit = _find(n["n_nationkey"], snation)
+    keep = ohit & chit & shit & nhit & (c["c_nationkey"][cpos] == snation) & \
+        np.isin(n["n_regionkey"][npos], asia)
+    rev = li["l_extendedprice"][keep].astype(np.int64) * \
+        (100 - li["l_discount"][keep].astype(np.int64))
+    names, inv = np.unique(n["n_name"][npos][keep], return_inverse=True)
+    sums = np.zeros(len(names), dtype=np.int64)
+    np.add.at(sums, inv, rev)
+    rows = sorted(([g.DICT_NATION_NAME.values[k], Decimal(int(v)) / 10 ** 4]
+                   for k, v in zip(names, sums)), key=lambda row: -row[1])
+    source = sum(len(t[next(iter(t))]) for t in (r, n, s, c, o)) + len(li["l_orderkey"])
+    return rows, source
+
+
+def oracle_q9(schema: str):
+    """TPC-H Q9 in numpy over the port's generator; ``p_name like
+    '%green%'`` is tested on the decoded strings."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    sf = SCHEMAS[schema]
+    p = _table("part", sf, ["p_partkey", "p_name"])
+    green = p["p_partkey"][np.asarray(["green" in x for x in
+                                       g.DICT_P_NAME.lookup(p["p_name"])], dtype=bool)]
+    s = _table("supplier", sf, ["s_suppkey", "s_nationkey"])
+    n = _table("nation", sf, ["n_nationkey", "n_name"])
+    ps = _table("partsupp", sf, ["ps_partkey", "ps_suppkey", "ps_supplycost"])
+    o = _table("orders", sf, ["o_orderkey", "o_orderdate"])
+    li = g.lineitem_for_orders(0, len(o["o_orderkey"]), sf,
+                               ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+                                "l_extendedprice", "l_discount"])
+    keep = np.isin(li["l_partkey"], green)
+    li = {k: v[keep] for k, v in li.items()}
+    # (partkey, suppkey) as one exact int64
+    width = int(max(ps["ps_suppkey"].max(), li["l_suppkey"].max(initial=0))) + 1
+    pspos, pshit = _find(ps["ps_partkey"] * width + ps["ps_suppkey"],
+                         li["l_partkey"] * width + li["l_suppkey"])
+    opos, ohit = _find(o["o_orderkey"], li["l_orderkey"])
+    spos, shit = _find(s["s_suppkey"], li["l_suppkey"])
+    npos, nhit = _find(n["n_nationkey"], s["s_nationkey"][spos])
+    keep = pshit & ohit & shit & nhit
+    amount = li["l_extendedprice"][keep].astype(np.int64) * \
+        (100 - li["l_discount"][keep].astype(np.int64)) - \
+        ps["ps_supplycost"][pspos][keep].astype(np.int64) * \
+        li["l_quantity"][keep].astype(np.int64)
+    years = o["o_orderdate"][opos][keep].astype("datetime64[D]").astype("datetime64[Y]") \
+        .astype(np.int64) + 1970
+    groups, inv = np.unique(np.stack([n["n_name"][npos][keep].astype(np.int64), years]),
+                            axis=1, return_inverse=True)
+    sums = np.zeros(groups.shape[1], dtype=np.int64)
+    np.add.at(sums, inv.reshape(-1), amount)
+    rows = [[g.DICT_NATION_NAME.values[int(k)], int(y), Decimal(int(v)) / 10 ** 4]
+            for (k, y), v in zip(groups.T, sums)]
+    rows.sort(key=lambda row: (row[0], -row[1]))
+    source = sum(len(t[next(iter(t))]) for t in (p, s, n, ps, o)) + \
+        g.table_row_count("lineitem", sf)
+    return rows, source
+
+
+def oracle_q13(schema: str):
+    """TPC-H Q13 in numpy over the port's generator; ``o_comment not like
+    '%special%requests%'`` is tested on the decoded strings."""
+    import re
+
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    sf = SCHEMAS[schema]
+    c = _table("customer", sf, ["c_custkey"])
+    o = _table("orders", sf, ["o_custkey", "o_comment"])
+    rx = re.compile("special.*requests", re.DOTALL)
+    keep = np.asarray([rx.search(x) is None for x in g.DICT_COMMENT.lookup(o["o_comment"])],
+                      dtype=bool)
+    cpos, chit = _find(c["c_custkey"], o["o_custkey"][keep])
+    per_customer = np.bincount(cpos[chit], minlength=len(c["c_custkey"]))
+    counts, dist = np.unique(per_customer, return_counts=True)
+    rows = sorted(([int(k), int(d)] for k, d in zip(counts, dist)),
+                  key=lambda row: (-row[1], -row[0]))
+    return rows, len(c["c_custkey"]) + len(o["o_custkey"])
+
+
+JOIN_ORACLES = {5: oracle_q5, 9: oracle_q9, 13: oracle_q13}
+
+
 def same_rows(got, want) -> bool:
     """Equal rows in order: exact, but for floats (DOUBLE_REL_TOL)."""
     import math
@@ -610,7 +746,7 @@ def run_sql_phase(device, schema: str = "sf1"):
     return q3_launches, capture
 
 
-def sql_layers(device, schema: str = "sf1") -> None:
+def sql_layers(device, schema: str = "sf1", queries=(1, 3, 6), warm_up: bool = True) -> None:
     """Where a warm SQL query's wall goes, on the host clock: parse, analyze,
     plan and optimize; local planning; execution (ending in a sync); result
     rows; and each operator's host time in add_input/get_output (device
@@ -621,9 +757,10 @@ def sql_layers(device, schema: str = "sf1") -> None:
     from presto_tpu_torch.exec.task_executor import TaskExecutor
     from presto_tpu_torch.models.tpch_sql import QUERIES
 
-    for q in (1, 3, 6):
+    for q in queries:
         runner = sql_runner(device, "pallas", schema)
-        runner.execute(QUERIES[q])
+        if warm_up:
+            runner.execute(QUERIES[q])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         plan = runner.plan_sql(QUERIES[q])
@@ -645,6 +782,197 @@ def sql_layers(device, schema: str = "sf1") -> None:
                 log(f"  pipeline {pi} {st.name:<24} host "
                     f"{(st.add_input_ns + st.get_output_ns) / 1e6:9.3f} ms; pages in "
                     f"{st.input_pages}, out {st.output_pages}")
+
+
+class ProbeStreams:
+    """Counts, while on, the probe-kernel calls against each open-addressing
+    table (one table per probe stream)."""
+
+    def __enter__(self):
+        from presto_tpu_torch.ops import hash_join
+
+        self.module, self.original = hash_join, hash_join.probe_match_pallas
+        self.calls = {}
+        streams = self
+
+        def probe(ph_keys, ph_rows, probe_keys, probe_mask, trips):
+            key = id(ph_rows)
+            streams.calls[key] = streams.calls.get(key, 0) + 1
+            return streams.original(ph_keys, ph_rows, probe_keys, probe_mask, trips)
+
+        hash_join.probe_match_pallas = probe
+        return self
+
+    def __exit__(self, *exc):
+        self.module.probe_match_pallas = self.original
+        return False
+
+
+class KernelCapture:
+    """Records, while on, the inputs of the largest join-build insert (one
+    key component), of the first grouping insert (more components) and of
+    the first probe, as the query path gives them to the wrappers."""
+
+    def __enter__(self):
+        from presto_tpu_torch.ops import pallas_hash as ph
+
+        self.ph, self.insert, self.probe = ph, ph.insert_table, ph.probe_table
+        self.build = self.grouping = self.probe_args = None
+        cap = self
+
+        def insert(comps, mask, slots, *rest, **kw):
+            if comps.shape[0] == 1:
+                if cap.build is None or comps.shape[1] > cap.build[0].shape[1]:
+                    cap.build = (comps, mask, slots)
+            elif cap.grouping is None:
+                cap.grouping = (comps, mask, slots)
+            return cap.insert(comps, mask, slots, *rest, **kw)
+
+        def probe(slot_keys, slot_rows, keys, mask, trips):
+            if cap.probe_args is None:
+                cap.probe_args = (slot_keys, slot_rows, keys, mask, trips)
+            return cap.probe(slot_keys, slot_rows, keys, mask, trips)
+
+        # the wrappers count their launches in the module-level function's
+        # attribute, which is this stand-in while the capture is on
+        insert.launches, probe.launches = self.insert.launches, self.probe.launches
+        ph.insert_table, ph.probe_table = insert, probe
+        return self
+
+    def __exit__(self, *exc):
+        self.insert.launches = self.ph.insert_table.launches
+        self.probe.launches = self.ph.probe_table.launches
+        self.ph.insert_table, self.ph.probe_table = self.insert, self.probe
+        return False
+
+
+def run_join_phase(device, schema: str = "sf1"):
+    """Q5, Q9 and Q13 as SQL with ``hash_kernels="pallas"``: a cold run, a
+    warm run with the counters set to 0 just before it, and the query under
+    ``hash_kernels="sorted"``; rows against numpy oracles and the sorted
+    run. Returns the warm runs' kernel launches per query and the kernel
+    inputs captured on Q9's cold run."""
+    import torch
+
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    names = ("pallas.join_builds", "pallas.join_fallbacks", "pallas.agg_pages",
+             "pallas.agg_fallbacks", "join.expansion_chunks", "join.expanded_rows")
+    # join builds on the table, as the reference counts them at tiny
+    want_builds = {5: 3, 9: 4, 13: 0}
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    launches, capture = {}, None
+    for q in (5, 9, 13):
+        runner = sql_runner(device, "pallas", schema)
+        t0 = time.perf_counter()
+        if q == 9:
+            with KernelCapture() as capture:
+                runner.execute(QUERIES[q])
+        else:
+            runner.execute(QUERIES[q])
+        sync()
+        cold_s = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        before = {k: METRICS.counter_value(k) for k in names}
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        with ProbeStreams() as streams:
+            t0 = time.perf_counter()
+            rows = runner.execute(QUERIES[q]).rows
+            sync()
+            warm_s = time.perf_counter() - t0
+        got = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        delta = {k: METRICS.counter_value(k) - before[k] for k in names}
+        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        log(f"SQL Q{q} {schema} launches on the warm run: {got}; probe calls per stream "
+            f"{sorted(streams.calls.values())}; counters {delta}")
+        builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
+        if builds != want_builds[q] or delta["pallas.join_fallbacks"] != 0 or \
+                delta["pallas.agg_fallbacks"] != 0:
+            raise AssertionError(f"Q{q}: join builds {builds} (want {want_builds[q]}) or a "
+                                 f"fallback: {delta}")
+        if on_card and got["insert"] != builds + pages:
+            raise AssertionError(f"Q{q}: insert launches {got['insert']} != join builds "
+                                 f"{builds} + grouped pages {pages}")
+        if len(streams.calls) != builds or (on_card and got["probe"] != sum(
+                streams.calls.values())):
+            raise AssertionError(f"Q{q}: {builds} tables but probe calls per stream "
+                                 f"{streams.calls}, probe launches {got['probe']}")
+        if q in (5, 13) and not delta["join.expanded_rows"]:
+            raise AssertionError(f"Q{q}: the duplicate-key join did not expand: {delta}")
+        launches[q] = got
+        want, source_rows = JOIN_ORACLES[q](schema)
+        if not same_rows(rows, want):
+            raise AssertionError(f"SQL Q{q} rows differ from the numpy oracle:\n{rows}\n{want}")
+        t0 = time.perf_counter()
+        sorted_rows = sql_runner(device, "sorted", schema).execute(QUERIES[q]).rows
+        sync()
+        sorted_s = time.perf_counter() - t0
+        if not same_rows(sorted_rows, want):
+            raise AssertionError(f"SQL Q{q} rows under hash_kernels='sorted' differ")
+        log(f"SQL Q{q} {schema}: {len(rows)} rows equal to the numpy oracle and to the "
+            f"sorted run; cold wall {cold_s:.3f}s; warm wall {warm_s:.4f}s = "
+            f"{source_rows / warm_s:.0f} source rows/s ({source_rows} rows); sorted run "
+            f"{sorted_s:.4f}s")
+        if q == 5:
+            log(f"SQL Q5 {schema} expansion: {int(delta['join.expansion_chunks'])} chunks, "
+                f"{int(delta['join.expanded_rows'])} expanded rows; peak device memory "
+                f"{peak} bytes (torch.cuda.max_memory_allocated)")
+        for r in rows[:4]:
+            log("  " + " | ".join(str(v) for v in r))
+    for q in (9, 13):
+        runner = sql_runner(device, "pallas", schema)
+        if on_card:
+            profile_q3(device, schema, run=lambda: runner.execute(QUERIES[q]),
+                       label=f"SQL Q{q}")
+    return launches, capture
+
+
+def check_path_kernels(device, capture, reps: int = 20, plain_reps: int = 3) -> None:
+    """Both kernels against their plain versions, bit for bit, at the shapes
+    SQL Q9 gave them (its largest join build, its first grouped page and its
+    first probe), with their times and bounds."""
+    from presto_tpu_torch.ops import pallas_hash as ph
+
+    if capture is None or None in (capture.build, capture.grouping, capture.probe_args):
+        raise AssertionError("SQL Q9 did not give both kernels their inputs")
+    for label, (comps, mask, slots) in (("join build", capture.build),
+                                        ("grouping", capture.grouping)):
+        got = ph.insert_table(comps, mask, slots)
+        err = _max_abs_err(zip(got, ph.insert_table_reference(comps, mask, slots)))
+        if err != 0:
+            raise AssertionError(f"Q9 {label} insert differs from its plain version: {err}")
+        ncomps, n = comps.shape
+        live = int(mask.sum())
+        nbytes = n + live * ncomps * 8 + n * 4 + ncomps * slots * 8 + slots * 4 + 3 * 4
+        ms = time_ms(lambda: ph.insert_table(comps, mask, slots), reps, device)
+        dev_ms = device_ms(lambda: ph.insert_table(comps, mask, slots), reps, "ht_insert_")
+        plain_ms = time_ms(lambda: ph.insert_table_reference(comps, mask, slots),
+                           plain_reps, device)
+        log(f"KERNEL insert at the SQL Q9 {label} shape: ncomps={ncomps} n={n} live={live} "
+            f"slots={slots}: bit-identical, stats {got[3].tolist()}; kernel {ms:.4f} ms "
+            f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{nbytes / HBM_RATE * 1e3:.4f} ms ({nbytes} bytes)")
+    slot_keys, slot_rows, keys, mask, trips = capture.probe_args
+    got = ph.probe_table(slot_keys, slot_rows, keys, mask, trips)
+    err = _max_abs_err([(got, ph.probe_table_reference(slot_keys, slot_rows, keys, mask,
+                                                       trips))])
+    if err != 0:
+        raise AssertionError(f"Q9 probe differs from its plain version: {err}")
+    nbytes = probe_bytes(slot_keys, slot_rows, keys, mask, trips)
+    ms = time_ms(lambda: ph.probe_table(slot_keys, slot_rows, keys, mask, trips), reps, device)
+    dev_ms = device_ms(lambda: ph.probe_table(slot_keys, slot_rows, keys, mask, trips), reps,
+                       "ht_probe_rows")
+    plain_ms = time_ms(lambda: ph.probe_table_reference(slot_keys, slot_rows, keys, mask,
+                                                        trips), plain_reps, device)
+    log(f"KERNEL probe at the SQL Q9 shape: slots={slot_rows.shape[0]} n={keys.shape[0]} "
+        f"live={int(mask.sum())} trips={trips}: bit-identical, {int((got >= 0).sum())} hits; "
+        f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{nbytes / HBM_RATE * 1e3:.4f} ms ({nbytes} bytes)")
 
 
 def check_grouping_insert(device, capture, reps: int = 20, plain_reps: int = 3) -> None:
@@ -709,6 +1037,9 @@ def main() -> int:
         launches, capture = run_sql_phase(device)
         sql_layers(device)
         check_grouping_insert(device, capture)
+        join_launches, join_capture = run_join_phase(device)
+        sql_layers(device, queries=(5, 9, 13), warm_up=False)  # the phase warmed them
+        check_path_kernels(device, join_capture)
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -718,7 +1049,9 @@ def main() -> int:
                 "replaces": TPU_KERNELS[k], "launches": launches[k],
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                "bound_by": "bytes", "library_ms": None}
+                "bound_by": "bytes", "library_ms": None,
+                "launches_by_query": {"SQL Q3": launches[k],
+                                      **{f"SQL Q{q}": n[k] for q, n in join_launches.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -60,6 +60,10 @@ class Dictionary:
         """Code for value, or -1 if absent (comparisons against it are then const-false)."""
         return self.index().get(value, -1)
 
+    def codes_where(self, predicate) -> np.ndarray:
+        """Host-side predicate over dictionary entries -> int32 array of matching codes."""
+        return np.asarray([i for i, v in enumerate(self.values) if predicate(v)], dtype=np.int32)
+
     def lookup(self, codes: np.ndarray) -> np.ndarray:
         out = np.empty(len(codes), dtype=object)
         mask = codes >= 0

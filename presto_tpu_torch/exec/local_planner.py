@@ -1,13 +1,15 @@
 """Local execution planner of the PyTorch port: logical plan -> driver pipelines.
 
 Counterpart of ``presto_tpu/exec/local_planner.py`` for the plan shapes of
-TPC-H Q1, Q3 and Q6, on an explicit ``device``:
+TPC-H Q1, Q3, Q5, Q6, Q9 and Q13, on an explicit ``device``:
 
 - Filter/Project chains collapse into one PageProcessor, which runs inside
   the scan when the chain sits on a TableScanNode (``visit_fused_stage``).
 - A join's build side becomes its own pipeline ending in a
   JoinBuildOperatorFactory, whose strategy ``hash_kernels`` picks
   (``_join_strategy``); the probe pipeline blocks on its lookup source.
+  INNER and LEFT joins take any number of equi-keys, and builds that the
+  connector's unique column sets do not prove unique expand.
 - Symbols resolve to channels here (SymbolRef -> InputRef).
 
 Each pipeline is one driver, and nothing is fused across operators: the
@@ -182,17 +184,15 @@ class LocalExecutionPlanner:
 
     def visit_JoinNode(self, node: JoinNode) -> Chain:
         jt = self._join_type(node)
-        if len(node.criteria) != 1:
-            raise NotImplementedError(
-                f"{len(node.criteria)}-key joins are not ported to presto_tpu_torch "
-                "(single-key INNER and LEFT joins are)")
+        if not node.criteria:
+            raise NotImplementedError("cross joins are not ported to presto_tpu_torch")
         if node.residual is not None:
             raise NotImplementedError("join filters are not ported to presto_tpu_torch")
         probe_chain = self.visit(node.left)
         build_chain = self.visit(node.right)
-        (left_key, right_key), = node.criteria
-        build_key_ch = [build_chain.channel(right_key.name)]
-        probe_key_ch = [probe_chain.channel(left_key.name)]
+        right_keys = [r for _, r in node.criteria]
+        build_key_ch = [build_chain.channel(r.name) for r in right_keys]
+        probe_key_ch = [probe_chain.channel(l.name) for l, _ in node.criteria]
 
         out_syms = node.outputs()
         probe_names = {s.name for s in probe_chain.symbols}
@@ -202,11 +202,7 @@ class LocalExecutionPlanner:
         payload_ch = [build_chain.channel(n) for n in payload_names]
         payload_meta = build_chain.meta(payload_names)
 
-        unique = self._keys_unique(node.right, [right_key])
-        if not unique:
-            raise NotImplementedError(
-                "joins whose build keys are not provably unique are not ported to "
-                "presto_tpu_torch")
+        unique = self._keys_unique(node.right, right_keys)
         build_fac = JoinBuildOperatorFactory(
             next(self._ids), build_key_ch, payload_ch, payload_meta,
             strategy=self._join_strategy(jt, build_key_ch, unique), unique=unique,

@@ -1,7 +1,7 @@
 """Row-expression IR and its compiler to torch closures.
 
 Counterpart of ``presto_tpu/ops/expressions.py`` for the functions that TPC-H
-Q1, Q3 and Q6 use. The IR is the same; the compiler composes closures over
+Q1, Q3, Q5, Q6, Q9 and Q13 use. The IR is the same; the compiler composes closures over
 tensors instead of jnp arrays. Its rules are the reference's:
 
 - every compiled node yields ``(data, nulls)``, with ``nulls=None`` meaning
@@ -9,7 +9,10 @@ tensors instead of jnp arrays. Its rules are the reference's:
 - DECIMAL is a scaled int64: multiply adds scales and rescales with floor
   division, add/subtract align scales first, comparisons align scales;
 - VARCHAR is dictionary codes, and string predicates resolve the literal
-  against the column's dictionary when the expression is compiled;
+  against the column's dictionary when the expression is compiled; LIKE
+  resolves to the set of matching codes, or, over a
+  ``PackedWordsDictionary``, to a dynamic program over the packed word
+  fields (``_packed_like``);
 - DATE is int32 days, with the reference's civil-date helpers.
 
 Anything else raises ``NotImplementedError``.
@@ -17,7 +20,8 @@ Anything else raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+import re
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -350,6 +354,8 @@ class ExpressionCompiler:
             return self._compile_comparison(name, expr.args[0], expr.args[1])
         if name in _ARITH:
             return self._compile_arithmetic(expr)
+        if name == "like":
+            return self._compile_like(expr)
         if name in ("year", "month", "day"):
             f = self._compile(expr.args[0])[0]
             part = ("year", "month", "day").index(name)
@@ -359,6 +365,44 @@ class ExpressionCompiler:
                 return _civil_from_days(d.to(torch.int32))[part].to(torch.int64), n
             return fn
         raise NotImplementedError(f"function {name} is not ported yet")
+
+    def _compile_like(self, expr: Call):
+        """LIKE against a literal pattern: the matching codes of the value's
+        dictionary (OR-ed equalities up to 64 codes, sorted membership
+        above), or the word-field program over a ``PackedWordsDictionary``.
+        A ``FormattedDictionary`` refuses (it has no entries to match)."""
+        value, pattern = expr.args[0], expr.args[1]
+        escape = expr.args[2].value if len(expr.args) > 2 else None
+        if not isinstance(pattern, Constant):
+            raise NotImplementedError("LIKE with a non-literal pattern is not ported")
+        vf, d = self._compile(value)
+        if d is None:
+            raise NotImplementedError("LIKE over a column without a dictionary is not ported")
+        from ..connectors.tpch.generator import PackedWordsDictionary
+
+        if isinstance(d, PackedWordsDictionary):
+            # escaped patterns would need escape-aware tokenization
+            fn = None if escape is not None else _packed_like(d, pattern.value, vf)
+            if fn is None:
+                raise NotImplementedError(f"LIKE {pattern.value!r} on packed column")
+            return fn
+        codes = d.codes_where(_like_to_predicate(pattern.value, escape))
+        sorted_codes = torch.from_numpy(np.sort(codes).astype(np.int32))
+
+        def fn(datas, nulls):
+            vd, vn = vf(datas, nulls)
+            if len(codes) == 0:
+                return torch.zeros(vd.shape, dtype=torch.bool, device=vd.device), vn
+            if len(codes) <= 64:
+                acc = vd == int(codes[0])
+                for c in codes[1:]:
+                    acc = acc | (vd == int(c))
+                return acc, vn
+            # large match sets: sorted membership
+            sc = sorted_codes.to(vd.device)
+            pos = torch.searchsorted(sc, vd.to(torch.int32).contiguous()).clamp(0, len(codes) - 1)
+            return sc[pos] == vd, vn
+        return fn
 
     def _compile_comparison(self, op: str, left: RowExpression, right: RowExpression):
         if is_string(left.type) or is_string(right.type):
@@ -459,6 +503,110 @@ class ExpressionCompiler:
             d = {"add": torch.add, "subtract": torch.sub, "multiply": torch.mul}[name](ld, rd)
             return d.to(torch_dtype(out)), n
         return fn
+
+
+def _like_to_predicate(pattern: str, escape: Optional[str] = None) -> Callable[[str], bool]:
+    """SQL LIKE -> python predicate over one dictionary entry."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if escape and c == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if c == "%":
+            out.append(".*")
+        elif c == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    rx = re.compile("^" + "".join(out) + "$", re.DOTALL)
+    return lambda s: rx.match(s) is not None
+
+
+def _packed_like(d, pattern: str, vf):
+    """LIKE over a ``PackedWordsDictionary`` column, exactly, without making
+    strings: a pattern ``%t1%t2%...%`` (tokens free of ``%``, ``_`` and the
+    separator; either end may be anchored) is an ordered containment test,
+    run as a dynamic program over the packed word fields. State s = "the
+    first s tokens matched"; a field's word moves s to e when tokens[s:e]
+    appear in order inside it. The word -> move tables are built on the
+    host; the device does one gather per (field, move). Returns None when
+    the pattern has another shape."""
+    if "_" in pattern:
+        return None
+    anchored_start = not pattern.startswith("%")
+    anchored_end = not pattern.endswith("%")
+    tokens = [t for t in pattern.split("%") if t != ""]
+    if not tokens or any(d.sep in t for t in tokens):
+        return None
+    k = len(tokens)
+
+    def contains_seq(word: str, toks, at_start=False, at_end=False) -> bool:
+        """tokens appear in order within the word; optionally the first must
+        start at position 0 / the last must end at the word's end."""
+        pos = 0
+        for i, t in enumerate(toks):
+            if i == 0 and at_start:
+                if not word.startswith(t):
+                    return False
+                j = 0
+            else:
+                j = word.find(t, pos)
+                if j < 0:
+                    return False
+            pos = j + len(t)
+        if at_end and toks:
+            last = toks[-1]
+            # the last token as far right as possible after the prior ones
+            prior_end = 0
+            for t in toks[:-1]:
+                prior_end = word.find(t, prior_end) + len(t)
+            return word.endswith(last) and word.rfind(last) >= prior_end
+        return True
+
+    # move tables: a word moves the program from "s tokens matched" to "e
+    # matched". Anchored variants pin the first/last token to the word's
+    # boundary; an anchored start also restricts the match to field 0.
+    tables = {}
+    for s in range(k):
+        for e in range(s + 1, k + 1):
+            a_s = anchored_start and s == 0
+            a_e = anchored_end and e == k
+            tables[(s, e, a_s, a_e)] = torch.from_numpy(np.asarray(
+                [contains_seq(w, tokens[s:e], a_s, a_e) for w in d.words], dtype=bool))
+    bits, nf, nw = d.BITS, d.n_fields, len(d.words)
+    on_device = {}
+
+    def fn(datas, nulls):
+        vd, vn = vf(datas, nulls)
+        dev = vd.device
+        if dev not in on_device:
+            on_device[dev] = {key: t.to(dev) for key, t in tables.items()}
+        dev_tables = on_device[dev]
+        c = vd.to(torch.int64)
+        states = [torch.ones(c.shape, dtype=torch.bool, device=dev)] + \
+            [torch.zeros(c.shape, dtype=torch.bool, device=dev) for _ in range(k)]
+        for f in range(nf):
+            wid = ((c >> (bits * f)) & ((1 << bits) - 1)).clamp(0, nw - 1)
+            new = list(states)
+            for e in range(1, k + 1):
+                for s in range(e):
+                    a_s = anchored_start and s == 0 and f == 0
+                    a_e = anchored_end and e == k
+                    if anchored_start and s == 0 and f > 0:
+                        continue  # the match must begin in field 0
+                    if a_e and f != nf - 1:
+                        continue  # the match must end in the last field
+                    hit = dev_tables[(s, e, a_s, a_e)][wid]
+                    new[e] = new[e] | (states[s] & hit)
+            states = new
+            if anchored_start and f == 0:
+                states[0] = torch.zeros(c.shape, dtype=torch.bool, device=dev)
+        return states[k], vn
+    return fn
 
 
 def _unscale(d: torch.Tensor, scale: int) -> torch.Tensor:

@@ -1,11 +1,14 @@
 """Hash join of the PyTorch port: sorted and open-addressing lookup sources.
 
-Counterpart of ``presto_tpu/ops/hash_join.py`` for the unique-build INNER and
-LEFT probes and the SEMI probe, exact-key or with a join filter (one output
-page per probe page). Two build strategies:
+Counterpart of ``presto_tpu/ops/hash_join.py`` for INNER and LEFT joins on
+any number of keys, with unique or duplicate build keys, and the SEMI probe,
+exact-key or with a join filter. Two build strategies:
 
-1. SORTED: build rows sorted by their int64 key; the probe binary-searches
-   the sorted keys and verifies the true key (``probe_match_sorted``).
+1. SORTED: build rows sorted by their int64 combined key; the probe
+   binary-searches the sorted keys and verifies the true keys
+   (``probe_match_sorted``). A multi-key build packs its keys into one int64
+   exactly when their live ranges fit 62 bits (``_plan_packing``,
+   ``_pack_key``) and mixes them with ``combined_key`` otherwise.
 2. PALLAS: the open-addressing table of ``ops/pallas_hash.py``, built by the
    insert kernel and probed by the probe kernel (CUDA on the card, the plain
    versions on the CPU). Only unique single-key INNER/LEFT builds may take
@@ -14,10 +17,17 @@ page per probe page). Two build strategies:
    time, as in the reference, and the ``pallas.join_builds`` and
    ``pallas.join_fallbacks`` counters record which happened.
 
+A unique build with exact keys emits one output page per probe page
+(``probe_match_sorted`` or the probe kernel). Every other INNER/LEFT join
+expands: each probe row's match range in the sorted keys is counted
+(``_range_kernel``), and the expanded rows are emitted one page-capacity
+chunk at a time (``_expand_kernel``), each chunk only when the consumer
+asks for it, with the true keys verified and LEFT's null-build row after a
+probe row's matches.
+
 A build row's id is its position in the concatenation of the compacted
-build pages, as in the reference. The dense strategy, multi-key builds,
-duplicate-key INNER/LEFT expansion, FULL/RIGHT/ANTI joins, INNER/LEFT join
-filters and spill are not ported yet.
+build pages, as in the reference. The dense strategy, FULL/RIGHT/ANTI
+joins, INNER/LEFT join filters and spill are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch
 from .. import resolve_device
 from ..block import Block, Dictionary, Page, _compact, torch_dtype
 from ..types import Type
+from ..utils.metrics import METRICS
 from .operator import Operator, OperatorContext, OperatorFactory, timed
 
 INNER, LEFT, SEMI = "inner", "left", "semi"
@@ -39,6 +50,10 @@ _M1 = 0xFF51AFD7ED558CCD - (1 << 64)
 _M2 = 0xC4CEB9FE1A85EC53 - (1 << 64)
 _GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
 _I64_MAX = 2 ** 63 - 1
+_I64_MIN = -2 ** 63
+# a probe key outside the build's packing ranges: never equal to a packed
+# build key, which is >= 0
+_PACK_SENTINEL = _I64_MIN // 2
 
 
 def _shr33(x: torch.Tensor) -> torch.Tensor:
@@ -80,16 +95,32 @@ class LookupSource:
     ph_keys: Optional[torch.Tensor] = None  # (slots,) int64 stored keys
     ph_rows: Optional[torch.Tensor] = None  # (slots,) int32 row idx, -1 empty
     ph_trips: int = 0                       # probe trip count (pow2)
+    # exact multi-key packing (per key column, host ints): when the build
+    # keys' live ranges fit 62 bits the combined key is a bijective pack
+    pack_offsets: Optional[Tuple[int, ...]] = None
+    pack_shifts: Optional[Tuple[int, ...]] = None
+    pack_widths: Optional[Tuple[int, ...]] = None
     payload_nulls: Tuple = ()
 
     @property
     def exact_keys(self) -> bool:
-        """True when combined-key equality implies true key equality: a
-        single integer (or boolean) key."""
-        if len(self.key_arrays) != 1:
-            return False
+        """True when sorted-key equality implies true key equality: a single
+        integer (or boolean) key, or a packed multi-key. A mixed multi-key
+        and a float single key (``combined_key`` truncates 1.2 and 1.5 to
+        one key) range-scan and verify their candidates instead."""
+        if len(self.key_arrays) > 1:
+            return self.pack_offsets is not None
         k = self.key_arrays[0]
         return not (k.is_floating_point() or k.is_complex())
+
+    def combine_probe(self, probe_keys) -> torch.Tensor:
+        """Probe keys -> the build's combined-key space: packed when the
+        build is packed (out-of-range probes map to the sentinel), else
+        ``combined_key``."""
+        if self.pack_offsets is None:
+            return combined_key(probe_keys)
+        return _pack_key(probe_keys, self.pack_offsets, self.pack_shifts,
+                         self.pack_widths)
 
 
 class LookupSourceFactory:
@@ -144,6 +175,58 @@ def _sorted_index(ck: torch.Tensor, mask: torch.Tensor):
     return sorted_key, order.to(torch.int32)
 
 
+def _pack_key(keys, offsets, shifts, widths) -> torch.Tensor:
+    """Bijective multi-key pack: key i, less its offset, in ``widths[i]``
+    bits at ``shifts[i]``. A value outside its range maps the row to
+    ``_PACK_SENTINEL``."""
+    acc = torch.zeros(keys[0].shape[0], dtype=torch.int64, device=keys[0].device)
+    oob = torch.zeros(keys[0].shape[0], dtype=torch.bool, device=keys[0].device)
+    for k, off, sh, w in zip(keys, offsets, shifts, widths):
+        v = k.to(torch.int64) - off
+        oob = oob | (v < 0) | (v >= (1 << w))
+        acc = acc | (v.clamp(min=0) << sh)
+    return torch.where(oob, _PACK_SENTINEL, acc)
+
+
+def _plan_packing(keys, mask):
+    """Host-side packing plan: per-key offsets, shifts and widths (tuples of
+    ints) from the live rows' ranges, or None when the widths sum above 62
+    bits. One device sync per key column."""
+    offsets, widths = [], []
+    for k in keys:
+        if not k.is_floating_point():
+            k = k.to(torch.int64)
+        mn, mx = torch.stack([torch.where(mask, k, _I64_MAX).min(),
+                              torch.where(mask, k, _I64_MIN).max()]).tolist() \
+            if k.numel() else (0, -1)
+        mn, mx = int(mn), int(mx)
+        if mx < mn:  # no live rows
+            mn, mx = 0, 0
+        offsets.append(mn)
+        widths.append(max((mx - mn).bit_length(), 1))
+    if sum(widths) > 62:
+        return None
+    shifts, acc = [], 0
+    for w in reversed(widths):
+        shifts.append(acc)
+        acc += w
+    return tuple(offsets), tuple(reversed(shifts)), tuple(widths)
+
+
+def _build_sorted(keys, payload, mask, payload_meta, unique: bool) -> "LookupSource":
+    """SORTED build: a multi-key build packs its keys when they fit and
+    mixes them otherwise, then the combined keys are sorted, stably."""
+    pack = _plan_packing(keys, mask) if len(keys) > 1 else None
+    ck = _pack_key(keys, *pack) if pack is not None else combined_key(keys)
+    sorted_key, sorted_row = _sorted_index(ck, mask)
+    return LookupSource(kind="sorted", key_arrays=keys, payload=payload,
+                        payload_meta=payload_meta, unique=unique,
+                        sorted_key=sorted_key, sorted_row=sorted_row,
+                        pack_offsets=pack[0] if pack else None,
+                        pack_shifts=pack[1] if pack else None,
+                        pack_widths=pack[2] if pack else None)
+
+
 class JoinBuildOperator(Operator):
     """HashBuilderOperator analogue (sink side of the build pipeline)."""
 
@@ -174,12 +257,12 @@ class JoinBuildOperator(Operator):
 
     def _build(self) -> LookupSource:
         kc = len(self.f.key_channels)
-        if kc != 1:
-            raise NotImplementedError("multi-key join builds are not ported yet")
         if not self._pages:
             dev = self.f.device
             return LookupSource(
-                kind="sorted", key_arrays=(torch.zeros(1, dtype=torch.int64, device=dev),),
+                kind="sorted",
+                key_arrays=tuple(torch.zeros(1, dtype=torch.int64, device=dev)
+                                 for _ in range(kc)),
                 payload=tuple(torch.zeros(1, dtype=torch_dtype(t), device=dev)
                               for (t, _) in self.f.payload_meta),
                 payload_meta=self.f.payload_meta,
@@ -192,11 +275,7 @@ class JoinBuildOperator(Operator):
         if self.f.strategy == "pallas":
             src = self._build_pallas(keys, payload, mask)
         if src is None:
-            sorted_key, sorted_row = _sorted_index(combined_key(keys), mask)
-            src = LookupSource(
-                kind="sorted", key_arrays=keys, payload=payload,
-                payload_meta=self.f.payload_meta, unique=self.f.unique,
-                sorted_key=sorted_key, sorted_row=sorted_row)
+            src = _build_sorted(keys, payload, mask, self.f.payload_meta, self.f.unique)
         src.payload_nulls = pnulls
         return src
 
@@ -205,7 +284,6 @@ class JoinBuildOperator(Operator):
         [overflow, max_run, distinct] stats, which buys the probe trip count;
         returns None (the caller builds sorted) on an oversized table, an
         insert overflow or an excessive probe bound."""
-        from ..utils.metrics import METRICS
         from . import pallas_hash as ph
 
         n = int(keys[0].shape[0])
@@ -330,14 +408,77 @@ def unique_join_page(page: Page, row, payload, payload_nulls,
     return Page(tuple(blocks), out_mask)
 
 
+def _range_kernel(sorted_key, probe_ck, probe_mask, emit_mask, left: bool = False):
+    """Match ranges per probe row: ``(lo, emit_counts, match_counts, total)``,
+    the first three int32 as in the reference, ``total`` an int64 scalar
+    (not synced here). LEFT emits one row for a live probe row without
+    matches (its null-build row)."""
+    lo = torch.searchsorted(sorted_key, probe_ck, out_int32=True)
+    hi = torch.searchsorted(sorted_key, probe_ck, right=True, out_int32=True)
+    lo = torch.where(probe_mask, lo, 0)
+    match = torch.where(probe_mask, hi, 0) - lo
+    emit = torch.where(emit_mask, match.clamp(min=1), 0) if left else match
+    return lo, emit, match, emit.sum(dtype=torch.int64)
+
+
+def _expand_kernel(page: Page, probe_keys, lo, offsets, match_counts, sorted_row,
+                   key_arrays, payload, payload_nulls, probe_channels, build_channels,
+                   out_base: int, total: int, left: bool, payload_meta) -> Page:
+    """Expanded output rows [out_base, out_base + capacity) as one page of
+    the probe page's capacity. Output slot j belongs to the first probe row
+    whose running emit count (``offsets``, int64) exceeds j; for LEFT an emit
+    slot beyond the row's match count is its null-build row. Candidates are
+    verified on the true keys."""
+    cap = page.mask.shape[0]
+    j = torch.arange(cap, dtype=torch.int64, device=page.device) + out_base
+    live = j < total
+    pi = torch.searchsorted(offsets, j, right=True).clamp(0, cap - 1)
+    prev = torch.where(pi > 0, offsets[(pi - 1).clamp(min=0)], 0)
+    k = j - prev
+    is_match = k < match_counts[pi]
+    spos = (lo[pi] + k).clamp(0, sorted_row.shape[0] - 1)
+    brow = torch.where(is_match, sorted_row[spos], 0).long()
+    ok = live
+    for pk, bk in zip(probe_keys, key_arrays):
+        same = bk[brow] == pk[pi]
+        ok = ok & (~is_match | same) if left else ok & same
+    blocks = []
+    for c in probe_channels:
+        b = page.blocks[c]
+        nulls = b.nulls[pi] if b.nulls is not None else None
+        blocks.append(Block(b.type, b.data[pi], nulls, b.dictionary))
+    for bi, (t, d) in zip(build_channels, payload_meta):
+        bn = payload_nulls[bi] if bi < len(payload_nulls) else None
+        nulls = bn[brow] if bn is not None else None
+        if left:
+            nulls = ~is_match if nulls is None else (nulls | ~is_match)
+        blocks.append(Block(t, payload[bi][brow], nulls, d))
+    return Page(tuple(blocks), ok)
+
+
+@dataclasses.dataclass
+class _Expansion:
+    """One probe page's expansion, emitted chunk by chunk."""
+    page: Page
+    probe_keys: Tuple[torch.Tensor, ...]
+    lo: torch.Tensor
+    offsets: torch.Tensor  # int64 running emit counts
+    match_counts: torch.Tensor
+    total: int
+    next_base: int = 0
+
+
 class LookupJoinOperator(Operator):
-    """Probe side: one output page per probe page."""
+    """Probe side: one output page per probe page for a unique build with
+    exact keys; otherwise the probe page's expansion, one chunk per
+    ``get_output``."""
 
     def __init__(self, context: OperatorContext, factory: "LookupJoinOperatorFactory"):
         super().__init__(context)
         self.f = factory
         self._outputs: List[Page] = []
         self._source: Optional[LookupSource] = None
+        self._expansion: Optional[_Expansion] = None
 
     @property
     def output_types(self) -> List[Type]:
@@ -354,36 +495,27 @@ class LookupJoinOperator(Operator):
 
     def needs_input(self) -> bool:
         return (not self._finishing and self._source is not None
-                and len(self._outputs) < 4)
+                and self._expansion is None and len(self._outputs) < 4)
 
     @timed("add_input_ns")
     def add_input(self, page: Page) -> None:
         self.context.record_input(page, page.capacity)
         src = self._source
         jt = self.f.join_type
-        probe_keys = [page.blocks[c].data for c in self.f.probe_key_channels]
+        probe_keys = tuple(page.blocks[c].data for c in self.f.probe_key_channels)
         probe_mask = page.mask
         for c in self.f.probe_key_channels:
             if page.blocks[c].nulls is not None:
                 probe_mask = probe_mask & ~page.blocks[c].nulls
-        if len(probe_keys) != 1:
-            raise NotImplementedError("multi-key probes are not ported yet")
         if jt == SEMI and (self.f.filter_fn is not None or not src.exact_keys):
             self._outputs.append(self._semi_expanded(page, probe_keys, probe_mask))
             return
-        if not src.exact_keys:
-            raise NotImplementedError("float-key INNER/LEFT probes are not ported yet")
-        if jt in (INNER, LEFT) and not src.unique:
-            raise NotImplementedError("duplicate-key join expansion is not ported yet")
         if jt not in (INNER, LEFT, SEMI):
             raise NotImplementedError(f"{jt} join is not ported yet")
-        if src.kind == "pallas":
-            row = probe_match_pallas(src.ph_keys, src.ph_rows, probe_keys[0],
-                                     probe_mask, src.ph_trips)
-        else:
-            row = probe_match_sorted(src.sorted_key, src.sorted_row,
-                                     combined_key(probe_keys), probe_keys,
-                                     probe_mask, src.key_arrays)
+        if jt != SEMI and not (src.unique and src.exact_keys):
+            self._start_expansion(page, probe_keys, probe_mask)
+            return
+        row = self._match_rows(src, probe_keys, probe_mask)
         matched = row >= 0
         if jt == SEMI:
             sel = page.select_channels(self.f.probe_output_channels)
@@ -395,6 +527,49 @@ class LookupJoinOperator(Operator):
             [src.payload_meta[i] for i in self.f.build_output_channels],
             jt == INNER, jt == LEFT))
 
+    @staticmethod
+    def _match_rows(src: LookupSource, probe_keys, probe_mask):
+        if src.kind == "pallas":
+            return probe_match_pallas(src.ph_keys, src.ph_rows, probe_keys[0],
+                                      probe_mask, src.ph_trips)
+        return probe_match_sorted(src.sorted_key, src.sorted_row,
+                                  src.combine_probe(probe_keys), probe_keys,
+                                  probe_mask, src.key_arrays)
+
+    def _start_expansion(self, page: Page, probe_keys, probe_mask) -> None:
+        """Count the page's expanded rows (one host sync) and keep what its
+        chunks need; ``get_output`` emits them one at a time."""
+        src = self._source
+        left = self.f.join_type == LEFT
+        if left and not src.exact_keys:
+            # a mixed-hash collision would mask a probe row's only match slots and
+            # silently drop the row; LEFT semantics need exact combined keys
+            raise NotImplementedError(
+                "multi-key LEFT join on a non-unique build needs exact-key "
+                "verification with null-row fallback (single-key LEFT is exact)")
+        lo, emit, match_counts, total = _range_kernel(
+            src.sorted_key, src.combine_probe(probe_keys), probe_mask, page.mask, left)
+        total = int(total)  # host sync: the page's output cardinality
+        METRICS.count("join.expanded_rows", total)
+        if total > 0:
+            self._expansion = _Expansion(page, probe_keys, lo,
+                                         torch.cumsum(emit, 0, dtype=torch.int64),
+                                         match_counts, total)
+
+    def _next_chunk(self) -> Page:
+        e, src, f = self._expansion, self._source, self.f
+        out = _expand_kernel(e.page, e.probe_keys, e.lo, e.offsets, e.match_counts,
+                             src.sorted_row, src.key_arrays, src.payload,
+                             src.payload_nulls, f.probe_output_channels,
+                             f.build_output_channels, e.next_base, e.total,
+                             f.join_type == LEFT,
+                             [src.payload_meta[i] for i in f.build_output_channels])
+        e.next_base += e.page.capacity
+        if e.next_base >= e.total:
+            self._expansion = None
+        METRICS.count("join.expansion_chunks")
+        return out
+
     def _semi_expanded(self, page: Page, probe_keys, probe_mask) -> Page:
         """SEMI with a join filter or inexact keys: range-scan every
         candidate build row of each probe row, verify the true keys, evaluate
@@ -402,11 +577,10 @@ class LookupJoinOperator(Operator):
         row, one page-capacity chunk of candidate pairs at a time
         (the reference's ``_emit_semi_expanded`` + ``_SemiFilterKernel``)."""
         src = self._source
-        lo = torch.searchsorted(src.sorted_key, combined_key(probe_keys))
-        hi = torch.searchsorted(src.sorted_key, combined_key(probe_keys), right=True)
-        count = torch.where(probe_mask, hi - lo, 0)
-        offsets = torch.cumsum(count, 0)
-        total = int(offsets[-1]) if offsets.numel() else 0
+        lo, count, _match, total = _range_kernel(
+            src.sorted_key, src.combine_probe(probe_keys), probe_mask, page.mask)
+        offsets = torch.cumsum(count, 0, dtype=torch.int64)
+        total = int(total)
         cap = page.capacity
         any_match = torch.zeros(cap, dtype=torch.bool, device=page.device)
         for base in range(0, total, cap):
@@ -450,12 +624,15 @@ class LookupJoinOperator(Operator):
     def get_output(self) -> Optional[Page]:
         if self._outputs:
             out = self._outputs.pop(0)
-            self.context.record_output(out, out.capacity)
-            return out
-        return None
+        elif self._expansion is not None:
+            out = self._next_chunk()
+        else:
+            return None
+        self.context.record_output(out, out.capacity)
+        return out
 
     def is_finished(self) -> bool:
-        return self._finishing and not self._outputs
+        return self._finishing and not self._outputs and self._expansion is None
 
 
 class LookupJoinOperatorFactory(OperatorFactory):

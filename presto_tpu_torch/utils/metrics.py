@@ -3,7 +3,9 @@
 Counterpart of the counter half of ``presto_tpu/utils/metrics.py``. The join
 build counts ``pallas.join_builds`` when it builds an open-addressing table
 and ``pallas.join_fallbacks`` when it falls back to the sorted build, under
-the same names as the reference.
+the same names as the reference. The expanding probe counts the rows it
+expands (``join.expanded_rows``) and the pages it emits them in
+(``join.expansion_chunks``); the reference has no such counters.
 """
 from __future__ import annotations
 

@@ -196,3 +196,32 @@ def test_insert_kernel_matches_plain_version_at_q3_sf1_grouping_shape(cuda, ncom
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert got[3][0].item() == 0 and 1400 < got[3][2].item() <= 1500
+
+
+@pytest.mark.parametrize("q", [5, 9])
+def test_join_queries_on_the_card_equal_the_cpu_run(cuda, q):
+    """SQL Q5 and Q9 at ``tiny`` with ``hash_kernels="pallas"``: the card's
+    rows and counters equal the CPU run's (the same page capacity on both),
+    and the card launched the insert once per join build and grouped page."""
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.runner import LocalQueryRunner
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    names = ("pallas.join_builds", "pallas.join_fallbacks", "pallas.agg_pages",
+             "pallas.agg_fallbacks", "join.expansion_chunks", "join.expanded_rows")
+    runs = {}
+    for dev in ("cpu", cuda):
+        session = Session(catalog="tpch", schema="tiny",
+                          properties={"hash_kernels": "pallas", "page_capacity": 1 << 18})
+        before = {k: METRICS.counter_value(k) for k in names}
+        inserts = ph.insert_table.launches
+        rows = LocalQueryRunner(session, device=dev).execute(QUERIES[q]).rows
+        delta = {k: METRICS.counter_value(k) - before[k] for k in names}
+        runs[str(dev)] = rows, delta, ph.insert_table.launches - inserts
+    (cpu_rows, cpu_delta, _), (rows, delta, inserts) = runs["cpu"], runs[str(cuda)]
+    assert rows == cpu_rows and len(rows) == {5: 5, 9: 168}[q]
+    assert delta == cpu_delta
+    assert delta["pallas.join_builds"] == {5: 3, 9: 4}[q]
+    assert delta["pallas.join_fallbacks"] == 0 == delta["pallas.agg_fallbacks"]
+    assert inserts == delta["pallas.join_builds"] + delta["pallas.agg_pages"]
