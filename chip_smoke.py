@@ -24,31 +24,44 @@ Phases, each of which must pass:
 5. one more warm Q3 under ``torch.profiler``: device idle share, top
    kernels, and the insert's device launches (at most 3 per insert call);
 6. run TPC-H Q1, Q3 and Q6 as SQL at SF1 through the port's
-   ``LocalQueryRunner(device="cuda")`` with ``hash_kernels="pallas"``: a cold
-   and a warm run each, rows equal to a numpy-only oracle over the port's
+   ``LocalQueryRunner(device="cuda")`` with ``hash_kernels="pallas"`` under
+   the session defaults (fused segments, coalesced pages): a cold and a
+   warm run each, rows equal to a numpy-only oracle over the port's
    generator (exact for decimals, dates and strings; DOUBLE to a relative
-   1e-12) and to the query under ``hash_kernels="sorted"``. For Q3 the launch
-   counters and the ``pallas.`` metrics are set to 0 just before the warm run
-   and read just after: both joins built on the table
-   (``pallas.join_builds == 2``, no fallback), insert launches equal to
-   ``join_builds + agg_pages`` and at least one probe launch per probe
-   stream; then one more warm SQL Q3 under ``torch.profiler``, and one
-   more warm run of each query timed layer by layer on the host clock;
+   1e-12), to the query run with ``segment_fusion`` and ``coalesce_pages``
+   off, and to the query under ``hash_kernels="sorted"``. The launch
+   counters and the ``pallas.`` metrics are set to 0 just before each warm
+   run and read just after; for Q3: both joins built on the table
+   (``pallas.join_builds == 2``, no fallback), no page grouped through the
+   insert (the fused grouping takes the sort partial), insert launches
+   equal to ``join_builds + agg_pages`` and at least one probe launch per
+   probe stream; then one more warm SQL Q3, fused and unfused, under
+   ``torch.profiler``, and one more warm run of each query timed layer by
+   layer on the host clock;
 7. hold the insert against its plain version, bit for bit, at the shape the
-   SQL Q3 grouping gives it (its first hash-grouped page: the key
+   unfused SQL Q3 grouping gives it (its first hash-grouped page: the key
    components, the live rows, and the slots the first page's group count
    sized), and time it;
-8. run TPC-H Q5, Q9 and Q13 as SQL at SF1 with ``hash_kernels="pallas"``
-   (multi-key joins, duplicate-key INNER and LEFT expansion, LIKE): a cold
-   and a warm run each, rows equal to numpy-only oracles and to the
-   ``hash_kernels="sorted"`` run. The counters are set to 0 just before each
-   warm run: the unique single-key builds on the table (Q5 3, Q9 4, Q13 0),
-   no fallback, insert launches equal to ``join_builds + agg_pages``, and
-   each table probed by the probe kernel at least once. Q5 prints its
-   expansion chunks, expanded rows and peak device memory; Q9 and Q13 get a
-   profiler pass; all three get the host-clock layers. Both kernels are
-   held against their plain versions at the shapes Q9 gives them;
-9. print the kernels line (JSON, with each kernel's warm-run launches per
+8. run TPC-H Q5, Q9 and Q13 as SQL at SF1 the same way (multi-key joins,
+   duplicate-key INNER and LEFT expansion, LIKE), with numpy-only oracles:
+   the unique single-key builds on the table (Q5 3, Q9 4, Q13 0), no
+   fallback, insert launches equal to ``join_builds + agg_pages``, and each
+   table probed by the probe kernel at least once. Q5 prints its expansion
+   chunks, expanded rows and peak device memory; Q9 and Q13 get a profiler
+   pass; all three get the host-clock layers. Both kernels are held against
+   their plain versions at the shapes the unfused Q9 gives them;
+9. the default path of Q1, Q3, Q5, Q6, Q9 and Q13, from the warm runs of
+   phases 6 and 8: each query's fused segments (operators, dispatches,
+   compositions, probe-kernel launches inside the segment), the coalescing's
+   pages in and out, and the warm walls fused and unfused. Fails unless the
+   segments' operator lists are those the tier-1 tests pin at schema tiny,
+   a fused segment launched the probe kernel in Q3, Q5 and Q9, insert
+   launches equal ``join_builds + agg_pages``, Q3 and Q9 grouped no page
+   through the insert, and nothing fell back. Each query but Q5 then runs
+   three more times fused and three unfused, in turns. The probe kernel is held
+   against its plain version, bit for bit, at the shape the fused probe
+   stage gives it (the fused Q3's first probe page, coalesced), and timed;
+10. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``), the card line, and last the
    result line.
 
@@ -76,6 +89,19 @@ HBM_RATE = 3.35e12
 TPU_KERNELS = {"insert": "presto_tpu/ops/pallas_hash.py:197",
                "probe": "presto_tpu/ops/pallas_hash.py:261"}
 KERNEL_SOURCE = "presto_tpu_torch/kernels/hash_table.cu"
+# the unfused, uncoalesced pipeline: the differential oracle of the default one
+UNFUSED = {"segment_fusion": False, "coalesce_pages": False}
+_LJ, _FP, _HA = "LookupJoin(inner)", "FilterProject", "HashAggregation(single)"
+# each query's fused segments, as tests/test_torch_fused_segment.py pins
+# them at schema tiny (the plan does not depend on the scale)
+SEGMENT_OPERATORS = {1: [], 6: [], 3: [[_LJ, _LJ, _FP, _HA]],
+                     5: [[_LJ] * 3, [_FP, _HA]], 9: [[_LJ] * 3, [_LJ, _FP, _HA]],
+                     13: [[_FP, _HA]]}
+# the queries whose fused segments probe an open-addressing table
+FUSED_PROBE_QUERIES = (3, 5, 9)
+COUNTERS = ("pallas.join_builds", "pallas.join_fallbacks", "pallas.agg_pages",
+            "pallas.agg_fallbacks", "join.expansion_chunks", "join.expanded_rows",
+            "coalesce.pages_in", "coalesce.pages_out")
 
 
 def log(msg: str) -> None:
@@ -639,13 +665,87 @@ def same_rows(got, want) -> bool:
     return True
 
 
-def sql_runner(device, hash_kernels: str, schema: str):
+def sql_runner(device, hash_kernels: str, schema: str, **props):
     from presto_tpu_torch.metadata import Session
     from presto_tpu_torch.runner import LocalQueryRunner
 
     return LocalQueryRunner(Session(catalog="tpch", schema=schema,
-                                    properties={"hash_kernels": hash_kernels}),
+                                    properties={"hash_kernels": hash_kernels, **props}),
                             device=device)
+
+
+def run_sql_query(device, q: int, schema: str, cold_capture=None, unfused_capture=None):
+    """SQL query ``q`` with ``hash_kernels="pallas"`` under the session
+    defaults (fused segments, coalesced pages): a cold run (under
+    ``cold_capture``), then a warm run with the launch counters and
+    ``COUNTERS`` set to 0 just before it and read just after; then the
+    query unfused (under ``unfused_capture``) and under
+    ``hash_kernels="sorted"``. Fails unless the unfused rows equal the
+    fused ones. Returns what the phases check and print."""
+    import contextlib
+
+    import torch
+
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    runner = sql_runner(device, "pallas", schema)
+    t0 = time.perf_counter()
+    with cold_capture or contextlib.nullcontext():
+        runner.execute(QUERIES[q])
+    sync()
+    cold_s = time.perf_counter() - t0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    before = {k: METRICS.counter_value(k) for k in COUNTERS}
+    ph.insert_table.launches = 0
+    ph.probe_table.launches = 0
+    with ProbeStreams() as streams:
+        t0 = time.perf_counter()
+        res = runner.execute(QUERIES[q])
+        sync()
+        warm_s = time.perf_counter() - t0
+    launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+    delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
+    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    t0 = time.perf_counter()
+    with unfused_capture or contextlib.nullcontext():
+        unfused = sql_runner(device, "pallas", schema, **UNFUSED).execute(QUERIES[q])
+    sync()
+    unfused_s = time.perf_counter() - t0
+    if not same_rows(unfused.rows, res.rows):
+        raise AssertionError(f"SQL Q{q} rows fused and unfused differ:\n{res.rows}\n"
+                             f"{unfused.rows}")
+    t0 = time.perf_counter()
+    sorted_rows = sql_runner(device, "sorted", schema).execute(QUERIES[q]).rows
+    sync()
+    sorted_s = time.perf_counter() - t0
+    return {"q": q, "rows": res.rows, "segments": (res.stats or {}).get("segments"),
+            "launches": launches, "delta": delta, "streams": dict(streams.calls),
+            "peak": peak, "cold_s": cold_s, "warm_s": warm_s, "unfused_s": unfused_s,
+            "sorted_rows": sorted_rows, "sorted_s": sorted_s}
+
+
+def check_rows(rec: dict, oracle, schema: str) -> None:
+    """The warm rows and the sorted run's against the numpy oracle; logs
+    the walls and the first rows."""
+    q = rec["q"]
+    want, source_rows = oracle(schema)
+    if not same_rows(rec["rows"], want):
+        raise AssertionError(f"SQL Q{q} rows differ from the numpy oracle:\n{rec['rows']}\n"
+                             f"{want}")
+    if not same_rows(rec["sorted_rows"], want):
+        raise AssertionError(f"SQL Q{q} rows under hash_kernels='sorted' differ")
+    warm_s = rec["warm_s"]
+    log(f"SQL Q{q} {schema}: {len(rec['rows'])} rows equal to the numpy oracle, to the "
+        f"unfused run and to the sorted run; cold wall {rec['cold_s']:.3f}s; warm wall "
+        f"{warm_s:.4f}s = {source_rows / warm_s:.0f} source rows/s ({source_rows} rows); "
+        f"unfused {rec['unfused_s']:.4f}s; sorted run {rec['sorted_s']:.4f}s")
+    for r in rec["rows"][:4]:
+        log("  " + " | ".join(str(v) for v in r))
 
 
 class GroupingCapture:
@@ -684,66 +784,35 @@ class GroupingCapture:
 
 def run_sql_phase(device, schema: str = "sf1"):
     """Q1, Q3 and Q6 as SQL through the port's LocalQueryRunner with
-    ``hash_kernels="pallas"``; returns the kernel launches of the warm Q3 run
-    and the captured grouping input."""
-    import torch
-
+    ``hash_kernels="pallas"`` under the defaults (``run_sql_query``); returns
+    the records, the kernel inputs of the fused Q3's cold run and the
+    grouping input of the unfused Q3 (the fused grouping takes the sort
+    partial and sends no page through the insert)."""
     from presto_tpu_torch.models.tpch_sql import QUERIES
-    from presto_tpu_torch.ops import pallas_hash as ph
-    from presto_tpu_torch.utils.metrics import METRICS
 
-    names = ("pallas.join_builds", "pallas.join_fallbacks", "pallas.agg_pages",
-             "pallas.agg_fallbacks")
-    q3_launches, capture = None, None
+    on_card = device.type == "cuda"
+    records, fused_capture, grouping = {}, KernelCapture(), GroupingCapture()
     for q in (1, 3, 6):
-        runner = sql_runner(device, "pallas", schema)
-        t0 = time.perf_counter()
+        rec = run_sql_query(device, q, schema,
+                            cold_capture=fused_capture if q == 3 else None,
+                            unfused_capture=grouping if q == 3 else None)
+        records[q] = rec
         if q == 3:
-            with GroupingCapture() as capture:
-                runner.execute(QUERIES[q])
-        else:
-            runner.execute(QUERIES[q])
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        before = {k: METRICS.counter_value(k) for k in names}
-        ph.insert_table.launches = 0
-        ph.probe_table.launches = 0
-        t0 = time.perf_counter()
-        rows = runner.execute(QUERIES[q]).rows
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
-        delta = {k: METRICS.counter_value(k) - before[k] for k in names}
-        if q == 3:
+            launches, delta = rec["launches"], rec["delta"]
             log(f"SQL Q3 {schema} launches on the warm run: {launches}; counters {delta}")
             builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
             if builds != 2 or delta["pallas.join_fallbacks"] != 0:
                 raise AssertionError(f"the two Q3 builds did not both take the table: {delta}")
-            on_card = device.type == "cuda"
-            if pages < 1 or (on_card and launches["insert"] != builds + pages):
+            if pages != 0 or (on_card and launches["insert"] != builds + pages):
                 raise AssertionError(f"insert launches {launches['insert']} != join builds "
-                                     f"{builds} + grouped pages {pages}")
+                                     f"{builds} + grouped pages {pages} (want 0 pages)")
             if on_card and launches["probe"] < 2:
                 raise AssertionError(f"fewer than one probe per probe stream: {launches}")
-            q3_launches = launches
-        want, source_rows = SQL_ORACLES[q](schema)
-        if not same_rows(rows, want):
-            raise AssertionError(f"SQL Q{q} rows differ from the numpy oracle:\n{rows}\n{want}")
-        t0 = time.perf_counter()
-        sorted_rows = sql_runner(device, "sorted", schema).execute(QUERIES[q]).rows
-        torch.cuda.synchronize()
-        sorted_s = time.perf_counter() - t0
-        if not same_rows(sorted_rows, want):
-            raise AssertionError(f"SQL Q{q} rows under hash_kernels='sorted' differ")
-        log(f"SQL Q{q} {schema}: {len(rows)} rows equal to the numpy oracle and to the "
-            f"sorted run; cold wall {cold_s:.3f}s; warm wall {warm_s:.4f}s = "
-            f"{source_rows / warm_s:.0f} source rows/s ({source_rows} rows); sorted run "
-            f"{sorted_s:.4f}s")
-        for r in rows[:4]:
-            log("  " + " | ".join(str(v) for v in r))
-    runner = sql_runner(device, "pallas", schema)
-    profile_q3(device, schema, run=lambda: runner.execute(QUERIES[3]), label="SQL Q3")
-    return q3_launches, capture
+        check_rows(rec, SQL_ORACLES[q], schema)
+    for props, label in (({}, "SQL Q3"), (UNFUSED, "SQL Q3 unfused")):
+        runner = sql_runner(device, "pallas", schema, **props)
+        profile_q3(device, schema, run=lambda: runner.execute(QUERIES[3]), label=label)
+    return records, fused_capture, grouping
 
 
 def sql_layers(device, schema: str = "sf1", queries=(1, 3, 6), warm_up: bool = True) -> None:
@@ -847,49 +916,22 @@ class KernelCapture:
 
 
 def run_join_phase(device, schema: str = "sf1"):
-    """Q5, Q9 and Q13 as SQL with ``hash_kernels="pallas"``: a cold run, a
-    warm run with the counters set to 0 just before it, and the query under
-    ``hash_kernels="sorted"``; rows against numpy oracles and the sorted
-    run. Returns the warm runs' kernel launches per query and the kernel
-    inputs captured on Q9's cold run."""
-    import torch
-
+    """Q5, Q9 and Q13 as SQL with ``hash_kernels="pallas"`` under the
+    defaults (``run_sql_query``), rows against numpy oracles. Returns the
+    records and the kernel inputs captured on Q9's unfused run (its
+    grouping sends pages through the insert only unfused)."""
     from presto_tpu_torch.models.tpch_sql import QUERIES
-    from presto_tpu_torch.ops import pallas_hash as ph
-    from presto_tpu_torch.utils.metrics import METRICS
 
-    names = ("pallas.join_builds", "pallas.join_fallbacks", "pallas.agg_pages",
-             "pallas.agg_fallbacks", "join.expansion_chunks", "join.expanded_rows")
     # join builds on the table, as the reference counts them at tiny
     want_builds = {5: 3, 9: 4, 13: 0}
     on_card = device.type == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
-    launches, capture = {}, None
+    records, capture = {}, KernelCapture()
     for q in (5, 9, 13):
-        runner = sql_runner(device, "pallas", schema)
-        t0 = time.perf_counter()
-        if q == 9:
-            with KernelCapture() as capture:
-                runner.execute(QUERIES[q])
-        else:
-            runner.execute(QUERIES[q])
-        sync()
-        cold_s = time.perf_counter() - t0
-        if on_card:
-            torch.cuda.reset_peak_memory_stats(device)
-        before = {k: METRICS.counter_value(k) for k in names}
-        ph.insert_table.launches = 0
-        ph.probe_table.launches = 0
-        with ProbeStreams() as streams:
-            t0 = time.perf_counter()
-            rows = runner.execute(QUERIES[q]).rows
-            sync()
-            warm_s = time.perf_counter() - t0
-        got = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
-        delta = {k: METRICS.counter_value(k) - before[k] for k in names}
-        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        rec = run_sql_query(device, q, schema, unfused_capture=capture if q == 9 else None)
+        records[q] = rec
+        got, delta, calls = rec["launches"], rec["delta"], rec["streams"]
         log(f"SQL Q{q} {schema} launches on the warm run: {got}; probe calls per stream "
-            f"{sorted(streams.calls.values())}; counters {delta}")
+            f"{sorted(calls.values())}; counters {delta}")
         builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
         if builds != want_builds[q] or delta["pallas.join_fallbacks"] != 0 or \
                 delta["pallas.agg_fallbacks"] != 0:
@@ -898,48 +940,119 @@ def run_join_phase(device, schema: str = "sf1"):
         if on_card and got["insert"] != builds + pages:
             raise AssertionError(f"Q{q}: insert launches {got['insert']} != join builds "
                                  f"{builds} + grouped pages {pages}")
-        if len(streams.calls) != builds or (on_card and got["probe"] != sum(
-                streams.calls.values())):
+        if len(calls) != builds or (on_card and got["probe"] != sum(calls.values())):
             raise AssertionError(f"Q{q}: {builds} tables but probe calls per stream "
-                                 f"{streams.calls}, probe launches {got['probe']}")
+                                 f"{calls}, probe launches {got['probe']}")
         if q in (5, 13) and not delta["join.expanded_rows"]:
             raise AssertionError(f"Q{q}: the duplicate-key join did not expand: {delta}")
-        launches[q] = got
-        want, source_rows = JOIN_ORACLES[q](schema)
-        if not same_rows(rows, want):
-            raise AssertionError(f"SQL Q{q} rows differ from the numpy oracle:\n{rows}\n{want}")
-        t0 = time.perf_counter()
-        sorted_rows = sql_runner(device, "sorted", schema).execute(QUERIES[q]).rows
-        sync()
-        sorted_s = time.perf_counter() - t0
-        if not same_rows(sorted_rows, want):
-            raise AssertionError(f"SQL Q{q} rows under hash_kernels='sorted' differ")
-        log(f"SQL Q{q} {schema}: {len(rows)} rows equal to the numpy oracle and to the "
-            f"sorted run; cold wall {cold_s:.3f}s; warm wall {warm_s:.4f}s = "
-            f"{source_rows / warm_s:.0f} source rows/s ({source_rows} rows); sorted run "
-            f"{sorted_s:.4f}s")
+        check_rows(rec, JOIN_ORACLES[q], schema)
         if q == 5:
             log(f"SQL Q5 {schema} expansion: {int(delta['join.expansion_chunks'])} chunks, "
                 f"{int(delta['join.expanded_rows'])} expanded rows; peak device memory "
-                f"{peak} bytes (torch.cuda.max_memory_allocated)")
-        for r in rows[:4]:
-            log("  " + " | ".join(str(v) for v in r))
+                f"{rec['peak']} bytes (torch.cuda.max_memory_allocated)")
     for q in (9, 13):
         runner = sql_runner(device, "pallas", schema)
         if on_card:
             profile_q3(device, schema, run=lambda: runner.execute(QUERIES[q]),
                        label=f"SQL Q{q}")
-    return launches, capture
+    return records, capture
+
+
+def check_default_path(device, records: dict, schema: str = "sf1") -> None:
+    """The default path of SQL Q1, Q3, Q5, Q6, Q9 and Q13, from their warm
+    runs: the fused segments, the coalesced pages, the walls fused and
+    unfused. Fails unless the segments' operators are the pinned ones, a
+    fused segment launched the probe kernel in Q3, Q5 and Q9, the insert
+    launched once per join build and grouped page, Q3 and Q9 grouped no
+    page through the insert, and nothing fell back."""
+    on_card = device.type == "cuda"
+    for q in sorted(records):
+        rec = records[q]
+        stats, delta, launches = rec["segments"], rec["delta"], rec["launches"]
+        segs = stats["segments"] if stats else []
+        log(f"SEGMENTS SQL Q{q} {schema}: {len(segs)} fused segment(s), "
+            f"{stats['dispatches'] if stats else 0} dispatches; coalesce pages in "
+            f"{int(delta['coalesce.pages_in'])}, out {int(delta['coalesce.pages_out'])}; "
+            f"warm wall fused {rec['warm_s']:.4f}s, unfused {rec['unfused_s']:.4f}s")
+        for seg in segs:
+            log(f"  pipeline {seg['pipeline']}: {seg['operators']} dispatches "
+                f"{seg['dispatches']}, compositions {seg['compiles']}, probe-kernel launches "
+                f"{seg['probe_launches']}")
+        if [seg["operators"] for seg in segs] != SEGMENT_OPERATORS[q]:
+            raise AssertionError(f"Q{q} segments {[seg['operators'] for seg in segs]} != "
+                                 f"{SEGMENT_OPERATORS[q]}")
+        if on_card and q in FUSED_PROBE_QUERIES and \
+                sum(seg["probe_launches"] for seg in segs) < 1:
+            raise AssertionError(f"Q{q}: no probe-kernel launch inside a fused segment")
+        builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
+        if on_card and launches["insert"] != builds + pages:
+            raise AssertionError(f"Q{q}: insert launches {launches['insert']} != join builds "
+                                 f"{builds} + grouped pages {pages}")
+        if q in (3, 9) and pages != 0:
+            raise AssertionError(f"Q{q}: the fused grouping sent {pages} pages to the insert")
+        if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+            raise AssertionError(f"Q{q}: a fallback: {delta}")
+
+
+def compare_walls(device, schema: str = "sf1", queries=(1, 3, 6, 9, 13), rounds: int = 3):
+    """Warm walls of each query fused and unfused, in turns (fused,
+    unfused, unfused, fused, ...), ``rounds`` of each: every wall and the
+    medians."""
+    import torch
+
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+
+    for q in queries:
+        walls = {"fused": [], "unfused": []}
+        order = [("fused", "unfused"), ("unfused", "fused")]
+        for r in range(rounds):
+            for mode in order[r % 2]:
+                runner = sql_runner(device, "pallas", schema,
+                                    **(UNFUSED if mode == "unfused" else {}))
+                t0 = time.perf_counter()
+                runner.execute(QUERIES[q])
+                torch.cuda.synchronize()
+                walls[mode].append(time.perf_counter() - t0)
+        log(f"WALLS SQL Q{q} {schema} in turns: fused median "
+            f"{np.median(walls['fused']):.4f}s {[round(w, 4) for w in walls['fused']]}, "
+            f"unfused median {np.median(walls['unfused']):.4f}s "
+            f"{[round(w, 4) for w in walls['unfused']]}")
+
+
+def check_fused_probe(device, capture, reps: int = 20, plain_reps: int = 3) -> None:
+    """The probe kernel against its plain version, bit for bit, at the shape
+    the fused probe stage gives it: SQL Q3's first coalesced probe page."""
+    from presto_tpu_torch.ops import pallas_hash as ph
+
+    if capture.probe_args is None:
+        raise AssertionError("the fused SQL Q3 made no probe-kernel call")
+    slot_keys, slot_rows, keys, mask, trips = capture.probe_args
+    got = ph.probe_table(slot_keys, slot_rows, keys, mask, trips)
+    err = _max_abs_err([(got, ph.probe_table_reference(slot_keys, slot_rows, keys, mask,
+                                                       trips))])
+    if err != 0:
+        raise AssertionError(f"fused-stage probe differs from its plain version: {err}")
+    nbytes = probe_bytes(slot_keys, slot_rows, keys, mask, trips)
+    ms = time_ms(lambda: ph.probe_table(slot_keys, slot_rows, keys, mask, trips), reps, device)
+    dev_ms = device_ms(lambda: ph.probe_table(slot_keys, slot_rows, keys, mask, trips), reps,
+                       "ht_probe_rows")
+    plain_ms = time_ms(lambda: ph.probe_table_reference(slot_keys, slot_rows, keys, mask,
+                                                        trips), plain_reps, device)
+    log(f"KERNEL probe at the SQL Q3 fused-stage shape (first coalesced probe page): "
+        f"slots={slot_rows.shape[0]} n={keys.shape[0]} live={int(mask.sum())} trips={trips}: "
+        f"bit-identical, {int((got >= 0).sum())} hits; kernel {ms:.4f} ms (device "
+        f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {nbytes / HBM_RATE * 1e3:.4f} ms "
+        f"({nbytes} bytes)")
 
 
 def check_path_kernels(device, capture, reps: int = 20, plain_reps: int = 3) -> None:
     """Both kernels against their plain versions, bit for bit, at the shapes
-    SQL Q9 gave them (its largest join build, its first grouped page and its
-    first probe), with their times and bounds."""
+    the unfused SQL Q9 gave them (its largest join build, its first grouped
+    page and its first probe), with their times and bounds."""
     from presto_tpu_torch.ops import pallas_hash as ph
 
     if capture is None or None in (capture.build, capture.grouping, capture.probe_args):
-        raise AssertionError("SQL Q9 did not give both kernels their inputs")
+        raise AssertionError("the unfused SQL Q9 did not give both kernels their inputs")
     for label, (comps, mask, slots) in (("join build", capture.build),
                                         ("grouping", capture.grouping)):
         got = ph.insert_table(comps, mask, slots)
@@ -953,7 +1066,7 @@ def check_path_kernels(device, capture, reps: int = 20, plain_reps: int = 3) -> 
         dev_ms = device_ms(lambda: ph.insert_table(comps, mask, slots), reps, "ht_insert_")
         plain_ms = time_ms(lambda: ph.insert_table_reference(comps, mask, slots),
                            plain_reps, device)
-        log(f"KERNEL insert at the SQL Q9 {label} shape: ncomps={ncomps} n={n} live={live} "
+        log(f"KERNEL insert at the unfused SQL Q9 {label} shape: ncomps={ncomps} n={n} live={live} "
             f"slots={slots}: bit-identical, stats {got[3].tolist()}; kernel {ms:.4f} ms "
             f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
             f"{nbytes / HBM_RATE * 1e3:.4f} ms ({nbytes} bytes)")
@@ -969,20 +1082,21 @@ def check_path_kernels(device, capture, reps: int = 20, plain_reps: int = 3) -> 
                        "ht_probe_rows")
     plain_ms = time_ms(lambda: ph.probe_table_reference(slot_keys, slot_rows, keys, mask,
                                                         trips), plain_reps, device)
-    log(f"KERNEL probe at the SQL Q9 shape: slots={slot_rows.shape[0]} n={keys.shape[0]} "
+    log(f"KERNEL probe at the unfused SQL Q9 shape: slots={slot_rows.shape[0]} n={keys.shape[0]} "
         f"live={int(mask.sum())} trips={trips}: bit-identical, {int((got >= 0).sum())} hits; "
         f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
         f"{nbytes / HBM_RATE * 1e3:.4f} ms ({nbytes} bytes)")
 
 
 def check_grouping_insert(device, capture, reps: int = 20, plain_reps: int = 3) -> None:
-    """The insert at the shape the SQL Q3 grouping gives it, against its
-    plain version (bit for bit), with its times and bound."""
+    """The insert at the shape the unfused SQL Q3 grouping gives it (the
+    fused grouping sends no page through the insert), against its plain
+    version (bit for bit), with its times and bound."""
     from presto_tpu_torch.ops import pallas_hash as ph
 
     comps, mask, slots = capture.comps, capture.mask, capture.slots
     if comps is None:
-        raise AssertionError("the SQL Q3 grouping sent no page through the insert")
+        raise AssertionError("the unfused SQL Q3 grouping sent no page through the insert")
     got = ph.insert_table(comps, mask, slots)
     want = ph.insert_table_reference(comps, mask, slots)
     err = _max_abs_err(zip(got, want))
@@ -998,7 +1112,7 @@ def check_grouping_insert(device, capture, reps: int = 20, plain_reps: int = 3) 
     # row's group id, and the table
     live = int(mask.sum())
     nbytes = n + live * ncomps * 8 + n * 4 + ncomps * slots * 8 + slots * 4 + 3 * 4
-    log(f"KERNEL insert at the SQL Q3 grouping shape: ncomps={ncomps} n={n} "
+    log(f"KERNEL insert at the unfused SQL Q3 grouping shape: ncomps={ncomps} n={n} "
         f"live={live} slots={slots} (first page {capture.first_ng} groups): "
         f"bit-identical, stats [overflow, max_run, distinct] = {stats}")
     log(f"TIME insert (grouping shape): kernel {ms:.4f} ms (wrapper call, CUDA events; "
@@ -1034,24 +1148,29 @@ def main() -> int:
         measured = check_kernels(device)
         run_q3_phase(device)
         profile_q3(device)
-        launches, capture = run_sql_phase(device)
+        records, fused_capture, grouping = run_sql_phase(device)
         sql_layers(device)
-        check_grouping_insert(device, capture)
-        join_launches, join_capture = run_join_phase(device)
+        check_grouping_insert(device, grouping)
+        join_records, join_capture = run_join_phase(device)
         sql_layers(device, queries=(5, 9, 13), warm_up=False)  # the phase warmed them
         check_path_kernels(device, join_capture)
+        records.update(join_records)
+        check_default_path(device, records)
+        compare_walls(device)
+        check_fused_probe(device, fused_capture)
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
         traceback.print_exc()
         return 1
+    launches = records[3]["launches"]
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": TPU_KERNELS[k], "launches": launches[k],
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": "bytes", "library_ms": None,
-                "launches_by_query": {"SQL Q3": launches[k],
-                                      **{f"SQL Q{q}": n[k] for q, n in join_launches.items()}}}
+                "launches_by_query": {f"SQL Q{q}": records[q]["launches"][k]
+                                      for q in sorted(records)}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -41,12 +41,22 @@ class Dictionary:
     dictionary only if they are the same object.
     """
 
-    __slots__ = ("values", "_index", "_ranks")
+    __slots__ = ("values", "_index", "_ranks", "_token")
 
     def __init__(self, values: Sequence[str]):
         self.values = np.asarray(values, dtype=object)
         self._index = None
         self._ranks = None
+
+    def token(self) -> int:
+        """Process-unique identity for cache keys (``utils/kernel_cache``),
+        drawn at first use: subclasses may skip ``__init__``."""
+        t = getattr(self, "_token", None)
+        if t is None:
+            from .utils.kernel_cache import new_token
+
+            t = self._token = new_token()
+        return t
 
     def __len__(self):
         return len(self.values)

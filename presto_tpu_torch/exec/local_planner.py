@@ -10,13 +10,20 @@ TPC-H Q1, Q3, Q5, Q6, Q9 and Q13, on an explicit ``device``:
   (``_join_strategy``); the probe pipeline blocks on its lookup source.
   INNER and LEFT joins take any number of equi-keys, and builds that the
   connector's unique column sets do not prove unique expand.
+- A semi join (IN / EXISTS without a join filter) builds its filtering
+  side sorted and probes SEMI or ANTI, null-aware for IN / NOT IN.
+- With ``coalesce_pages`` a filtered scan feeding either side of a join
+  ends in a CoalesceOperator (``_maybe_coalesce``).
+- With ``segment_fusion`` each maximal run of page-local operators becomes
+  one FusedSegmentOperatorFactory (``_fuse_pipelines``), and every run
+  considered, fused or not, is recorded with its reason in
+  ``LocalExecutionPlan.segment_decisions``.
 - Symbols resolve to channels here (SymbolRef -> InputRef).
 
-Each pipeline is one driver, and nothing is fused across operators: the
-port runs the reference's unfused, uncoalesced pipeline, which the reference
-holds as the differential oracle of its default one. A plan node, a join
-shape or a session property the port does not run raises
-``NotImplementedError`` naming itself.
+Each pipeline is one driver. Both features are on by default, as in the
+reference; turned off, the port runs the reference's differential oracle.
+A plan node, a join shape or a session property the port does not run
+raises ``NotImplementedError`` naming itself.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from ..ops.expressions import (InputLayout, RowExpression, SymbolRef, input_ref,
                                resolve_symbols, symbol_ref)
 from ..ops.filter_project import FilterProjectOperatorFactory, PageProcessor
 from ..ops.hash_agg import SINGLE, HashAggregationOperatorFactory
-from ..ops.hash_join import (INNER, LEFT, JoinBuildOperatorFactory,
+from ..ops.hash_join import (ANTI, INNER, LEFT, SEMI, JoinBuildOperatorFactory,
                              LookupJoinOperatorFactory, join_strategy)
 from ..ops.scan import TableScanOperatorFactory
 from ..ops.topn import (LimitOperatorFactory, OrderByOperatorFactory, SortOrder,
@@ -40,8 +47,8 @@ from ..ops.topn import (LimitOperatorFactory, OrderByOperatorFactory, SortOrder,
 from ..spi.connector import ConcatPageSource, Constraint
 from ..sql.planner.optimizer import and_all, substitute
 from ..sql.planner.plan import (AggregationNode, FilterNode, JoinNode, LimitNode,
-                                OutputNode, PlanNode, ProjectNode, SortNode, Symbol,
-                                TableScanNode, TopNNode)
+                                OutputNode, PlanNode, ProjectNode, SemiJoinNode, SortNode,
+                                Symbol, TableScanNode, TopNNode)
 from ..sql.planner.plan import SINGLE as P_SINGLE
 from ..types import BOOLEAN, Type
 from ..utils.testing import PageConsumerFactory
@@ -78,6 +85,9 @@ class LocalExecutionPlan:
     sink: PageConsumerFactory
     output_names: List[str]
     output_types: List[Type] = dataclasses.field(default_factory=list)
+    # the segment compiler's decisions: one entry per run of page-local
+    # operators it considered, fused or not, with the reason
+    segment_decisions: List[dict] = dataclasses.field(default_factory=list)
 
     def create_drivers(self) -> List[Driver]:
         """One driver per pipeline, in dependency order."""
@@ -106,8 +116,64 @@ class LocalExecutionPlanner:
                 chain, [(s, symbol_ref(s.name, s.type)) for s in root.symbols])
         sink = PageConsumerFactory(next(self._ids), [s.type for s in chain.symbols])
         self.pipelines.append(chain.factories + [sink])
+        decisions = self._fuse_pipelines()
         return LocalExecutionPlan(self.pipelines, sink, root.column_names,
-                                  [s.type for s in chain.symbols])
+                                  [s.type for s in chain.symbols], decisions)
+
+    # ------------------------------------------------------ segment fusion
+
+    def _fuse_pipelines(self) -> List[dict]:
+        """Replace each maximal run of fusible page-local factories (filter/
+        project and page-local join probes, then optionally a hash
+        aggregation or TopN as the terminal) with one
+        FusedSegmentOperatorFactory (``ops/fused_segment.py``). A run of one
+        operator stays as it is; the source operator never fuses."""
+        from ..ops.fused_segment import (FusedSegmentOperatorFactory, mid_stage_fusible,
+                                         terminal_stage_fusible)
+
+        decisions: List[dict] = []
+        if not self.session.get("segment_fusion"):
+            return decisions
+        for pi, chain in enumerate(self.pipelines):
+            out = [chain[0]]
+            i = 1
+            while i < len(chain):
+                if not (mid_stage_fusible(chain[i]) or terminal_stage_fusible(chain[i])):
+                    out.append(chain[i])
+                    i += 1
+                    continue
+                run: List[object] = []
+                while i < len(chain) and mid_stage_fusible(chain[i]):
+                    run.append(chain[i])
+                    i += 1
+                terminal = None
+                if i < len(chain) and terminal_stage_fusible(chain[i]):
+                    terminal = chain[i]
+                    i += 1
+                members = run + ([terminal] if terminal is not None else [])
+                entry = {"pipeline": pi, "operators": [m.name for m in members]}
+                if len(members) >= 2:
+                    out.append(FusedSegmentOperatorFactory(
+                        next(self._ids), run, terminal, self._segment_output_types(members[-1])))
+                    entry["fused"] = True
+                else:
+                    out.extend(members)
+                    entry["fused"] = False
+                    entry["reason"] = "single-operator run"
+                decisions.append(entry)
+            self.pipelines[pi] = out
+        return decisions
+
+    @staticmethod
+    def _segment_output_types(last) -> List[Type]:
+        """Output types of a segment: those of its last member."""
+        if isinstance(last, HashAggregationOperatorFactory):
+            return list(last.key_types) + [c.function.output_type for c in last.calls]
+        if isinstance(last, TopNOperatorFactory):
+            return list(last.types)
+        if isinstance(last, FilterProjectOperatorFactory):
+            return list(last.processor.output_types)
+        return list(last.output_types)
 
     # ------------------------------------------------------------ dispatch
 
@@ -182,14 +248,28 @@ class LocalExecutionPlanner:
 
     # ------------------------------------------------------------- joins
 
+    def _maybe_coalesce(self, chain: Chain) -> Chain:
+        """With ``coalesce_pages``, end a chain whose last factory is a
+        filtered scan in a CoalesceOperator, so the join after it works on
+        the filter's survivors. The operator passes pages through when the
+        first page shows an unselective filter (``ops/coalesce.py``)."""
+        last = chain.factories[-1]
+        if not (self.session.get("coalesce_pages")
+                and isinstance(last, TableScanOperatorFactory) and last.has_filter):
+            return chain
+        from ..ops.coalesce import CoalesceOperatorFactory
+
+        fac = CoalesceOperatorFactory(next(self._ids), [s.type for s in chain.symbols])
+        return Chain(chain.factories + [fac], chain.symbols, chain.dicts)
+
     def visit_JoinNode(self, node: JoinNode) -> Chain:
         jt = self._join_type(node)
         if not node.criteria:
             raise NotImplementedError("cross joins are not ported to presto_tpu_torch")
         if node.residual is not None:
             raise NotImplementedError("join filters are not ported to presto_tpu_torch")
-        probe_chain = self.visit(node.left)
-        build_chain = self.visit(node.right)
+        probe_chain = self._maybe_coalesce(self.visit(node.left))
+        build_chain = self._maybe_coalesce(self.visit(node.right))
         right_keys = [r for _, r in node.criteria]
         build_key_ch = [build_chain.channel(r.name) for r in right_keys]
         probe_key_ch = [probe_chain.channel(l.name) for l, _ in node.criteria]
@@ -213,9 +293,28 @@ class LocalExecutionPlanner:
         probe_meta = probe_chain.meta([s.name for s in probe_out])
         probe_fac = LookupJoinOperatorFactory(
             next(self._ids), build_fac.lookup_factory, probe_key_ch, probe_out_ch,
-            probe_meta, list(range(len(payload_ch))), payload_meta, jt)
+            probe_meta, list(range(len(payload_ch))), payload_meta, jt, unique_build=unique)
         out_dicts = [probe_chain.dicts[c] for c in probe_out_ch] + [d for _, d in payload_meta]
         return Chain(probe_chain.factories + [probe_fac], probe_out + build_out, out_dicts)
+
+    def visit_SemiJoinNode(self, node: SemiJoinNode) -> Chain:
+        """IN / EXISTS: the filtering side builds sorted (its keys are not
+        proven unique) and the source probes SEMI, or ANTI when negated."""
+        if node.residual is not None:
+            raise NotImplementedError("semi join filters are not ported to presto_tpu_torch")
+        if node.mark is not None:
+            raise NotImplementedError("mark semi joins are not ported to presto_tpu_torch")
+        src = self.visit(node.source)
+        filt = self.visit(node.filtering_source)
+        build_fac = JoinBuildOperatorFactory(
+            next(self._ids), [filt.channel(node.filtering_key.name)], [], [],
+            strategy="sorted", unique=False, device=self.device)
+        self.pipelines.append(filt.factories + [build_fac])
+        fac = LookupJoinOperatorFactory(
+            next(self._ids), build_fac.lookup_factory, [src.channel(node.source_key.name)],
+            list(range(len(src.symbols))), src.meta([s.name for s in src.symbols]), [], [],
+            ANTI if node.negated else SEMI, null_aware=node.null_aware)
+        return Chain(src.factories + [fac], list(src.symbols), list(src.dicts))
 
     def _join_strategy(self, join_type: str, build_key_ch, unique: bool) -> str:
         """``hash_kernels`` -> the build strategy; ``auto`` means pallas
@@ -252,6 +351,8 @@ class LocalExecutionPlanner:
                     return False
                 inner.append(Symbol(e.name, e.type))
             return self._keys_unique(node.source, inner)
+        if isinstance(node, SemiJoinNode):
+            return self._keys_unique(node.source, keys)
         if isinstance(node, AggregationNode):
             return {k.name for k in node.keys} <= names
         return False

@@ -5,11 +5,12 @@ table handles, column enumeration and statistics for the cost-based join
 ordering, behind a catalog registry.
 
 The port's ``Session.DEFAULTS`` hold only the properties the port honours,
-with the reference's values, plus the four features the reference turns on
-by default and the port has not ported yet, each set to its off value. A
-property outside ``DEFAULTS``, or one of the four turned on, raises
-``NotImplementedError`` naming it when a query is planned
-(``Session.check_supported``): no property is ignored quietly.
+with the reference's values (fused segments and page coalescing on), plus
+the two features the reference turns on by default and the port has not
+ported yet, each set to its off value. A property outside ``DEFAULTS``, or
+one of the two turned on, raises ``NotImplementedError`` naming it when a
+query is planned (``Session.check_supported``): no property is ignored
+quietly.
 """
 from __future__ import annotations
 
@@ -41,20 +42,20 @@ class Session:
         # wherever it is correct; auto = pallas joins on CUDA only, hash
         # grouping where the first page shows few groups on the CPU)
         "hash_kernels": "sorted",
+        # fused page-local pipeline segments (ops/fused_segment.py); False
+        # runs the per-operator pipeline, the reference's differential oracle
+        "segment_fusion": True,
+        # page coalescing after a filtered scan before a join (ops/coalesce.py)
+        "coalesce_pages": True,
         # --- features the reference turns on and the port has not ported;
         # each is off here and raises when turned on (ROADMAP.md, queue 1)
-        # fused page-local segments (ROADMAP queue 1, item 2)
-        "segment_fusion": False,
-        # page coalescing before joins (ROADMAP queue 1, item 3)
-        "coalesce_pages": False,
         # the streaming scan pipeline (ROADMAP queue 1, item 4)
         "scan_pipeline": False,
         # parallel drivers per pipeline (ROADMAP queue 1, item 5)
         "driver_parallelism": 1,
     }
     # the unported features above: DEFAULTS holds the only value each takes
-    UNPORTED_FEATURES = ("segment_fusion", "coalesce_pages", "scan_pipeline",
-                         "driver_parallelism")
+    UNPORTED_FEATURES = ("scan_pipeline", "driver_parallelism")
 
     def get(self, name: str, default=None):
         if name in self.properties:

@@ -40,6 +40,8 @@ class AggregateFunction:
     # string-producing aggregates carry their output dictionary here; none
     # of the ported ones produces strings
     output_dict: object = None
+    # cache identity (utils/kernel_cache.agg_call_key), set by resolve_aggregate
+    fingerprint: tuple = ()
 
 
 def _ones(mask):
@@ -51,6 +53,15 @@ def resolve_aggregate(name: str, arg_types: Sequence[Type], distinct: bool = Fal
     """Aggregate lookup by name and argument types, with the reference's
     signature: ``sum``, ``avg`` and ``count``/``count(*)``. DISTINCT and
     literal parameters are not ported and raise."""
+    fn = _resolve_aggregate(name, arg_types, distinct, params)
+    # the resolve arguments fully determine the function's behaviour
+    fn.fingerprint = (name.lower(), tuple(t.name for t in arg_types),
+                      bool(distinct), tuple(params))
+    return fn
+
+
+def _resolve_aggregate(name: str, arg_types: Sequence[Type], distinct: bool,
+                       params: Sequence[object]) -> AggregateFunction:
     name = name.lower()
     if distinct:
         raise NotImplementedError(f"{name}(DISTINCT ...) is not ported yet")

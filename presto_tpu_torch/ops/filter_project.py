@@ -9,30 +9,43 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
-from ..block import Block, Dictionary, Page
+from ..block import Block, Page
 from ..types import Type
+from ..utils import kernel_cache as kc
 from .expressions import ExpressionCompiler, InputLayout, RowExpression
 from .operator import Operator, OperatorContext, OperatorFactory, timed
 
 
 class PageProcessor:
-    """page -> page with projected blocks + filtered mask."""
+    """page -> page with projected blocks + filtered mask.
+
+    ``_process`` is the pure page body a fused segment calls; ``cache_key``
+    names it (expressions and input layout) in ``utils/kernel_cache``.
+    ``_build`` recompiles the expressions against a layout, as
+    ``__call__`` does when a page's layout drifts from the built one."""
 
     def __init__(self, layout: InputLayout, filter_expr: Optional[RowExpression],
                  projections: Sequence[RowExpression]):
+        self._filter_expr = filter_expr
+        self._projection_exprs = list(projections)
+        self._build(layout)
+
+    def _build(self, layout: InputLayout) -> None:
         compiler = ExpressionCompiler(layout)
-        self.filter = compiler.compile(filter_expr) if filter_expr is not None else None
-        self.projections = [compiler.compile(p) for p in projections]
+        fe = self._filter_expr
+        self.filter = compiler.compile(fe) if fe is not None else None
+        self.projections = [compiler.compile(p) for p in self._projection_exprs]
+        self.output_types_ = [p.type for p in self.projections]
+        self.output_dicts = [p.dictionary for p in self.projections]
+        self._layout_key = kc.layout_key(layout.types, layout.dictionaries)
+        self.cache_key = ("page-processor", self._layout_key, kc.expr_key(fe),
+                          tuple(kc.expr_key(p) for p in self._projection_exprs))
 
     @property
     def output_types(self) -> List[Type]:
-        return [p.type for p in self.projections]
+        return self.output_types_
 
-    @property
-    def output_dicts(self) -> List[Optional[Dictionary]]:
-        return [p.dictionary for p in self.projections]
-
-    def __call__(self, page: Page) -> Page:
+    def _process(self, page: Page) -> Page:
         datas = tuple(b.data for b in page.blocks)
         nulls = tuple(b.nulls for b in page.blocks)
         mask = page.mask
@@ -49,6 +62,13 @@ class PageProcessor:
                 n = n.to(device).expand(shape).clone()
             blocks.append(Block(proj.type, d, n, proj.dictionary))
         return Page(tuple(blocks), mask)
+
+    def __call__(self, page: Page) -> Page:
+        types = [b.type for b in page.blocks]
+        dicts = [b.dictionary for b in page.blocks]
+        if kc.layout_key(types, dicts) != self._layout_key:
+            self._build(InputLayout(types, dicts))
+        return self._process(page)
 
 
 class FilterProjectOperator(Operator):

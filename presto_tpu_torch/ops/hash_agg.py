@@ -15,8 +15,13 @@ builder as the reference does:
    fold takes like any other partial.
 
 SQL NULL keys group as their own key (a null flag rides beside every key
-column). The PARTIAL/FINAL steps, vector states and spill are not ported
-yet.
+column). Each builder also offers its per-page step as a pure function for
+a fused pipeline segment's terminal stage (``ops/fused_segment.py``): the
+grouped builder's sort partial (``_page_partial``) or raw rows in defer
+mode (``_page_raw``), installed by ``absorb_partial``/``absorb_raw``; the
+DIRECT and GLOBAL builders' ``_accumulate(page, state)``, with
+``init_state``/``absorb_state``. The PARTIAL/FINAL steps, vector states and
+spill are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,11 +32,23 @@ import torch
 
 from ..block import _NP_TO_TORCH, Block, Dictionary, Page, torch_dtype
 from ..types import BOOLEAN, Type
+from ..utils import kernel_cache
 from .aggregates import MAX, MIN, SUM, AggregateCall
 from .operator import Operator, OperatorContext, OperatorFactory, timed
 from .sorting import lexsort_fast
 
 SINGLE = "single"
+
+
+def _builder_key(tag, b, input_dicts) -> tuple:
+    """Cache identity of a builder's static config (everything its page
+    function reads from the builder) plus its input's dictionary versions."""
+    return ("agg", tag,
+            tuple(t.name for t in getattr(b, "key_types", ())),
+            getattr(b, "_key_channels", None),
+            tuple(getattr(b, "domains", ())),
+            tuple(kernel_cache.dict_key(d) for d in input_dicts),
+            tuple(kernel_cache.agg_call_key(c) for c in b.calls))
 
 
 def _segment_reduce(kind: str, values: torch.Tensor, seg_ids: torch.Tensor,
@@ -195,33 +212,46 @@ class GroupedAggregationBuilder:
         return sort_group_reduce(keys, page.mask, tuple(contribs), self.kinds,
                                  self.identities, out_groups)
 
+    def _page_raw(self, page: Page):
+        """Defer mode: per-row keys and contributions, no per-page reduction;
+        the fold takes this (keys, contribs, mask) triple like a partial."""
+        keys = _null_safe_keys(page, self._key_channels)
+        return keys, tuple(_call_contributions(self.calls, page)), page.mask
+
+    def page_out_groups(self, capacity: int) -> int:
+        return capacity if self._out_groups is None else min(capacity, self._out_groups)
+
+    def defer_raw(self) -> bool:
+        """True once the first page showed that grouping does not reduce."""
+        return self._defer is True
+
     def add_page(self, page: Page) -> None:
-        if self._defer is True:
-            keys = _null_safe_keys(page, self._key_channels)
-            self._append((keys, tuple(_call_contributions(self.calls, page)), page.mask),
-                         page.capacity)
+        if self.defer_raw():
+            self.absorb_raw(self._page_raw(page), page.capacity)
             return
         if self._hash_slots is not None:
             if self._absorb_hash_page(page):
                 return
             # insert overflow: the sort kernel from here on, results stay exact
             self._hash_slots = None
-        out_groups = self._page_out_groups(page.capacity)
+        out_groups = self.page_out_groups(page.capacity)
         if not self.absorb_partial(self._page_partial(page, out_groups),
                                    page.capacity, out_groups):
             # the shrunken table overflowed: redo this page at full size
-            out_groups = self._page_out_groups(page.capacity)
+            out_groups = self.page_out_groups(page.capacity)
             if not self.absorb_partial(self._page_partial(page, out_groups),
                                        page.capacity, out_groups):
                 raise AssertionError("a full-size partial cannot overflow")
 
-    def _page_out_groups(self, capacity: int) -> int:
-        return capacity if self._out_groups is None else min(capacity, self._out_groups)
+    def absorb_raw(self, raw, capacity: int) -> None:
+        """Defer mode: install one page's per-row (keys, contribs, mask)."""
+        self._append(raw, capacity)
 
     def absorb_partial(self, partial, capacity: int, out_groups: int) -> bool:
-        """Install one page's (gkeys, gstates, gvalid, ng) partial. Returns
-        False when a shrunken table overflowed: the caller recomputes the
-        page at the then-reset full size."""
+        """Install one page's (gkeys, gstates, gvalid, ng) partial, computed
+        by ``add_page`` or by a fused segment's terminal stage. Returns False
+        when a shrunken table overflowed: the caller recomputes the page at
+        the then-reset full size."""
         gkeys, gstates, gvalid, ng = partial
         if out_groups < capacity:
             if int(ng) > out_groups:
@@ -376,15 +406,11 @@ class DirectAggregationBuilder:
         self._key_channels = tuple(key_channels)
         return self
 
-    def add_page(self, page: Page) -> None:
-        dev = page.device
-        if self._table is None:
-            self._table = tuple(torch.full((self.D,), col.identity,
-                                           dtype=_NP_TO_TORCH[np.dtype(col.dtype)], device=dev)
-                                for col in self.state_cols)
-            self._seen = torch.zeros(self.D, dtype=torch.bool, device=dev)
+    def _accumulate(self, page: Page, table, seen):
+        """One page folded into the (table, seen) state: a new state, the
+        given one untouched (a fused segment threads it through)."""
         mask = page.mask
-        gid = torch.zeros(mask.shape[0], dtype=torch.int32, device=dev)
+        gid = torch.zeros(mask.shape[0], dtype=torch.int32, device=mask.device)
         for ch, base, dom in zip(self._key_channels, self.base_domains, self.domains):
             code = torch.clamp(page.blocks[ch].data.to(torch.int32), 0, base - 1)
             if page.blocks[ch].nulls is not None:
@@ -393,9 +419,24 @@ class DirectAggregationBuilder:
         gid = torch.where(mask, gid, self.D)  # dead rows -> the trash segment
         contribs = _call_contributions(self.calls, page)
         parts = _reduce_all(contribs, self.kinds, gid, self.D)
-        self._table = tuple(_merge_tables(self.kinds, self._table, parts))
         hits = _segment_reduce(SUM, mask.to(torch.int32), gid, self.D + 1)[:self.D]
-        self._seen = self._seen | (hits > 0)
+        return tuple(_merge_tables(self.kinds, table, parts)), seen | (hits > 0)
+
+    def init_state(self):
+        """The (table, seen) state, made at first use."""
+        if self._table is None:
+            dev = self._device
+            self._table = tuple(torch.full((self.D,), col.identity,
+                                           dtype=_NP_TO_TORCH[np.dtype(col.dtype)], device=dev)
+                                for col in self.state_cols)
+            self._seen = torch.zeros(self.D, dtype=torch.bool, device=dev)
+        return self._table, self._seen
+
+    def absorb_state(self, state) -> None:
+        self._table, self._seen = state
+
+    def add_page(self, page: Page) -> None:
+        self.absorb_state(self._accumulate(page, *self.init_state()))
 
     def finish(self):
         """-> (interleaved (value, null flag) keys, states, seen)."""
@@ -439,19 +480,29 @@ class GlobalAggregationBuilder:
         return tuple(torch.tensor(col.identity, dtype=_NP_TO_TORCH[np.dtype(col.dtype)],
                                   device=device) for col in self.state_cols)
 
-    def add_page(self, page: Page) -> None:
-        if self._state is None:
-            self._state = self._identity_state(page.device)
+    def _accumulate(self, page: Page, state):
+        """One page folded into the scalar state: a new state."""
         contribs = _call_contributions(self.calls, page)
         new = []
-        for kind, c, st in zip(self.kinds, contribs, self._state):
+        for kind, c, st in zip(self.kinds, contribs, state):
             if kind == SUM:
                 new.append(st + c.sum())
             elif kind == MIN:
                 new.append(torch.minimum(st, c.min()))
             else:
                 new.append(torch.maximum(st, c.max()))
-        self._state = tuple(new)
+        return tuple(new)
+
+    def init_state(self):
+        if self._state is None:
+            self._state = self._identity_state(self._device)
+        return self._state
+
+    def absorb_state(self, state) -> None:
+        self._state = state
+
+    def add_page(self, page: Page) -> None:
+        self.absorb_state(self._accumulate(page, self.init_state()))
 
     def finish(self):
         state = self._state if self._state is not None else self._identity_state(self._device)

@@ -1,8 +1,9 @@
 """Hash join of the PyTorch port: sorted and open-addressing lookup sources.
 
 Counterpart of ``presto_tpu/ops/hash_join.py`` for INNER and LEFT joins on
-any number of keys, with unique or duplicate build keys, and the SEMI probe,
-exact-key or with a join filter. Two build strategies:
+any number of keys, with unique or duplicate build keys, and the SEMI and
+ANTI probes (null-aware for IN / NOT IN), exact-key or with a join filter.
+Two build strategies:
 
 1. SORTED: build rows sorted by their int64 combined key; the probe
    binary-searches the sorted keys and verifies the true keys
@@ -18,16 +19,20 @@ exact-key or with a join filter. Two build strategies:
    ``pallas.join_fallbacks`` counters record which happened.
 
 A unique build with exact keys emits one output page per probe page
-(``probe_match_sorted`` or the probe kernel). Every other INNER/LEFT join
-expands: each probe row's match range in the sorted keys is counted
-(``_range_kernel``), and the expanded rows are emitted one page-capacity
-chunk at a time (``_expand_kernel``), each chunk only when the consumer
-asks for it, with the true keys verified and LEFT's null-build row after a
-probe row's matches.
+(``probe_match_sorted`` or the probe kernel). On a single key that probe,
+and the exact-key SEMI/ANTI probe, is one pure function of the page and
+the build's tensors (``apply_probe_stage``), which a fused pipeline
+segment calls as a stage and the unfused operator calls alike. Every other
+INNER/LEFT join expands: each probe row's match range in the sorted keys
+is counted (``_range_kernel``), and the expanded rows are emitted one
+page-capacity chunk at a time (``_expand_kernel``), each chunk only when
+the consumer asks for it, with the true keys verified and LEFT's
+null-build row after a probe row's matches.
 
 A build row's id is its position in the concatenation of the compacted
-build pages, as in the reference. The dense strategy, FULL/RIGHT/ANTI
-joins, INNER/LEFT join filters and spill are not ported yet.
+build pages, as in the reference. The dense strategy (and the probe
+stage's DENSE branch), FULL/RIGHT joins, INNER/LEFT join filters and spill
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -43,7 +48,9 @@ from ..types import Type
 from ..utils.metrics import METRICS
 from .operator import Operator, OperatorContext, OperatorFactory, timed
 
-INNER, LEFT, SEMI = "inner", "left", "semi"
+INNER, LEFT, SEMI, ANTI = "inner", "left", "semi", "anti"
+# FULL is not ported; the name serves the fusion predicate, which refuses it
+FULL = "full"
 
 # the reference's uint64 mixer constants as their int64 bit patterns
 _M1 = 0xFF51AFD7ED558CCD - (1 << 64)
@@ -101,6 +108,9 @@ class LookupSource:
     pack_shifts: Optional[Tuple[int, ...]] = None
     pack_widths: Optional[Tuple[int, ...]] = None
     payload_nulls: Tuple = ()
+    # a live build row had a NULL key: NOT IN (null-aware ANTI) then keeps
+    # no row
+    has_null_key: bool = False
 
     @property
     def exact_keys(self) -> bool:
@@ -234,6 +244,7 @@ class JoinBuildOperator(Operator):
         super().__init__(context)
         self.f = factory
         self._pages: List[Page] = []
+        self._saw_null_key = None  # device bool, read once at the build
 
     @property
     def output_types(self) -> List[Type]:
@@ -242,6 +253,11 @@ class JoinBuildOperator(Operator):
     @timed("add_input_ns")
     def add_input(self, page: Page) -> None:
         self.context.record_input(page, page.capacity)
+        for c in self.f.key_channels:
+            if page.blocks[c].nulls is not None:
+                seen = (page.blocks[c].nulls & page.mask).any()
+                self._saw_null_key = seen if self._saw_null_key is None \
+                    else (self._saw_null_key | seen)
         self._pages.append(_compact_for_build(page, self.f.key_channels,
                                               self.f.payload_channels))
 
@@ -277,6 +293,8 @@ class JoinBuildOperator(Operator):
         if src is None:
             src = _build_sorted(keys, payload, mask, self.f.payload_meta, self.f.unique)
         src.payload_nulls = pnulls
+        if self._saw_null_key is not None:
+            src.has_null_key = bool(self._saw_null_key)  # host sync, once per build
         return src
 
     def _build_pallas(self, keys, payload, mask) -> Optional[LookupSource]:
@@ -361,6 +379,121 @@ def join_strategy(hash_kernels: str, device, join_type: str, key_channels,
     if hk == "pallas" and pallas_join_eligible(join_type, key_channels, unique):
         return "pallas"
     return "sorted"
+
+
+# ---------------------------------------------------------------------------
+# probe stage: the page-local probes as one pure page -> page function
+# ---------------------------------------------------------------------------
+#
+# The unique-build INNER/LEFT probe and the exact-key SEMI/ANTI probe emit one
+# output page per probe page, so a fused pipeline segment
+# (ops/fused_segment.py) can call them as a stage; the unfused probe calls the
+# same function, so the two paths cannot drift apart. The build side's
+# tensors arrive in ``aux`` and the static config in ``ProbeStageConfig``.
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeStageConfig:
+    """Static config of a page-local probe stage; the tensors it reads from
+    the build side are the aux of :func:`probe_stage_aux`."""
+
+    kind: str                              # "sorted" | "pallas"
+    join_type: str                         # INNER | LEFT | SEMI | ANTI
+    probe_key_channels: Tuple[int, ...]
+    probe_output_channels: Tuple[int, ...]
+    build_output_channels: Tuple[int, ...]
+    payload_meta: Tuple                    # ((type, dict), ...) per selected build column
+    null_aware: bool = False
+    # the probe kernel's fixed trip count (ops/pallas_hash.py)
+    pallas_trips: int = 0
+
+
+def probe_plan_fusible(join_type: str, key_channels, unique: bool, filter_fn=None) -> bool:
+    """Plan-time test: does every page of this probe take the page-local
+    stage? INNER/LEFT need a unique single-key build (one output row per
+    probe row); SEMI/ANTI need a single key and no join filter. FULL joins
+    track visited build rows across pages and are never page-local."""
+    if len(key_channels) != 1:
+        return False  # multi-key exactness is a run-time (packing) property
+    if join_type in (SEMI, ANTI):
+        return filter_fn is None
+    if join_type in (INNER, LEFT):
+        return unique
+    return False
+
+
+def probe_stage_cfg(f: "LookupJoinOperatorFactory", src: LookupSource) -> ProbeStageConfig:
+    return ProbeStageConfig(
+        kind=src.kind, join_type=f.join_type,
+        probe_key_channels=tuple(f.probe_key_channels),
+        probe_output_channels=tuple(f.probe_output_channels),
+        build_output_channels=tuple(f.build_output_channels),
+        payload_meta=tuple(src.payload_meta[i] for i in f.build_output_channels),
+        null_aware=f.null_aware, pallas_trips=src.ph_trips)
+
+
+def probe_stage_aux(src: LookupSource):
+    """Every tensor the stage reads from the build side, ``has_null_key`` as
+    a 0-d bool tensor beside the build's keys."""
+    if src.kind == "pallas":
+        match = (src.ph_keys, src.ph_rows)
+    else:
+        match = (src.sorted_key, src.sorted_row, tuple(src.key_arrays))
+    has_null = torch.tensor(bool(src.has_null_key), device=src.key_arrays[0].device)
+    return match, tuple(src.payload), tuple(src.payload_nulls), has_null
+
+
+def probe_stage_key(cfg: ProbeStageConfig) -> tuple:
+    """Cache identity of a stage (``utils/kernel_cache``), dictionary
+    versions included: the payload dictionaries ride into output blocks."""
+    from ..utils import kernel_cache as kc
+
+    return ("probe-stage", cfg.kind, cfg.join_type, cfg.probe_key_channels,
+            cfg.probe_output_channels, cfg.build_output_channels,
+            tuple((t.name, kc.dict_key(d)) for t, d in cfg.payload_meta),
+            cfg.null_aware, cfg.pallas_trips)
+
+
+def apply_probe_stage(page: Page, aux, cfg: ProbeStageConfig) -> Page:
+    """Pure page -> page probe: match the rows, then emit. A NULL probe key
+    never matches; SEMI keeps the matches and ANTI the rest (null-aware NOT
+    IN also drops NULL probe keys, and every row when a build key was
+    NULL); LEFT emits NULL build columns for an unmatched probe row. On a
+    CUDA page the PALLAS kind launches the probe kernel."""
+    match = aux[0]
+    probe_keys = tuple(page.blocks[c].data for c in cfg.probe_key_channels)
+    probe_mask = page.mask
+    for c in cfg.probe_key_channels:
+        if page.blocks[c].nulls is not None:
+            probe_mask = probe_mask & ~page.blocks[c].nulls
+    if cfg.kind == "pallas":
+        ph_keys, ph_rows = match
+        row = probe_match_pallas(ph_keys, ph_rows, probe_keys[0], probe_mask,
+                                 cfg.pallas_trips)
+    else:
+        sorted_key, sorted_row, key_arrays = match
+        row = probe_match_sorted(sorted_key, sorted_row, combined_key(probe_keys),
+                                 probe_keys, probe_mask, key_arrays)
+    return emit_matches(page, row, probe_mask, aux, cfg)
+
+
+def emit_matches(page: Page, row, probe_mask, aux, cfg: ProbeStageConfig) -> Page:
+    """The output page of a page-local probe from each row's build row
+    (-1: no match); ``probe_mask`` is the page mask less NULL probe keys."""
+    _match, payload, payload_nulls, has_null_key = aux
+    matched = row >= 0
+    if cfg.join_type in (SEMI, ANTI):
+        if cfg.join_type == SEMI:
+            keep = page.mask & matched
+        else:
+            keep = page.mask & ~matched
+            if cfg.null_aware:
+                keep = keep & probe_mask & ~has_null_key
+        sel = page.select_channels(list(cfg.probe_output_channels))
+        return Page(sel.blocks, keep)
+    return unique_join_page(page, row, payload, payload_nulls, cfg.probe_output_channels,
+                            cfg.build_output_channels, cfg.payload_meta,
+                            cfg.join_type == INNER, cfg.join_type == LEFT)
 
 
 # ---------------------------------------------------------------------------
@@ -479,6 +612,9 @@ class LookupJoinOperator(Operator):
         self._outputs: List[Page] = []
         self._source: Optional[LookupSource] = None
         self._expansion: Optional[_Expansion] = None
+        # the page-local stage's config and build tensors, from the live source
+        self._stage_cfg: Optional[ProbeStageConfig] = None
+        self._stage_aux = None
 
     @property
     def output_types(self) -> List[Type]:
@@ -507,25 +643,34 @@ class LookupJoinOperator(Operator):
         for c in self.f.probe_key_channels:
             if page.blocks[c].nulls is not None:
                 probe_mask = probe_mask & ~page.blocks[c].nulls
-        if jt == SEMI and (self.f.filter_fn is not None or not src.exact_keys):
-            self._outputs.append(self._semi_expanded(page, probe_keys, probe_mask))
-            return
-        if jt not in (INNER, LEFT, SEMI):
+        if jt not in (INNER, LEFT, SEMI, ANTI):
             raise NotImplementedError(f"{jt} join is not ported yet")
-        if jt != SEMI and not (src.unique and src.exact_keys):
+        if jt in (SEMI, ANTI) and (self.f.filter_fn is not None or not src.exact_keys):
+            self._outputs.append(self._semi_expanded(page, probe_keys, probe_mask))
+        elif jt in (SEMI, ANTI) or (src.unique and src.exact_keys):
+            cfg, aux = self._stage(src)
+            if self._stage_eligible(src):
+                self._outputs.append(apply_probe_stage(page, aux, cfg))
+            else:  # a packed multi-key build
+                row = self._match_rows(src, probe_keys, probe_mask)
+                self._outputs.append(emit_matches(page, row, probe_mask, aux, cfg))
+        else:
             self._start_expansion(page, probe_keys, probe_mask)
-            return
-        row = self._match_rows(src, probe_keys, probe_mask)
-        matched = row >= 0
-        if jt == SEMI:
-            sel = page.select_channels(self.f.probe_output_channels)
-            self._outputs.append(Page(sel.blocks, page.mask & matched))
-            return
-        self._outputs.append(unique_join_page(
-            page, row, src.payload, src.payload_nulls,
-            self.f.probe_output_channels, self.f.build_output_channels,
-            [src.payload_meta[i] for i in self.f.build_output_channels],
-            jt == INNER, jt == LEFT))
+
+    def _stage_eligible(self, src: LookupSource) -> bool:
+        """The plan-time fusion predicate on the live build: the fused and
+        the unfused probe take the one stage function alike. ``exact_keys``
+        is the run-time condition: a float single key range-scans instead."""
+        f = self.f
+        return probe_plan_fusible(f.join_type, f.probe_key_channels, src.unique,
+                                  f.filter_fn) and src.exact_keys
+
+    def _stage(self, src: LookupSource):
+        """The page-local probe's config and build tensors, made once."""
+        if self._stage_cfg is None:
+            self._stage_cfg = probe_stage_cfg(self.f, src)
+            self._stage_aux = probe_stage_aux(src)
+        return self._stage_cfg, self._stage_aux
 
     @staticmethod
     def _match_rows(src: LookupSource, probe_keys, probe_mask):
@@ -571,7 +716,7 @@ class LookupJoinOperator(Operator):
         return out
 
     def _semi_expanded(self, page: Page, probe_keys, probe_mask) -> Page:
-        """SEMI with a join filter or inexact keys: range-scan every
+        """SEMI or ANTI with a join filter or inexact keys: range-scan every
         candidate build row of each probe row, verify the true keys, evaluate
         the filter on the (probe, build) pair and OR the result per probe
         row, one page-capacity chunk of candidate pairs at a time
@@ -586,8 +731,14 @@ class LookupJoinOperator(Operator):
         for base in range(0, total, cap):
             any_match = self._semi_chunk(page, probe_keys, lo, offsets, base, total,
                                          any_match)
+        if self.f.join_type == SEMI:
+            keep = page.mask & any_match
+        else:
+            keep = page.mask & ~any_match
+            if self.f.null_aware:
+                keep = keep & probe_mask & (not src.has_null_key)
         sel = page.select_channels(self.f.probe_output_channels)
-        return Page(sel.blocks, page.mask & any_match)
+        return Page(sel.blocks, keep)
 
     def _semi_chunk(self, page, probe_keys, lo, offsets, base, total, any_match):
         """Candidate pairs [base, base + capacity): pair j belongs to the
@@ -643,8 +794,16 @@ class LookupJoinOperatorFactory(OperatorFactory):
                  build_output_meta: List[Tuple[Type, Optional[Dictionary]]],
                  join_type: str = INNER, filter_fn=None,
                  filter_probe_channels: Optional[List[int]] = None,
-                 filter_build_channels: Optional[List[int]] = None):
+                 filter_build_channels: Optional[List[int]] = None,
+                 null_aware: bool = False, unique_build: bool = False):
         super().__init__(operator_id, f"LookupJoin({join_type})")
+        # the build's plan-time uniqueness claim: a fused segment takes an
+        # INNER/LEFT probe as a stage only on a unique build
+        self.unique_build = unique_build
+        # SQL IN / NOT IN: a NULL probe key compares UNKNOWN (the row goes),
+        # and under NOT IN any NULL build key empties the result; False is
+        # EXISTS semantics, where a NULL key just never matches
+        self.null_aware = null_aware
         # SEMI join filter: a compiled expression over [probe channels...,
         # build payload columns...], evaluated per candidate (probe, build) pair
         self.filter_fn = filter_fn

@@ -91,6 +91,8 @@ class TableScanOperatorFactory(OperatorFactory):
         self._types = types
         self._processor = processor
         self.device = torch.device(device)
+        # a filter runs in the scan: a join after it may coalesce its pages
+        self.has_filter = processor is not None and processor.filter is not None
 
     def create_operator(self) -> Operator:
         return TableScanOperator(self.context(), self._remaining.pop(0), self._types,

@@ -34,11 +34,15 @@ def _sort_key_arrays(page: Page, orders: Sequence[SortOrder]) -> Tuple[torch.Ten
         b = page.blocks[o.channel]
         x = b.data
         if is_string(b.type) and b.dictionary is not None:
-            if not hasattr(b.dictionary, "values"):
+            d = b.dictionary
+            if hasattr(d, "values"):
+                ranks = torch.from_numpy(d.sort_keys()).to(x.device)
+                x = ranks[x.long()]
+            elif not getattr(d, "monotonic", False):
+                # a virtual dictionary sorts by code only when its format
+                # keeps the order (zero-padded Supplier#%09d)
                 raise NotImplementedError(
-                    f"ORDER BY over virtual dictionary {b.dictionary!r}")
-            ranks = torch.from_numpy(b.dictionary.sort_keys()).to(x.device)
-            x = ranks[x.long()]
+                    f"ORDER BY over non-monotonic virtual dictionary {d!r} is not ported")
         if x.dtype == torch.bool:
             x = x.to(torch.int32)
         if b.nulls is not None:

@@ -30,6 +30,30 @@ class QueryResult:
     rows: List[list]
     column_names: List[str]
     types: Optional[List] = None  # output Type objects when the engine knows them
+    # execution stats: "segments" (the fused segments and the fusion
+    # decisions) when the segment compiler considered any run; else None
+    stats: Optional[dict] = None
+
+
+def _segment_stats(exec_plan) -> Optional[dict]:
+    """The segment compiler's decisions and each fused segment's counts
+    (``FusedSegmentOperatorFactory.describe``), for ``stats["segments"]``."""
+    from .ops.fused_segment import FusedSegmentOperatorFactory
+
+    segs = []
+    dispatches = compiles = 0
+    for pi, chain in enumerate(exec_plan.pipelines):
+        for fac in chain:
+            if isinstance(fac, FusedSegmentOperatorFactory):
+                d = fac.describe()
+                d["pipeline"] = pi
+                segs.append(d)
+                dispatches += d["dispatches"]
+                compiles += d["compiles"]
+    if not segs and not exec_plan.segment_decisions:
+        return None
+    return {"count": len(segs), "dispatches": dispatches, "compiles": compiles,
+            "segments": segs, "decisions": exec_plan.segment_decisions}
 
 
 class LocalQueryRunner:
@@ -99,5 +123,7 @@ class LocalQueryRunner:
         plan = self.plan_statement(stmt)
         exec_plan = LocalExecutionPlanner(self.metadata, self.session, self.device).plan(plan)
         TaskExecutor().execute(exec_plan.create_drivers())
+        seg = _segment_stats(exec_plan)
         return QueryResult(exec_plan.sink.rows(), exec_plan.output_names,
-                           exec_plan.output_types)
+                           exec_plan.output_types,
+                           stats={"segments": seg} if seg is not None else None)

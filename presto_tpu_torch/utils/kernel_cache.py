@@ -1,0 +1,88 @@
+"""Process-wide cache of composed page functions, and the keys that name them.
+
+Counterpart of ``presto_tpu/utils/kernel_cache.py``. The reference caches
+jitted XLA kernels; the port runs eagerly, so what it caches is the composed
+Python function of a fused pipeline segment (``ops/fused_segment.py``),
+keyed on a fingerprint of everything the composition closed over: each
+stage's static config and the input layout, with every dictionary's
+identity and size. Equal keys compose behaviourally identical functions, so
+repeated queries reuse one composition instead of composing it anew.
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+from collections import OrderedDict
+from typing import Callable
+
+_LOCK = threading.Lock()
+_CACHE: "OrderedDict[tuple, object]" = OrderedDict()
+_MAX_ENTRIES = 2048  # least recently used entries go beyond this
+_NEXT_TOKEN = itertools.count(1)
+
+
+def get_or_install(key: tuple, make: Callable[[], object]):
+    """The cached function for ``key``, made with ``make()`` on a miss.
+    ``make`` runs outside the lock; two threads that miss on one key at once
+    may both make it, and the first to install wins."""
+    with _LOCK:
+        hit = _CACHE.get(key)
+        if hit is not None:
+            _CACHE.move_to_end(key)
+            return hit
+    made = make()
+    with _LOCK:
+        hit = _CACHE.setdefault(key, made)
+        _CACHE.move_to_end(key)
+        while len(_CACHE) > _MAX_ENTRIES:
+            _CACHE.popitem(last=False)
+        return hit
+
+
+def new_token() -> int:
+    """A process-unique dictionary identity (never reused, unlike ``id``)."""
+    return next(_NEXT_TOKEN)
+
+
+def dict_key(d) -> tuple:
+    """Cache identity of a Dictionary: (token, size)."""
+    if d is None:
+        return None
+    return (d.token(), len(d))
+
+
+def layout_key(types, dictionaries) -> tuple:
+    return tuple((t.name, dict_key(d)) for t, d in zip(types, dictionaries))
+
+
+def expr_key(e) -> tuple:
+    """Canonical fingerprint of a RowExpression tree (type-aware, recursive)."""
+    from ..ops import expressions as ex
+
+    if e is None:
+        return ("none",)
+    t = e.type.name
+    if isinstance(e, ex.InputRef):
+        return ("in", e.channel, t)
+    if isinstance(e, ex.SymbolRef):
+        return ("sym", e.name, t)
+    if isinstance(e, ex.Constant):
+        v = e.value
+        try:
+            hash(v)
+        except TypeError:
+            v = repr(v)
+        return ("const", t, v)
+    if isinstance(e, ex.Call):
+        return ("call", e.name, t) + tuple(expr_key(a) for a in e.args)
+    if isinstance(e, ex.SpecialForm):
+        return ("sf", e.form, t) + tuple(expr_key(a) for a in e.args)
+    return ("other", repr(e))
+
+
+def agg_call_key(call) -> tuple:
+    """Fingerprint of one AggregateCall's static config."""
+    return (call.function.fingerprint,
+            tuple(call.input_channels),
+            call.mask_channel,
+            tuple(call.intermediate_channels or ()))

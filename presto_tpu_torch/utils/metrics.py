@@ -5,7 +5,11 @@ build counts ``pallas.join_builds`` when it builds an open-addressing table
 and ``pallas.join_fallbacks`` when it falls back to the sorted build, under
 the same names as the reference. The expanding probe counts the rows it
 expands (``join.expanded_rows``) and the pages it emits them in
-(``join.expansion_chunks``); the reference has no such counters.
+(``join.expansion_chunks``); the reference has no such counters. Fused
+segments count their calls (``segments.dispatches``) and compositions
+(``segments.compiles``) under the reference's names; page coalescing counts
+the pages it takes and emits (``coalesce.pages_in``, ``coalesce.pages_out``),
+which the reference does not count.
 """
 from __future__ import annotations
 

@@ -225,3 +225,29 @@ def test_join_queries_on_the_card_equal_the_cpu_run(cuda, q):
     assert delta["pallas.join_builds"] == {5: 3, 9: 4}[q]
     assert delta["pallas.join_fallbacks"] == 0 == delta["pallas.agg_fallbacks"]
     assert inserts == delta["pallas.join_builds"] + delta["pallas.agg_pages"]
+
+
+@pytest.mark.parametrize("q", [3, 9])
+def test_fused_segments_on_the_card_equal_the_cpu_run(cuda, q):
+    """SQL Q3 and Q9 at ``tiny`` under the defaults (fused segments,
+    coalesced pages): the card's rows, segments and dispatches equal the CPU
+    run's, and on the card the fused probe stages launched the probe kernel
+    once per page and probed table."""
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.runner import LocalQueryRunner
+
+    runs = {}
+    for dev in ("cpu", cuda):
+        session = Session(catalog="tpch", schema="tiny",
+                          properties={"hash_kernels": "pallas", "page_capacity": 1 << 18})
+        res = LocalQueryRunner(session, device=dev).execute(QUERIES[q])
+        segs = res.stats["segments"]["segments"]
+        runs[str(dev)] = res.rows, [(s["operators"], s["dispatches"]) for s in segs], segs
+    (cpu_rows, cpu_segs, cpu_raw), (rows, segs, raw) = runs["cpu"], runs[str(cuda)]
+    assert rows == cpu_rows and segs == cpu_segs
+    assert all(s["probe_launches"] == 0 for s in cpu_raw)
+    probes = [sum(n.startswith("LookupJoin") for n in s["operators"]) for s in raw]
+    assert [s["probe_launches"] for s in raw] == [p * s["dispatches"]
+                                                  for p, s in zip(probes, raw)]
+    assert sum(s["probe_launches"] for s in raw) > 0

@@ -25,7 +25,7 @@ from presto_tpu_torch.utils.metrics import METRICS
 from test_sql_e2e import to_sqlite
 
 DOUBLE_REL_TOL = 1e-12
-# the reference's unfused, uncoalesced pipeline: its differential oracle
+# the unfused, uncoalesced pipeline: the differential oracle of the default one
 UNFUSED = {"segment_fusion": False, "coalesce_pages": False}
 HASH_KERNELS = ("sorted", "pallas", "auto")
 COUNTERS = ("pallas.join_builds", "pallas.join_fallbacks", "pallas.agg_pages")
@@ -162,8 +162,7 @@ def test_show_statements_match_reference(stmt):
     assert got.rows == want.rows and got.column_names == want.column_names
 
 
-@pytest.mark.parametrize("prop,value", [("segment_fusion", True), ("coalesce_pages", True),
-                                        ("scan_pipeline", True), ("driver_parallelism", 4),
+@pytest.mark.parametrize("prop,value", [("scan_pipeline", True), ("driver_parallelism", 4),
                                         ("memory_pool_bytes", 1 << 20),
                                         ("grouped_execution", True)])
 def test_unported_session_property_raises_naming_itself(prop, value):
@@ -172,9 +171,18 @@ def test_unported_session_property_raises_naming_itself(prop, value):
         LocalQueryRunner(session, device="cpu").execute(QUERIES[6])
 
 
+@pytest.mark.parametrize("prop", ["segment_fusion", "coalesce_pages"])
+def test_ported_feature_turned_on_alone_matches_reference(prop):
+    """Each of the two features on, the other off: Q3's rows equal the
+    reference's under the same properties."""
+    props = {**UNFUSED, prop: True, "hash_kernels": "pallas"}
+    want = _ref_rows(3, {**props, "scan_pipeline": False})
+    assert_same_rows(_port_rows(3, props), want)
+
+
 def test_unported_features_default_off():
-    off = {"segment_fusion": False, "coalesce_pages": False, "scan_pipeline": False,
-           "driver_parallelism": 1}
+    off = {"scan_pipeline": False, "driver_parallelism": 1}
+    assert Session.UNPORTED_FEATURES == tuple(off)
     assert {p: Session().get(p) for p in Session.UNPORTED_FEATURES} == off
     # the off values are accepted when set explicitly
     session = Session(catalog="tpch", schema="tiny", properties=off)
