@@ -61,9 +61,29 @@ Phases, each of which must pass:
    three more times fused and three unfused, in turns. The probe kernel is held
    against its plain version, bit for bit, at the shape the fused probe
    stage gives it (the fused Q3's first probe page, coalesced), and timed;
-10. print the kernels line (JSON, with each kernel's warm-run launches per
+10. a scan stage that fails on a pool thread must surface in the consumer
+   (``ScanPipeline._fail``) and stay raised;
+11. every ported query (Q1, Q3, Q4, Q5, Q6, Q7, Q9, Q10, Q13, Q16, Q18,
+   Q19, Q20) as SQL at SF1 with ``hash_kernels="pallas"`` under the full
+   defaults: four drivers per cut pipeline, the staged scan and the
+   resident page cache. Each query runs cold (cache cleared first) and warm
+   (a resident replay; launch counters and ``COUNTERS`` set to 0 just
+   before it), phases 6 and 8 giving these runs for their queries; then
+   under the oracle properties ``driver_parallelism=1, scan_pipeline=False``
+   (cold and warm; Q5 once). Fails unless the rows equal the oracle's, the
+   warm run replayed resident pages and staged none, the insert launched
+   once per join build and grouped page, nothing fell back, and Q18's inner
+   grouping spilled to host RAM. Prints per query the drivers per pipeline,
+   the cold run's scan stage seconds, the resident pages replayed, the
+   launches and the walls, and Q18's host merge seconds. Then the port's
+   CPU run of each query but Q5 must give the card's rows;
+12. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``), the card line, and last the
    result line.
+
+The phases of 6-9 run under the session defaults too, so on the card each
+cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
+warm run replays the resident page cache.
 
 Exits non-zero, printing no result, when CUDA is absent, when the package is
 not beside the script, or when any phase fails. It imports nothing of JAX.
@@ -92,11 +112,16 @@ KERNEL_SOURCE = "presto_tpu_torch/kernels/hash_table.cu"
 # the unfused, uncoalesced pipeline: the differential oracle of the default one
 UNFUSED = {"segment_fusion": False, "coalesce_pages": False}
 _LJ, _FP, _HA = "LookupJoin(inner)", "FilterProject", "HashAggregation(single)"
-# each query's fused segments, as tests/test_torch_fused_segment.py pins
-# them at schema tiny (the plan does not depend on the scale)
-SEGMENT_OPERATORS = {1: [], 6: [], 3: [[_LJ, _LJ, _FP, _HA]],
-                     5: [[_LJ] * 3, [_FP, _HA]], 9: [[_LJ] * 3, [_LJ, _FP, _HA]],
-                     13: [[_FP, _HA]]}
+# each query's fused segments under the card's defaults (four drivers per cut
+# pipeline: the probes run in the producers, the grouping after the
+# exchange), as the plan at schema tiny with driver_parallelism=4 gives them
+# (the plan does not depend on the scale)
+SEGMENT_OPERATORS = {1: [], 6: [], 3: [[_LJ, _LJ, _FP, _HA]], 5: [[_LJ] * 3],
+                     9: [[_LJ] * 3, [_LJ, _FP]], 13: [[_FP, _HA]]}
+# every TPC-H query the port runs as SQL
+PORTED_QUERIES = (1, 3, 4, 5, 6, 7, 9, 10, 13, 16, 18, 19, 20)
+# the oracle of the default path: one driver per pipeline, the serial scan
+ORACLE_PROPS = {"driver_parallelism": 1, "scan_pipeline": False}
 # the queries whose fused segments probe an open-addressing table
 FUSED_PROBE_QUERIES = (3, 5, 9)
 COUNTERS = ("pallas.join_builds", "pallas.join_fallbacks", "pallas.agg_pages",
@@ -680,8 +705,9 @@ def run_sql_query(device, q: int, schema: str, cold_capture=None, unfused_captur
     ``cold_capture``), then a warm run with the launch counters and
     ``COUNTERS`` set to 0 just before it and read just after; then the
     query unfused (under ``unfused_capture``) and under
-    ``hash_kernels="sorted"``. Fails unless the unfused rows equal the
-    fused ones. Returns what the phases check and print."""
+    ``hash_kernels="sorted"`` (Q5's with one driver: four double its wall,
+    PERF.md §5). Fails unless the unfused rows equal the fused ones.
+    Returns what the phases check and print."""
     import contextlib
 
     import torch
@@ -690,12 +716,15 @@ def run_sql_query(device, q: int, schema: str, cold_capture=None, unfused_captur
     from presto_tpu_torch.ops import pallas_hash as ph
     from presto_tpu_torch.utils.metrics import METRICS
 
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     runner = sql_runner(device, "pallas", schema)
+    RESIDENT_CACHE.clear()  # the cold run generates, uploads and caches its pages
     t0 = time.perf_counter()
     with cold_capture or contextlib.nullcontext():
-        runner.execute(QUERIES[q])
+        cold = runner.execute(QUERIES[q])
     sync()
     cold_s = time.perf_counter() - t0
     if on_card:
@@ -720,13 +749,17 @@ def run_sql_query(device, q: int, schema: str, cold_capture=None, unfused_captur
         raise AssertionError(f"SQL Q{q} rows fused and unfused differ:\n{res.rows}\n"
                              f"{unfused.rows}")
     t0 = time.perf_counter()
-    sorted_rows = sql_runner(device, "sorted", schema).execute(QUERIES[q]).rows
+    sorted_props = {"driver_parallelism": 1} if q == 5 else {}
+    sorted_rows = sql_runner(device, "sorted", schema, **sorted_props).execute(QUERIES[q]).rows
     sync()
     sorted_s = time.perf_counter() - t0
     return {"q": q, "rows": res.rows, "segments": (res.stats or {}).get("segments"),
             "launches": launches, "delta": delta, "streams": dict(streams.calls),
             "peak": peak, "cold_s": cold_s, "warm_s": warm_s, "unfused_s": unfused_s,
-            "sorted_rows": sorted_rows, "sorted_s": sorted_s}
+            "sorted_rows": sorted_rows, "sorted_s": sorted_s, "drivers": res.drivers,
+            "scan": (cold.stats or {}).get("scan_pipeline"),
+            "warm_scan": (res.stats or {}).get("scan_pipeline"),
+            "resident_pages": res.resident_pages}
 
 
 def check_rows(rec: dict, oracle, schema: str) -> None:
@@ -963,8 +996,9 @@ def check_default_path(device, records: dict, schema: str = "sf1") -> None:
     runs: the fused segments, the coalesced pages, the walls fused and
     unfused. Fails unless the segments' operators are the pinned ones, a
     fused segment launched the probe kernel in Q3, Q5 and Q9, the insert
-    launched once per join build and grouped page, Q3 and Q9 grouped no
-    page through the insert, and nothing fell back."""
+    launched once per join build and grouped page, Q3 grouped no page
+    through the insert (its grouping is fused; Q9's runs after the
+    exchange, unfused), and nothing fell back."""
     on_card = device.type == "cuda"
     for q in sorted(records):
         rec = records[q]
@@ -988,7 +1022,7 @@ def check_default_path(device, records: dict, schema: str = "sf1") -> None:
         if on_card and launches["insert"] != builds + pages:
             raise AssertionError(f"Q{q}: insert launches {launches['insert']} != join builds "
                                  f"{builds} + grouped pages {pages}")
-        if q in (3, 9) and pages != 0:
+        if q == 3 and pages != 0:
             raise AssertionError(f"Q{q}: the fused grouping sent {pages} pages to the insert")
         if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
             raise AssertionError(f"Q{q}: a fallback: {delta}")
@@ -1121,6 +1155,200 @@ def check_grouping_insert(device, capture, reps: int = 20, plain_reps: int = 3) 
     insert_rounds(device, comps, mask, slots)
 
 
+class MergeTimer:
+    """Records, while on, the seconds each spilled grouping spends in its
+    exact host merge (``GroupedAggregationBuilder._merge_spilled``)."""
+
+    def __enter__(self):
+        from presto_tpu_torch.ops import hash_agg
+
+        self.cls = hash_agg.GroupedAggregationBuilder
+        self.original = self.cls._merge_spilled
+        self.seconds = []
+        timer = self
+
+        def merge(builder):
+            t0 = time.perf_counter()
+            try:
+                return timer.original(builder)
+            finally:
+                timer.seconds.append(time.perf_counter() - t0)
+
+        self.cls._merge_spilled = merge
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._merge_spilled = self.original
+        return False
+
+
+def _fmt_scan(st) -> str:
+    if not st:
+        return "none (every scan replayed resident pages)"
+    return (f"read busy {st['read_busy_s']:.4f}s stall {st['read_stall_s']:.4f}s, upload "
+            f"busy {st['upload_busy_s']:.4f}s stall {st['upload_stall_s']:.4f}s, compute "
+            f"stall {st['compute_stall_s']:.4f}s; {st['pages']} pages, {st['bytes']} bytes")
+
+
+def run_default_path_phase(device, records: dict, schema: str = "sf1") -> dict:
+    """Every ported query at SF1 with ``hash_kernels="pallas"`` under the full
+    defaults (four drivers per cut pipeline, the staged scan, the resident
+    cache): a cold run (cache cleared first) and a warm run, which replays
+    resident pages, with the launch counters and ``COUNTERS`` set to 0
+    just before it and read just after (the queries of phases 6 and 8 reuse
+    those phases' runs); then the oracle properties, cold and warm (Q5
+    once). Fails unless the rows equal the oracle's, the warm run replayed
+    pages and staged none, the insert launched once per join build and
+    grouped page, nothing fell back, and Q18's inner grouping spilled.
+    Returns the records of every query."""
+    import torch
+
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    from presto_tpu_torch.exec.local_planner import LocalExecutionPlanner
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    probe = sql_runner(device, "pallas", schema)
+    want_drivers = LocalExecutionPlanner(probe.metadata, probe.session, device).driver_count()
+    out = {}
+    for q in PORTED_QUERIES:
+        rec = dict(records.get(q) or {})
+        merges = MergeTimer()
+        with merges:
+            if not rec:
+                runner = sql_runner(device, "pallas", schema)
+                RESIDENT_CACHE.clear()
+                spilled = METRICS.counter_value("agg.spilled_folds")
+                t0 = time.perf_counter()
+                cold = runner.execute(QUERIES[q])
+                sync()
+                rec["cold_s"] = time.perf_counter() - t0
+                rec["cold_spills"] = METRICS.counter_value("agg.spilled_folds") - spilled
+                before = {k: METRICS.counter_value(k) for k in COUNTERS + ("agg.spilled_folds",)}
+                ph.insert_table.launches = 0
+                ph.probe_table.launches = 0
+                t0 = time.perf_counter()
+                res = runner.execute(QUERIES[q])
+                sync()
+                rec["warm_s"] = time.perf_counter() - t0
+                rec["launches"] = {"insert": ph.insert_table.launches,
+                                   "probe": ph.probe_table.launches}
+                rec["delta"] = {k: METRICS.counter_value(k) - v for k, v in before.items()}
+                rec.update(q=q, rows=res.rows, drivers=res.drivers,
+                           scan=(cold.stats or {}).get("scan_pipeline"),
+                           warm_scan=(res.stats or {}).get("scan_pipeline"),
+                           resident_pages=res.resident_pages,
+                           segments=(res.stats or {}).get("segments"))
+            walls = []
+            oracle_runner = sql_runner(device, "pallas", schema, **ORACLE_PROPS)
+            for _ in range(1 if q == 5 else 2):
+                t0 = time.perf_counter()
+                oracle = oracle_runner.execute(QUERIES[q])
+                sync()
+                walls.append(time.perf_counter() - t0)
+        rec["oracle_s"] = walls
+        if not same_rows(rec["rows"], oracle.rows):
+            raise AssertionError(f"SQL Q{q}: rows under the defaults differ from the oracle "
+                                 f"properties' ({ORACLE_PROPS}):\n{rec['rows']}\n{oracle.rows}")
+        if max(rec["drivers"]) != want_drivers or max(oracle.drivers) != 1:
+            raise AssertionError(f"SQL Q{q}: drivers {rec['drivers']} / oracle {oracle.drivers}")
+        if rec["warm_scan"] or not rec["resident_pages"]:
+            raise AssertionError(f"SQL Q{q}: the warm run staged pages ({rec['warm_scan']}) or "
+                                 f"replayed none ({rec['resident_pages']})")
+        delta, launches = rec["delta"], rec["launches"]
+        builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
+        if on_card and launches["insert"] != builds + pages:
+            raise AssertionError(f"SQL Q{q}: insert launches {launches['insert']} != join "
+                                 f"builds {builds} + grouped pages {pages}")
+        if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+            raise AssertionError(f"SQL Q{q}: a fallback: {delta}")
+        if q == 18:
+            spills = delta.get("agg.spilled_folds", 0)
+            if not (rec.get("cold_spills") and spills):
+                raise AssertionError(f"SQL Q18: the inner grouping did not spill ({spills})")
+            rec["merge_s"] = merges.seconds
+        out[q] = rec
+        log(f"DEFAULTPATH SQL Q{q} {schema}: {len(rec['rows'])} rows equal to the oracle "
+            f"properties' run; drivers per pipeline {rec['drivers']}; cold wall "
+            f"{rec['cold_s']:.4f}s, warm (resident) wall {rec['warm_s']:.4f}s, oracle "
+            f"{' / '.join(f'{w:.4f}s' for w in walls)}; warm run replayed "
+            f"{rec['resident_pages']} resident pages; launches {launches}; "
+            f"join builds {int(builds)}, grouped pages {int(pages)}")
+        log(f"  cold scan stages: {_fmt_scan(rec['scan'])}")
+        if q == 18:
+            log(f"  Q18 spilled folds: cold {int(rec['cold_spills'])}, warm "
+                f"{int(delta['agg.spilled_folds'])}; host merge seconds "
+                f"{[round(x, 4) for x in merges.seconds]}")
+    return out
+
+
+def check_cpu_rows(records: dict, schema: str = "sf1") -> None:
+    """The port's own CPU run of each ported query but Q5 (its 6.9e9-row
+    expansion is for the card; its numpy oracle holds it) under the
+    defaults: rows equal to the card's."""
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+
+    for q in PORTED_QUERIES:
+        if q == 5:
+            continue
+        t0 = time.perf_counter()
+        rows = sql_runner("cpu", "pallas", schema).execute(QUERIES[q]).rows
+        if not same_rows(records[q]["rows"], rows):
+            raise AssertionError(f"SQL Q{q}: the card's rows differ from the CPU run's:\n"
+                                 f"{records[q]['rows']}\n{rows}")
+        log(f"CPU SQL Q{q} {schema}: {len(rows)} rows equal to the card's "
+            f"({time.perf_counter() - t0:.2f}s on the host)")
+    RESIDENT_CACHE.clear()  # the host pages are no use to the card
+
+
+def check_stage_failure(device) -> None:
+    """A scan stage that raises on a pool thread surfaces in the consumer
+    (``ScanPipeline._fail`` puts the error on the output queue) and stays
+    raised."""
+    import torch
+
+    from presto_tpu_torch.block import Block, Page
+    from presto_tpu_torch.ops.scan_pipeline import ScanPipeline
+    from presto_tpu_torch.types import BIGINT
+
+    class Failing:
+        def __iter__(self):
+            yield Page((Block(BIGINT, torch.arange(8)),), torch.ones(8, dtype=torch.bool))
+            raise ValueError("stage failure on purpose")
+
+        def close(self):
+            pass
+
+    pipe = ScanPipeline(Failing(), device, target_rows=8, pool_key="chip-smoke-failure")
+    raised, pages = 0, 0
+    try:
+        # the page read before the failure may or may not be uploaded first
+        for _ in range(4):
+            try:
+                page = pipe.next()
+            except ValueError as e:
+                if "on purpose" not in str(e):
+                    raise
+                raised += 1
+                continue
+            if page is None:
+                raise AssertionError("a failing scan stage ended its stream quietly")
+            if page.mask.device.type != "cuda":
+                raise AssertionError("the page did not reach the card")
+            pages += 1
+    finally:
+        pipe.close()
+    if raised < 3 or pages > 1:
+        raise AssertionError(f"a failing scan stage: {raised} raises, {pages} pages")
+    log(f"STAGE failure: the failing reader's error reached the consumer and stayed "
+        f"raised ({raised} calls; {pages} page before it)")
+
+
 def main() -> int:
     try:
         import torch
@@ -1152,12 +1380,15 @@ def main() -> int:
         sql_layers(device)
         check_grouping_insert(device, grouping)
         join_records, join_capture = run_join_phase(device)
-        sql_layers(device, queries=(5, 9, 13), warm_up=False)  # the phase warmed them
+        sql_layers(device, queries=(9, 13), warm_up=False)  # the phase warmed them
         check_path_kernels(device, join_capture)
         records.update(join_records)
         check_default_path(device, records)
         compare_walls(device)
         check_fused_probe(device, fused_capture)
+        check_stage_failure(device)
+        records = run_default_path_phase(device, records)
+        check_cpu_rows(records)
     except Exception:  # a failed phase: report it and print no result
         import traceback
 

@@ -245,6 +245,14 @@ class TpchPageSource(ConnectorPageSource):
         return Page(tuple(blocks), mask)
 
 
+    @property
+    def cache_token(self):
+        # the generated stream is a pure function of (table, sf, row range,
+        # columns, capacity): safe to keep device-resident across queries
+        return ("tpch", self.split.payload, tuple(c.name for c in self.columns),
+                self.capacity)
+
+
 class TpchPageSourceProvider(ConnectorPageSourceProvider):
     def create_page_source(self, split: Split, columns: Sequence[ColumnHandle],
                            page_capacity: int,

@@ -2,7 +2,9 @@
 
 Counterpart of ``presto_tpu/exec/driver.py``: for each adjacent operator
 pair, pull a page from the upstream operator and push it into the next one;
-propagate finish; honour blocking. A page hand-off passes tensor handles, so
+propagate finish; honour blocking; yield after a time quantum
+(``DriverYieldSignal``) so the threaded task executor can time-slice
+drivers. A page hand-off passes tensor handles, so
 the host loop runs ahead while the device works and syncs only where an
 operator must read a value (a finished build's stats, a fold's group count).
 """
@@ -15,10 +17,27 @@ from typing import Callable, List, Optional
 from ..ops.operator import Operator
 
 
+class DriverYieldSignal:
+    """Cooperative yield: armed with a quantum at the start of a slice."""
+
+    def __init__(self):
+        self._deadline_ns: Optional[int] = None
+
+    def arm(self, quantum_ns: int) -> None:
+        self._deadline_ns = time.perf_counter_ns() + quantum_ns
+
+    def disarm(self) -> None:
+        self._deadline_ns = None
+
+    def should_yield(self) -> bool:
+        return self._deadline_ns is not None and time.perf_counter_ns() > self._deadline_ns
+
+
 class ProcessState(enum.Enum):
     MADE_PROGRESS = 1
     BLOCKED = 2
     FINISHED = 3
+    YIELDED = 4
 
 
 class Driver:
@@ -28,6 +47,7 @@ class Driver:
         if not operators:
             raise ValueError("driver needs at least one operator")
         self.operators = operators
+        self.yield_signal = DriverYieldSignal()
         self._closed = False
 
     def is_finished(self) -> bool:
@@ -40,23 +60,33 @@ class Driver:
                 return b
         return None
 
-    def process(self) -> ProcessState:
-        """Run until blocked or finished."""
-        while True:
-            if self.is_finished():
-                self._close_operators()
-                return ProcessState.FINISHED
-            if self.blocked_on() is not None:
-                return ProcessState.BLOCKED
-            progressed = self._process_once()
-            if self.is_finished():
-                self._close_operators()
-                return ProcessState.FINISHED
-            if not progressed:
+    def process(self, quantum_ns: int = 200_000_000) -> ProcessState:
+        """Run until blocked, finished, or past the quantum."""
+        self.yield_signal.arm(quantum_ns)
+        try:
+            while True:
+                if self.is_finished():
+                    # finished from outside (a consumer stopped reading):
+                    # the operators still release their resources
+                    self._close_operators()
+                    return ProcessState.FINISHED
                 if self.blocked_on() is not None:
                     return ProcessState.BLOCKED
-                # no operator moved and none is blocked: drain the finishes
-                self._propagate_finish()
+                progressed = self._process_once()
+                if self.is_finished():
+                    self._close_operators()
+                    return ProcessState.FINISHED
+                if not progressed:
+                    if self.blocked_on() is not None:
+                        return ProcessState.BLOCKED
+                    # no operator moved and none is blocked: drain the finishes
+                    self._propagate_finish()
+                elif self.yield_signal.should_yield():
+                    # checked after a sweep that moved a page, so every
+                    # turn makes progress however short the quantum
+                    return ProcessState.YIELDED
+        finally:
+            self.yield_signal.disarm()
 
     def _process_once(self) -> bool:
         """One sweep over adjacent pairs."""

@@ -20,10 +20,19 @@ TPC-H Q1, Q3, Q5, Q6, Q9 and Q13, on an explicit ``device``:
   ``LocalExecutionPlan.segment_decisions``.
 - Symbols resolve to channels here (SymbolRef -> InputRef).
 
-Each pipeline is one driver. Both features are on by default, as in the
-reference; turned off, the port runs the reference's differential oracle.
-A plan node, a join shape or a session property the port does not run
-raises ``NotImplementedError`` naming itself.
+- ``_add_pipeline`` cuts each pipeline that starts with a multi-split
+  scan by the reference's rule: its stateless prefix (scan, filter/project,
+  non-FULL join probes) runs as N producer drivers behind a bounded
+  ``LocalExchange`` and the rest as one consumer driver; a pipeline ending
+  in a join build runs whole as N build drivers, whose last finisher
+  builds. N is ``driver_parallelism``: AUTO gives ``task_concurrency`` on a
+  CUDA device and 1 on the CPU. Fusion runs after the cut.
+- Every scan gets the session's pipeline knobs (``scan_options``).
+
+Fusion, coalescing, the scan pipeline and parallel drivers are on by
+default, as in the reference; turned off, the port runs the reference's
+differential oracles. A plan node, a join shape or a session property the
+port does not run raises ``NotImplementedError`` naming itself.
 """
 from __future__ import annotations
 
@@ -39,7 +48,7 @@ from ..ops.expressions import (InputLayout, RowExpression, SymbolRef, input_ref,
                                resolve_symbols, symbol_ref)
 from ..ops.filter_project import FilterProjectOperatorFactory, PageProcessor
 from ..ops.hash_agg import SINGLE, HashAggregationOperatorFactory
-from ..ops.hash_join import (ANTI, INNER, LEFT, SEMI, JoinBuildOperatorFactory,
+from ..ops.hash_join import (ANTI, FULL, INNER, LEFT, SEMI, JoinBuildOperatorFactory,
                              LookupJoinOperatorFactory, join_strategy)
 from ..ops.scan import TableScanOperatorFactory
 from ..ops.topn import (LimitOperatorFactory, OrderByOperatorFactory, SortOrder,
@@ -90,8 +99,11 @@ class LocalExecutionPlan:
     segment_decisions: List[dict] = dataclasses.field(default_factory=list)
 
     def create_drivers(self) -> List[Driver]:
-        """One driver per pipeline, in dependency order."""
-        return [Driver([f.create_operator() for f in chain]) for chain in self.pipelines]
+        """``parallel_drivers`` drivers per pipeline (one unless the head
+        scan was cut for parallelism), in dependency order."""
+        return [Driver([f.create_operator() for f in chain])
+                for chain in self.pipelines
+                for _ in range(getattr(chain[0], "parallel_drivers", 1))]
 
 
 class LocalExecutionPlanner:
@@ -105,6 +117,24 @@ class LocalExecutionPlanner:
         cap = session.get("page_capacity")
         self.page_capacity = int(cap) if cap else default_page_capacity(self.device)
         self.hash_kernels = str(session.get("hash_kernels"))
+        # the scan pipeline's knobs, resolved once per plan; 0/None fall
+        # through to ScanPipeline's defaults, and re-batched pages take the
+        # page capacity. Every scan of the query shares one pool key (one
+        # fairness slot on the shared scan pool).
+        threads = session.get("scan_reader_threads")
+        rows = session.get("scan_target_page_rows")
+        pool_key = None
+        if bool(session.get("shared_pools")):
+            from .shared_pools import next_query_key
+
+            pool_key = next_query_key()
+        self.scan_options = {
+            "staged": bool(session.get("scan_pipeline")),
+            "reader_threads": int(threads) if threads else None,
+            "target_rows": int(rows) if rows else self.page_capacity,
+            "prefetch_bytes": int(session.get("scan_prefetch_bytes") or 0) or None,
+            "pool_key": pool_key,
+        }
         self._ids = itertools.count()
         self.pipelines: List[List[object]] = []
 
@@ -115,10 +145,77 @@ class LocalExecutionPlanner:
             chain = self._append_project(
                 chain, [(s, symbol_ref(s.name, s.type)) for s in root.symbols])
         sink = PageConsumerFactory(next(self._ids), [s.type for s in chain.symbols])
-        self.pipelines.append(chain.factories + [sink])
+        self._add_pipeline(chain.factories + [sink])
         decisions = self._fuse_pipelines()
+        for pipeline in self.pipelines:
+            for fac in pipeline:
+                if isinstance(fac, TableScanOperatorFactory) and fac.scan_options is None:
+                    fac.scan_options = self.scan_options
         return LocalExecutionPlan(self.pipelines, sink, root.column_names,
                                   [s.type for s in chain.symbols], decisions)
+
+    # --------------------------------------------------- driver parallelism
+
+    def driver_count(self) -> int:
+        """``driver_parallelism``: AUTO (or None) is ``task_concurrency`` on
+        a CUDA device and 1 on the CPU; an integer forces that count."""
+        setting = self.session.get("driver_parallelism")
+        if setting in (None, "AUTO", "auto"):
+            return int(self.session.get("task_concurrency")) \
+                if self.device.type == "cuda" else 1
+        return int(setting)
+
+    def _add_pipeline(self, factories: List) -> None:
+        """Append a pipeline, cutting its stateless scan prefix into N
+        producer drivers behind a local exchange where the reference does.
+
+        The rule: the chain starts with a multi-split table scan, the
+        prefix of {scan, filter/project, non-FULL join probe} is followed by
+        at least one stateful operator, and the driver count allows more
+        than one. Producers run the prefix, one split group each; the
+        stateful tail runs as ONE consumer driver after the exchange. A
+        chain that is all prefix up to a join build runs whole as N build
+        drivers instead."""
+        from ..ops.local_exchange import (LocalExchangeFactory, LocalExchangeSinkFactory,
+                                          LocalExchangeSourceFactory)
+
+        head = factories[0]
+        n = min(self.driver_count(), getattr(head, "sources_per_worker", 1))
+        if n <= 1 or not isinstance(head, TableScanOperatorFactory):
+            self.pipelines.append(factories)
+            return
+
+        def prefix_safe(f) -> bool:
+            if isinstance(f, FilterProjectOperatorFactory):
+                return True
+            if isinstance(f, LookupJoinOperatorFactory):
+                # FULL joins emit unmatched build rows at probe finish: that
+                # pass must run exactly once, so such probes stay single
+                return f.join_type != FULL
+            return False
+
+        cut = 1
+        while cut < len(factories) and prefix_safe(factories[cut]):
+            cut += 1
+        if cut == len(factories) - 1 and isinstance(factories[-1], JoinBuildOperatorFactory):
+            # parallel build: n drivers, each collects its own pages; the
+            # last to finish merges them and publishes the lookup source
+            head.set_parallelism(n)
+            head.parallel_drivers = n
+            self.pipelines.append(factories)
+            return
+        if cut >= len(factories) - 1:
+            self.pipelines.append(factories)   # nothing stateful before the sink
+            return
+        head.set_parallelism(n)
+        head.parallel_drivers = n
+        # bounded: the drivers run under the task executor, so a full buffer
+        # parks the producers instead of piling up device pages
+        lx = LocalExchangeFactory(n_producers=n, max_pages=2 * n + 2)
+        sink = LocalExchangeSinkFactory(next(self._ids), lx, [])
+        source = LocalExchangeSourceFactory(next(self._ids), lx, [])
+        self.pipelines.append(factories[:cut] + [sink])
+        self.pipelines.append([source] + factories[cut:])
 
     # ------------------------------------------------------ segment fusion
 
@@ -287,7 +384,7 @@ class LocalExecutionPlanner:
             next(self._ids), build_key_ch, payload_ch, payload_meta,
             strategy=self._join_strategy(jt, build_key_ch, unique), unique=unique,
             device=self.device)
-        self.pipelines.append(build_chain.factories + [build_fac])
+        self._add_pipeline(build_chain.factories + [build_fac])
 
         probe_out_ch = [probe_chain.channel(s.name) for s in probe_out]
         probe_meta = probe_chain.meta([s.name for s in probe_out])
@@ -309,7 +406,7 @@ class LocalExecutionPlanner:
         build_fac = JoinBuildOperatorFactory(
             next(self._ids), [filt.channel(node.filtering_key.name)], [], [],
             strategy="sorted", unique=False, device=self.device)
-        self.pipelines.append(filt.factories + [build_fac])
+        self._add_pipeline(filt.factories + [build_fac])
         fac = LookupJoinOperatorFactory(
             next(self._ids), build_fac.lookup_factory, [src.channel(node.source_key.name)],
             list(range(len(src.symbols))), src.meta([s.name for s in src.symbols]), [], [],

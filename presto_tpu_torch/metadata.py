@@ -5,12 +5,10 @@ table handles, column enumeration and statistics for the cost-based join
 ordering, behind a catalog registry.
 
 The port's ``Session.DEFAULTS`` hold only the properties the port honours,
-with the reference's values (fused segments and page coalescing on), plus
-the two features the reference turns on by default and the port has not
-ported yet, each set to its off value. A property outside ``DEFAULTS``, or
-one of the two turned on, raises ``NotImplementedError`` naming it when a
-query is planned (``Session.check_supported``): no property is ignored
-quietly.
+each with the reference's default value: fused segments, page coalescing,
+the streaming scan pipeline and parallel drivers are on. A property outside
+``DEFAULTS`` raises ``NotImplementedError`` naming it when a query is
+planned (``Session.check_supported``): no property is ignored quietly.
 """
 from __future__ import annotations
 
@@ -47,15 +45,25 @@ class Session:
         "segment_fusion": True,
         # page coalescing after a filtered scan before a join (ops/coalesce.py)
         "coalesce_pages": True,
-        # --- features the reference turns on and the port has not ported;
-        # each is off here and raises when turned on (ROADMAP.md, queue 1)
-        # the streaming scan pipeline (ROADMAP queue 1, item 4)
-        "scan_pipeline": False,
-        # parallel drivers per pipeline (ROADMAP queue 1, item 5)
-        "driver_parallelism": 1,
+        # the staged scan (ops/scan_pipeline.py): reader, re-batch or
+        # passthrough, and upload stages on background threads; False reads
+        # and copies each page on the driver's thread (the oracle)
+        "scan_pipeline": True,
+        # drivers per eligible pipeline: AUTO = task_concurrency on a CUDA
+        # device, 1 on the CPU; an integer forces that many
+        "driver_parallelism": "AUTO",
+        # runner threads of the task executor, and AUTO's driver count
+        "task_concurrency": 4,
+        # scan stages on the process-wide SCAN_POOL (False: per-scan threads)
+        "shared_pools": True,
+        # readers per scan pipeline; 0 = scan_pipeline.DEFAULT_READER_THREADS
+        "scan_reader_threads": 0,
+        # rows of a re-batched page; 0 = the session's page capacity
+        "scan_target_page_rows": 0,
+        # in-flight bytes per scan (staged and uploaded-unconsumed);
+        # 0 = scan_pipeline.DEFAULT_PREFETCH_BYTES
+        "scan_prefetch_bytes": 0,
     }
-    # the unported features above: DEFAULTS holds the only value each takes
-    UNPORTED_FEATURES = ("scan_pipeline", "driver_parallelism")
 
     def get(self, name: str, default=None):
         if name in self.properties:
@@ -66,17 +74,11 @@ class Session:
 
     def check_supported(self) -> None:
         """Raise NotImplementedError naming the first property the port
-        would otherwise ignore: one it does not know, or an unported feature
-        turned on."""
-        for name, value in self.properties.items():
+        does not know (and would otherwise ignore)."""
+        for name in self.properties:
             if name not in self.DEFAULTS:
                 raise NotImplementedError(
                     f"session property {name!r} is not ported to presto_tpu_torch")
-            off = self.DEFAULTS[name]
-            if name in self.UNPORTED_FEATURES and value != off:
-                raise NotImplementedError(
-                    f"session property {name}={value!r} needs a feature that is "
-                    f"not ported to presto_tpu_torch (only {off!r} is supported)")
 
 
 def default_page_capacity(device) -> int:

@@ -7,6 +7,7 @@ the output blocks; ``FilterProjectOperator`` runs one between operators
 """
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence
 
 from ..block import Block, Page
@@ -21,14 +22,21 @@ class PageProcessor:
 
     ``_process`` is the pure page body a fused segment calls; ``cache_key``
     names it (expressions and input layout) in ``utils/kernel_cache``.
-    ``_build`` recompiles the expressions against a layout, as
-    ``__call__`` does when a page's layout drifts from the built one."""
+    ``ensure_layout`` recompiles the expressions when a page's layout
+    drifts from the built one, under a lock: the drivers of one pipeline
+    share the processor."""
 
     def __init__(self, layout: InputLayout, filter_expr: Optional[RowExpression],
                  projections: Sequence[RowExpression]):
         self._filter_expr = filter_expr
         self._projection_exprs = list(projections)
+        self._lock = threading.Lock()
         self._build(layout)
+
+    def ensure_layout(self, types, dicts) -> None:
+        with self._lock:
+            if kc.layout_key(types, dicts) != self._layout_key:
+                self._build(InputLayout(types, dicts))
 
     def _build(self, layout: InputLayout) -> None:
         compiler = ExpressionCompiler(layout)
@@ -64,10 +72,7 @@ class PageProcessor:
         return Page(tuple(blocks), mask)
 
     def __call__(self, page: Page) -> Page:
-        types = [b.type for b in page.blocks]
-        dicts = [b.dictionary for b in page.blocks]
-        if kc.layout_key(types, dicts) != self._layout_key:
-            self._build(InputLayout(types, dicts))
+        self.ensure_layout([b.type for b in page.blocks], [b.dictionary for b in page.blocks])
         return self._process(page)
 
 

@@ -44,7 +44,6 @@ from ..block import Page
 from ..utils import kernel_cache as kc
 from ..utils.metrics import METRICS
 from . import pallas_hash
-from .expressions import InputLayout
 from .filter_project import FilterProjectOperatorFactory
 from .hash_agg import (DirectAggregationBuilder, GlobalAggregationBuilder,
                        GroupedAggregationBuilder, HashAggregationOperatorFactory,
@@ -278,8 +277,7 @@ class FusedSegmentOperator(Operator):
             mf = st["factory"]
             if isinstance(mf, FilterProjectOperatorFactory):
                 proc = mf.processor
-                if proc._layout_key != kc.layout_key(cur_types, cur_dicts):
-                    proc._build(InputLayout(cur_types, cur_dicts))
+                proc.ensure_layout(cur_types, cur_dicts)
                 mid_plan.append(("proc", proc))
                 keys.append(proc.cache_key)
                 cur_types = list(proc.output_types_)
@@ -323,7 +321,7 @@ class FusedSegmentOperator(Operator):
             self._install(page, in_key)
         auxes = tuple(st["aux"] for st in self._stages if st["aux"] is not None)
         self._pages += 1
-        launches = pallas_hash.probe_table.launches
+        launches = pallas_hash.thread_launches(pallas_hash.probe_table)
         try:
             if t is None:
                 self._pending = self._fused(page, auxes, None, 0)
@@ -336,7 +334,8 @@ class FusedSegmentOperator(Operator):
                 if not t.absorb(self._fused(page, auxes, t.state(), og), page.capacity, og):
                     raise AssertionError("a full-size partial cannot overflow")
         finally:
-            self._probe_launches += pallas_hash.probe_table.launches - launches
+            self._probe_launches += \
+                pallas_hash.thread_launches(pallas_hash.probe_table) - launches
             self.context.stats.add_input_ns += time.perf_counter_ns() - t0
 
     @timed("get_output_ns")

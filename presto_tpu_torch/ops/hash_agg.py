@@ -20,8 +20,15 @@ a fused pipeline segment's terminal stage (``ops/fused_segment.py``): the
 grouped builder's sort partial (``_page_partial``) or raw rows in defer
 mode (``_page_raw``), installed by ``absorb_partial``/``absorb_raw``; the
 DIRECT and GLOBAL builders' ``_accumulate(page, state)``, with
-``init_state``/``absorb_state``. The PARTIAL/FINAL steps, vector states and
-spill are not ported yet.
+``init_state``/``absorb_state``.
+
+When a fold finds more live groups than ``max_groups``, the grouped builder
+moves the fold's complete inputs to host RAM (the reference's host-RAM
+spill rung) and keeps accumulating; ``finish`` then merges the spilled
+parts exactly on the host (``_host_merge_parts``), and the operator pages
+the host result onto the device one output page at a time. Each such fold
+counts ``agg.spilled_folds``. The PARTIAL/FINAL steps, vector states, the
+disk rung and memory revocation are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 from ..block import _NP_TO_TORCH, Block, Dictionary, Page, torch_dtype
 from ..types import BOOLEAN, Type
 from ..utils import kernel_cache
+from ..utils.metrics import METRICS
 from .aggregates import MAX, MIN, SUM, AggregateCall
 from .operator import Operator, OperatorContext, OperatorFactory, timed
 from .sorting import lexsort_fast
@@ -164,6 +172,11 @@ def sort_group_reduce(keys: Tuple[torch.Tensor, ...], mask: torch.Tensor,
     return gkeys, fixed, gvalid, num_groups
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values in host RAM, as a numpy array."""
+    return t.detach().cpu().numpy()
+
+
 def _pow2(n: int) -> int:
     return 1 << max(4, (n - 1).bit_length())
 
@@ -189,6 +202,9 @@ class GroupedAggregationBuilder:
         self._pending: List = []  # (keys, states, valid) partials
         self._pending_rows = 0
         self._table_size: Optional[int] = None
+        # folds whose inputs went to host RAM: (keys, states, valid) numpy
+        self._spilled: List = []
+        self.spilled_folds = 0
         self._device = torch.device(device)
         # decided once from the first page's true group count
         # (_decide_strategy, one host sync): defer = groups ~ rows, so pages
@@ -326,8 +342,6 @@ class GroupedAggregationBuilder:
         """Group one page through the insert. Returns False on an insert
         overflow (one host sync per page reads the flag): the caller re-runs
         the page through the sort kernel."""
-        from ..utils.metrics import METRICS
-
         gkeys, states, used, stats = self._page_hash_partial(page, self._hash_slots)
         if int(stats[0]):
             METRICS.count("pallas.agg_fallbacks")
@@ -357,8 +371,14 @@ class GroupedAggregationBuilder:
                 break
             size = min(_pow2(n), self.max_groups)  # grow and refold
         if n > self.max_groups:
-            raise NotImplementedError(
-                f"{n} groups exceed max_groups={self.max_groups}; spill is not ported yet")
+            # more live groups than the table holds: the fold's (complete)
+            # inputs go to host RAM, merged exactly at finish
+            self._spilled.append((tuple(_host(k) for k in keys),
+                                  tuple(_host(st) for st in states), _host(valid)))
+            self.spilled_folds += 1
+            METRICS.count("agg.spilled_folds")
+            self._table_size = None
+            return
         tight = min(_pow2(max(n, 1)), self.max_groups)
         if tight < size:
             gkeys = tuple(k[:tight] for k in gkeys)
@@ -367,10 +387,53 @@ class GroupedAggregationBuilder:
         self._table_size = tight
         self._acc = (gkeys, gstates, gvalid)
 
+    def _host_merge_parts(self, parts):
+        """Merge (keys, states, valid) numpy triples exactly: keep the valid
+        rows, lexsort by the key tuple, and reduce each state column per run
+        of equal keys -> ([key col...], [state col...]), one row per
+        distinct key, in key order."""
+        nk = len(self.key_types)
+        valid = np.concatenate([np.asarray(p[2]) for p in parts])
+        keys = [np.concatenate([np.asarray(p[0][i]) for p in parts])[valid]
+                for i in range(nk)]
+        states = [np.concatenate([np.asarray(p[1][i]) for p in parts])[valid]
+                  for i in range(len(self.kinds))]
+        if len(keys[0]) == 0:
+            return keys, states
+        order = np.lexsort(tuple(reversed(keys)))
+        keys = [k[order] for k in keys]
+        boundary = np.zeros(len(keys[0]), dtype=bool)
+        boundary[0] = True
+        for k in keys:
+            boundary[1:] |= k[1:] != k[:-1]
+        starts = np.flatnonzero(boundary)
+        reduce = {SUM: np.add, MIN: np.minimum, MAX: np.maximum}
+        out_states = [reduce[kind].reduceat(st[order], starts)
+                      for kind, st in zip(self.kinds, states)]
+        return [k[starts] for k in keys], out_states
+
+    def _merge_spilled(self):
+        """The spilled parts and the current table merged on the host: the
+        merged table may exceed what the device table holds, so it stays
+        there (CPU tensors) and the operator pages it out."""
+        parts = list(self._spilled)
+        if self._acc is not None:
+            parts.append((tuple(_host(k) for k in self._acc[0]),
+                          tuple(_host(st) for st in self._acc[1]), _host(self._acc[2])))
+        self._spilled, self._acc, self._table_size = [], None, None
+        keys, states = self._host_merge_parts(parts)
+        n = len(keys[0])
+        return (tuple(torch.from_numpy(k) for k in keys),
+                tuple(torch.from_numpy(st) for st in states),
+                torch.ones(n, dtype=torch.bool))
+
     def finish(self):
-        """-> (keys, states, valid), compact (valid is a prefix)."""
+        """-> (keys, states, valid), compact (valid is a prefix); on the
+        host after a spill, else on the builder's device."""
         if self._pending:
             self._fold()
+        if self._spilled:
+            return self._merge_spilled()
         if self._acc is None:  # empty input: zero groups
             dev = self._device
             keys = tuple(torch.zeros(0, dtype=torch_dtype(t), device=dev)
@@ -568,6 +631,9 @@ class HashAggregationOperator(Operator):
 
     def _build_result(self) -> None:
         keys, states, valid = self.builder.finish()
+        # a spilled result stays on the host: each output page is sliced
+        # there and copied to the device on its own, never the whole table
+        dev = self.builder._device
         # a compact table is trimmed to its live groups; a direct table
         # keeps its (small) domain and the page masks carry liveness
         total = int(valid.sum()) if self.builder.compact_table else int(valid.shape[0])
@@ -589,10 +655,10 @@ class HashAggregationOperator(Operator):
                              call.output_dictionary, nulls))
         pages = []
         for lo in range(0, max(total, 1), cap):
-            blocks = [Block(t, _slice_pad(a, lo, cap).to(torch_dtype(t)),
-                            None if nl is None else _slice_pad(nl, lo, cap), d)
+            blocks = [Block(t, _slice_pad(a, lo, cap).to(dev, torch_dtype(t)),
+                            None if nl is None else _slice_pad(nl, lo, cap).to(dev), d)
                       for (t, a, d, nl) in out_cols]
-            pages.append(Page(tuple(blocks), _slice_pad(valid, lo, cap)))
+            pages.append(Page(tuple(blocks), _slice_pad(valid, lo, cap).to(dev)))
         self._result_pages = pages
 
 

@@ -134,7 +134,8 @@ class LookupSource:
 
 
 class LookupSourceFactory:
-    """A future the probes block on: set once by the build, read by probes."""
+    """A future the probes block on: set once by the build, then read by
+    every probe driver (the source is immutable once set)."""
 
     def __init__(self):
         self._event = threading.Event()
@@ -268,8 +269,7 @@ class JoinBuildOperator(Operator):
         if self._finishing:
             return
         super().finish()
-        self.f.lookup_factory.set(self._build())
-        self._pages = []  # consumed into the lookup source
+        self.f._builder_done(self)
 
     def _build(self) -> LookupSource:
         kc = len(self.f.key_channels)
@@ -350,9 +350,37 @@ class JoinBuildOperatorFactory(OperatorFactory):
         self.unique = unique
         self.device = torch.device(device)
         self.lookup_factory = LookupSourceFactory()
+        self._builders_lock = threading.Lock()
+        self._created: List[JoinBuildOperator] = []
+        self._finished = 0
 
     def create_operator(self) -> JoinBuildOperator:
-        return JoinBuildOperator(self.context(), self)
+        op = JoinBuildOperator(self.context(), self)
+        with self._builders_lock:
+            self._created.append(op)
+        return op
+
+    def _builder_done(self, op: JoinBuildOperator) -> None:
+        """Called by each build driver's finish(). The last to finish takes
+        its siblings' collected pages and null-key state, builds the lookup
+        source and publishes it (the plan creates every driver before any
+        runs, so the count is final). With one build driver this is the
+        plain build."""
+        with self._builders_lock:
+            self._finished += 1
+            if self._finished < len(self._created):
+                return
+            for o in self._created:
+                if o is op:
+                    continue
+                op._pages.extend(o._pages)
+                if o._saw_null_key is not None:
+                    op._saw_null_key = o._saw_null_key if op._saw_null_key is None \
+                        else (op._saw_null_key | o._saw_null_key)
+                o._pages = []
+            source = op._build()
+            op._pages = []  # consumed into the lookup source
+            self.lookup_factory.set(source)
 
 
 def pallas_join_eligible(join_type: str, key_channels, unique: bool) -> bool:

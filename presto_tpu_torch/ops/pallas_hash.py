@@ -15,13 +15,17 @@ become the hand-written CUDA kernels in ``kernels/hash_table.cu``:
   miss (-1).
 
 Each wrapper launches its CUDA kernel for CUDA tensors and counts the launch
-in its ``launches`` attribute; for CPU tensors it runs the plain PyTorch
+in its ``launches`` attribute, under a lock (drivers launch from several
+threads), and in the launching thread's own tally (``thread_launches``,
+which a fused segment reads to count the launches made inside it); for
+CPU tensors it runs the plain PyTorch
 version beside it (``insert_table_reference``, which takes the kernel's
 rounds step for step, and ``probe_table_reference``), whose outputs are the
 reference's bit for bit. Any other device raises. The constants have the reference's values.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -37,6 +41,24 @@ EMPTY = -1  # free-slot / miss sentinel
 
 _INT32_MAX = 2 ** 31 - 1
 _CLAIM_FREE = 2 ** 63 - 1  # claims entry of an empty slot: above every bid
+
+
+_LAUNCH_LOCK = threading.Lock()
+_THREAD = threading.local()
+
+
+def _count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: its process-wide count, under the
+    lock, and the calling thread's tally."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
+    name = wrapper.__name__
+    setattr(_THREAD, name, getattr(_THREAD, name, 0) + 1)
+
+
+def thread_launches(wrapper) -> int:
+    """The launches of ``wrapper``'s kernel made by the calling thread."""
+    return getattr(_THREAD, wrapper.__name__, 0)
 
 
 def table_slots(n_rows: int) -> Optional[int]:
@@ -239,7 +261,7 @@ def _insert_cuda(comps: torch.Tensor, mask: torch.Tensor, slots: int, trips: int
                             gid.data_ptr(), stats.data_ptr(), claims.data_ptr(),
                             work.data_ptr(), counts.data_ptr(), stream)
     kernels.check(lib, err, "ht_insert")
-    insert_table.launches += 1
+    _count_launch(insert_table)
     return slot_comps, slot_rows, gid, stats, counts
 
 
@@ -291,7 +313,7 @@ def probe_table(slot_keys: torch.Tensor, slot_rows: torch.Tensor,
                            keys.data_ptr(), mask.data_ptr(), n, trips,
                            out.data_ptr(), stream)
     kernels.check(lib, err, "ht_probe")
-    probe_table.launches += 1
+    _count_launch(probe_table)
     return out
 
 

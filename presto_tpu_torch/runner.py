@@ -4,9 +4,12 @@ Counterpart of ``presto_tpu/runner.py`` ``LocalQueryRunner`` for queries,
 EXPLAIN and SHOW TABLES / SCHEMAS / COLUMNS, in-process, on an explicit
 device: ``LocalQueryRunner(session, catalogs, device="cuda")`` raises
 without CUDA unless it is given ``device="cpu"``. Its default catalog
-registers ``tpch`` only. Tracing, access control, writes, EXPLAIN ANALYZE,
-the memory context and grouped execution are not ported; a statement that
-needs one raises ``NotImplementedError``.
+registers ``tpch`` only. The drivers run on a threaded ``TaskExecutor``
+of ``task_concurrency`` runner threads; when a driver fails, every driver
+is closed (stopping its scan pipeline's stages and releasing its pool
+client) before the error propagates. Tracing, access control, writes,
+EXPLAIN ANALYZE, the memory context and grouped execution are not ported;
+a statement that needs one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,9 +33,28 @@ class QueryResult:
     rows: List[list]
     column_names: List[str]
     types: Optional[List] = None  # output Type objects when the engine knows them
-    # execution stats: "segments" (the fused segments and the fusion
-    # decisions) when the segment compiler considered any run; else None
+    # execution stats, as the reference's: "scan_pipeline" (the scan
+    # stages' busy/stall seconds and counts, when a scan staged) and
+    # "segments" (the fused segments and the fusion decisions, when the
+    # segment compiler considered any run); None when neither applies
     stats: Optional[dict] = None
+    # the port's own: drivers per pipeline, and the pages the scans replayed
+    # from the resident page cache
+    drivers: Optional[List[int]] = None
+    resident_pages: int = 0
+
+
+def _scan_pipeline_stats(drivers) -> Optional[dict]:
+    """Every staged scan's stage breakdown (``ops/scan_pipeline.py``)
+    summed into one query-level dict."""
+    agg: dict = {}
+    for d in drivers:
+        for op in d.operators:
+            fn = getattr(op, "pipeline_stats", None)
+            st = fn() if fn is not None else None
+            for k, v in (st or {}).items():
+                agg[k] = round(agg.get(k, 0) + v, 6)
+    return agg or None
 
 
 def _segment_stats(exec_plan) -> Optional[dict]:
@@ -122,8 +144,25 @@ class LocalQueryRunner:
         self.session.check_supported()
         plan = self.plan_statement(stmt)
         exec_plan = LocalExecutionPlanner(self.metadata, self.session, self.device).plan(plan)
-        TaskExecutor().execute(exec_plan.create_drivers())
+        drivers = exec_plan.create_drivers()
+        try:
+            TaskExecutor(int(self.session.get("task_concurrency"))).execute(drivers)
+        except BaseException:
+            # abandoned drivers tear down (their scan stages stop and their
+            # pool clients are released) before the error propagates
+            for d in drivers:
+                d.close()
+            raise
+        stats = {}
+        scan = _scan_pipeline_stats(drivers)
+        if scan is not None:
+            stats["scan_pipeline"] = scan
         seg = _segment_stats(exec_plan)
-        return QueryResult(exec_plan.sink.rows(), exec_plan.output_names,
-                           exec_plan.output_types,
-                           stats={"segments": seg} if seg is not None else None)
+        if seg is not None:
+            stats["segments"] = seg
+        return QueryResult(
+            exec_plan.sink.rows(), exec_plan.output_names, exec_plan.output_types,
+            stats=stats or None,
+            drivers=[getattr(chain[0], "parallel_drivers", 1) for chain in exec_plan.pipelines],
+            resident_pages=sum(getattr(op, "resident_hits", 0)
+                               for d in drivers for op in d.operators))

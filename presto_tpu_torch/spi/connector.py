@@ -89,12 +89,33 @@ class Split:
 class ConnectorPageSource(abc.ABC):
     """A stream of fixed-capacity masked host pages."""
 
+    # True = a read may block indefinitely on progress the engine does not
+    # control (a remote stream): the scan pipeline then runs its stages on
+    # dedicated threads, never on the shared scan pool, whose steps must
+    # end within a bounded wait. Generator and file reads are False.
+    external_wait = False
+
     @abc.abstractmethod
     def __iter__(self) -> Iterator[Page]:
         ...
 
     def close(self) -> None:
         pass
+
+    def split_readers(self, target_rows: int):
+        """Optional scan-pipeline decomposition: a list of zero-argument
+        callables, each returning an iterable of ``ops.scan_pipeline.
+        HostChunk`` for one independently readable row range, in stream
+        order. None = the source is read serially, page by page."""
+        return None
+
+    @property
+    def cache_token(self) -> Optional[tuple]:
+        """Hashable identity of a deterministic, immutable page stream, or
+        None. A token lets the scan keep the uploaded device pages resident
+        and replay them for a later scan with the same token; a source whose
+        pages can change returns None."""
+        return None
 
 
 class ConcatPageSource(ConnectorPageSource):
@@ -103,13 +124,48 @@ class ConcatPageSource(ConnectorPageSource):
     def __init__(self, sources):
         self.sources = list(sources)
 
+    @property
+    def external_wait(self):
+        """One externally blocking child keeps the whole concatenation off
+        the shared scan pool."""
+        return any(getattr(s, "external_wait", False) for s in self.sources)
+
     def __iter__(self):
         for s in self.sources:
             yield from s
 
-    def close(self) -> None:
+    @property
+    def cache_token(self):
+        """Deterministic iff every child is: the tuple of the children's
+        tokens."""
+        toks = tuple(getattr(s, "cache_token", None) for s in self.sources)
+        if any(t is None for t in toks):
+            return None
+        return ("concat",) + toks
+
+    def split_readers(self, target_rows: int):
+        """The children's range readers in stream order, all or nothing: one
+        child without split support keeps the whole concatenation serial,
+        so the output order always matches serial iteration."""
+        out = []
         for s in self.sources:
-            s.close()
+            rs = s.split_readers(target_rows)
+            if rs is None:
+                return None
+            out.extend(rs)
+        return out
+
+    def close(self) -> None:
+        # every child is closed even when one close raises; the first error
+        # is raised after the rest
+        err = None
+        for s in self.sources:
+            try:
+                s.close()
+            except Exception as e:  # noqa: BLE001 - re-raised below
+                err = err or e
+        if err is not None:
+            raise err
 
 
 @dataclasses.dataclass

@@ -23,19 +23,15 @@ _NEXT_TOKEN = itertools.count(1)
 
 def get_or_install(key: tuple, make: Callable[[], object]):
     """The cached function for ``key``, made with ``make()`` on a miss.
-    ``make`` runs outside the lock; two threads that miss on one key at once
-    may both make it, and the first to install wins."""
+    ``make`` runs under the lock (composing is cheap), so the drivers of
+    one segment that miss on one key at once make it exactly once."""
     with _LOCK:
         hit = _CACHE.get(key)
-        if hit is not None:
-            _CACHE.move_to_end(key)
-            return hit
-    made = make()
-    with _LOCK:
-        hit = _CACHE.setdefault(key, made)
+        if hit is None:
+            hit = _CACHE[key] = make()
+            while len(_CACHE) > _MAX_ENTRIES:
+                _CACHE.popitem(last=False)
         _CACHE.move_to_end(key)
-        while len(_CACHE) > _MAX_ENTRIES:
-            _CACHE.popitem(last=False)
         return hit
 
 

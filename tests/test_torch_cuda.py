@@ -202,7 +202,9 @@ def test_insert_kernel_matches_plain_version_at_q3_sf1_grouping_shape(cuda, ncom
 def test_join_queries_on_the_card_equal_the_cpu_run(cuda, q):
     """SQL Q5 and Q9 at ``tiny`` with ``hash_kernels="pallas"``: the card's
     rows and counters equal the CPU run's (the same page capacity on both),
-    and the card launched the insert once per join build and grouped page."""
+    and the card launched the insert once per join build and grouped page.
+    One driver per pipeline on both, so the same pages reach the same
+    builders in the same order."""
     from presto_tpu_torch.metadata import Session
     from presto_tpu_torch.models.tpch_sql import QUERIES
     from presto_tpu_torch.runner import LocalQueryRunner
@@ -213,7 +215,8 @@ def test_join_queries_on_the_card_equal_the_cpu_run(cuda, q):
     runs = {}
     for dev in ("cpu", cuda):
         session = Session(catalog="tpch", schema="tiny",
-                          properties={"hash_kernels": "pallas", "page_capacity": 1 << 18})
+                          properties={"hash_kernels": "pallas", "page_capacity": 1 << 18,
+                                      "driver_parallelism": 1})
         before = {k: METRICS.counter_value(k) for k in names}
         inserts = ph.insert_table.launches
         rows = LocalQueryRunner(session, device=dev).execute(QUERIES[q]).rows
@@ -232,7 +235,8 @@ def test_fused_segments_on_the_card_equal_the_cpu_run(cuda, q):
     """SQL Q3 and Q9 at ``tiny`` under the defaults (fused segments,
     coalesced pages): the card's rows, segments and dispatches equal the CPU
     run's, and on the card the fused probe stages launched the probe kernel
-    once per page and probed table."""
+    once per page and probed table. One driver per pipeline on both, so
+    the coalesced pages are the same."""
     from presto_tpu_torch.metadata import Session
     from presto_tpu_torch.models.tpch_sql import QUERIES
     from presto_tpu_torch.runner import LocalQueryRunner
@@ -240,7 +244,8 @@ def test_fused_segments_on_the_card_equal_the_cpu_run(cuda, q):
     runs = {}
     for dev in ("cpu", cuda):
         session = Session(catalog="tpch", schema="tiny",
-                          properties={"hash_kernels": "pallas", "page_capacity": 1 << 18})
+                          properties={"hash_kernels": "pallas", "page_capacity": 1 << 18,
+                                      "driver_parallelism": 1})
         res = LocalQueryRunner(session, device=dev).execute(QUERIES[q])
         segs = res.stats["segments"]["segments"]
         runs[str(dev)] = res.rows, [(s["operators"], s["dispatches"]) for s in segs], segs
@@ -251,3 +256,42 @@ def test_fused_segments_on_the_card_equal_the_cpu_run(cuda, q):
     assert [s["probe_launches"] for s in raw] == [p * s["dispatches"]
                                                   for p, s in zip(probes, raw)]
     assert sum(s["probe_launches"] for s in raw) > 0
+
+
+@pytest.mark.parametrize("q", [4, 7, 10, 16, 18, 19, 20])
+def test_never_run_queries_on_the_card_equal_the_cpu_run(cuda, q):
+    """The queries no earlier card run reached (SEMI/ANTI and null-aware
+    NOT IN probes among them), at ``tiny`` under the full defaults: four
+    drivers per cut pipeline and the staged scan on the card, one driver
+    on the CPU; the rows are equal, DOUBLE to 1e-12 relative, and the card
+    launched no plain kernel: the insert once per join build and grouped
+    page."""
+    import math
+
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.runner import LocalQueryRunner
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    runs = {}
+    for dev in ("cpu", cuda):
+        session = Session(catalog="tpch", schema="tiny",
+                          properties={"hash_kernels": "pallas", "page_capacity": 1 << 18})
+        builds, pages = (METRICS.counter_value(k)
+                         for k in ("pallas.join_builds", "pallas.agg_pages"))
+        inserts = ph.insert_table.launches
+        res = LocalQueryRunner(session, device=dev).execute(QUERIES[q])
+        delta = METRICS.counter_value("pallas.join_builds") - builds + \
+            METRICS.counter_value("pallas.agg_pages") - pages
+        runs[str(dev)] = res, delta, ph.insert_table.launches - inserts
+    (cpu, _, _), (card, delta, inserts) = runs["cpu"], runs[str(cuda)]
+    assert card.rows and len(card.rows) == len(cpu.rows)
+    assert max(card.drivers) == 4 and max(cpu.drivers) == 1
+    for g, w in zip(card.rows, cpu.rows):
+        for a, b in zip(g, w):
+            if isinstance(a, float):
+                assert math.isclose(a, b, rel_tol=1e-12, abs_tol=0.0), (g, w)
+            else:
+                assert a == b, (g, w)
+    assert inserts == delta
+

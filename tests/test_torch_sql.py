@@ -162,8 +162,7 @@ def test_show_statements_match_reference(stmt):
     assert got.rows == want.rows and got.column_names == want.column_names
 
 
-@pytest.mark.parametrize("prop,value", [("scan_pipeline", True), ("driver_parallelism", 4),
-                                        ("memory_pool_bytes", 1 << 20),
+@pytest.mark.parametrize("prop,value", [("memory_pool_bytes", 1 << 20),
                                         ("grouped_execution", True)])
 def test_unported_session_property_raises_naming_itself(prop, value):
     session = Session(catalog="tpch", schema="tiny", properties={prop: value})
@@ -171,22 +170,30 @@ def test_unported_session_property_raises_naming_itself(prop, value):
         LocalQueryRunner(session, device="cpu").execute(QUERIES[6])
 
 
-@pytest.mark.parametrize("prop", ["segment_fusion", "coalesce_pages"])
+# each feature of the default path, off and on; on the CPU, AUTO drivers
+# would give 1, so the parallel drivers are forced on with a count
+FEATURES_OFF = {**UNFUSED, "scan_pipeline": False, "driver_parallelism": 1}
+FEATURES_ON = {"segment_fusion": True, "coalesce_pages": True, "scan_pipeline": True,
+               "driver_parallelism": 4}
+
+
+@pytest.mark.parametrize("prop", sorted(FEATURES_ON))
 def test_ported_feature_turned_on_alone_matches_reference(prop):
-    """Each of the two features on, the other off: Q3's rows equal the
-    reference's under the same properties."""
-    props = {**UNFUSED, prop: True, "hash_kernels": "pallas"}
-    want = _ref_rows(3, {**props, "scan_pipeline": False})
-    assert_same_rows(_port_rows(3, props), want)
+    """Each feature of the default path on, the others off: Q3's rows
+    equal the reference's under the same properties."""
+    props = {**FEATURES_OFF, prop: FEATURES_ON[prop], "hash_kernels": "pallas"}
+    assert_same_rows(_port_rows(3, props), _ref_rows(3, props))
 
 
-def test_unported_features_default_off():
-    off = {"scan_pipeline": False, "driver_parallelism": 1}
-    assert Session.UNPORTED_FEATURES == tuple(off)
-    assert {p: Session().get(p) for p in Session.UNPORTED_FEATURES} == off
-    # the off values are accepted when set explicitly
-    session = Session(catalog="tpch", schema="tiny", properties=off)
-    assert LocalQueryRunner(session, device="cpu").execute(QUERIES[6]).rows
+def test_defaults_equal_the_reference_on_shared_keys():
+    shared = set(Session.DEFAULTS) & set(RefSession.DEFAULTS)
+    assert {"scan_pipeline", "driver_parallelism", "task_concurrency", "shared_pools",
+            "segment_fusion", "coalesce_pages"} <= shared
+    assert {k: Session.DEFAULTS[k] for k in shared} == \
+        {k: RefSession.DEFAULTS[k] for k in shared}
+    # the default path runs rather than raises
+    assert LocalQueryRunner(Session(catalog="tpch", schema="tiny"),
+                            device="cpu").execute(QUERIES[6]).rows
 
 
 def test_default_page_capacity_keys_on_the_device():
