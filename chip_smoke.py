@@ -63,8 +63,7 @@ Phases, each of which must pass:
    stage gives it (the fused Q3's first probe page, coalesced), and timed;
 10. a scan stage that fails on a pool thread must surface in the consumer
    (``ScanPipeline._fail``) and stay raised;
-11. every ported query (Q1, Q3, Q4, Q5, Q6, Q7, Q9, Q10, Q13, Q16, Q18,
-   Q19, Q20) as SQL at SF1 with ``hash_kernels="pallas"`` under the full
+11. all 22 TPC-H queries as SQL at SF1 with ``hash_kernels="pallas"`` under the full
    defaults: four drivers per cut pipeline, the staged scan and the
    resident page cache. Each query runs cold (cache cleared first) and warm
    (a resident replay; launch counters and ``COUNTERS`` set to 0 just
@@ -72,11 +71,17 @@ Phases, each of which must pass:
    under the oracle properties ``driver_parallelism=1, scan_pipeline=False``
    (cold and warm; Q5 once). Fails unless the rows equal the oracle's, the
    warm run replayed resident pages and staged none, the insert launched
-   once per join build and grouped page, nothing fell back, and Q18's inner
-   grouping spilled to host RAM. Prints per query the drivers per pipeline,
-   the cold run's scan stage seconds, the resident pages replayed, the
-   launches and the walls, and Q18's host merge seconds. Then the port's
-   CPU run of each query but Q5 must give the card's rows;
+   once per join build and grouped page, a query that built a table probed
+   it with the kernel, nothing fell back, Q18's inner grouping spilled to
+   host RAM, and Q14 (CASE, decimal division) and Q22 (substr, scalar
+   subquery, ANTI join) equal their numpy oracles. Prints per query the
+   drivers per pipeline, the cold run's scan stage seconds, the resident
+   pages replayed, the launches and the walls, Q18's host merge seconds
+   and Q21's filtered semi-probe pages and chunks. Both kernels are held
+   against their plain versions, bit for bit, at the shapes the cold runs
+   of Q15 (its one-row ``max`` build among them), Q17 (the build of its
+   grouping's result, one page of 2^22 rows) and Q21 gave them. Then
+   the port's CPU run of each query but Q5 must give the card's rows;
 12. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``), the card line, and last the
    result line.
@@ -97,6 +102,7 @@ import subprocess
 import sys
 import time
 from decimal import Decimal
+from typing import Optional
 
 import numpy as np
 
@@ -118,15 +124,23 @@ _LJ, _FP, _HA = "LookupJoin(inner)", "FilterProject", "HashAggregation(single)"
 # (the plan does not depend on the scale)
 SEGMENT_OPERATORS = {1: [], 6: [], 3: [[_LJ, _LJ, _FP, _HA]], 5: [[_LJ] * 3],
                      9: [[_LJ] * 3, [_LJ, _FP]], 13: [[_FP, _HA]]}
-# every TPC-H query the port runs as SQL
-PORTED_QUERIES = (1, 3, 4, 5, 6, 7, 9, 10, 13, 16, 18, 19, 20)
+# every TPC-H query the port runs as SQL: all 22
+PORTED_QUERIES = tuple(range(1, 23))
+# phase 11 holds both kernels at the shapes these queries' cold runs give them
+PATH_KERNEL_QUERIES = (15, 17, 21)
 # the oracle of the default path: one driver per pipeline, the serial scan
 ORACLE_PROPS = {"driver_parallelism": 1, "scan_pipeline": False}
 # the queries whose fused segments probe an open-addressing table
 FUSED_PROBE_QUERIES = (3, 5, 9)
 COUNTERS = ("pallas.join_builds", "pallas.join_fallbacks", "pallas.agg_pages",
             "pallas.agg_fallbacks", "join.expansion_chunks", "join.expanded_rows",
-            "coalesce.pages_in", "coalesce.pages_out")
+            "coalesce.pages_in", "coalesce.pages_out", "join.semi_pages", "join.semi_chunks")
+
+
+def civil_day(year: int, month: int, day: int) -> int:
+    """Days since 1970-01-01, for the numpy oracles (the port's own date
+    helper stays out of them)."""
+    return (datetime.date(year, month, day) - datetime.date(1970, 1, 1)).days
 
 
 def log(msg: str) -> None:
@@ -207,9 +221,10 @@ def _max_abs_err(pairs) -> float:
 
 
 def probe_bytes(slot_keys, slot_rows, keys, mask, trips: int) -> int:
-    """Bytes the probe must move on these inputs: its keys and mask read
-    and its rows written once, plus each distinct 32-byte sector of the table
-    that the live rows' walks reach (``slot_rows`` at every slot a walk
+    """Bytes the probe must move on these inputs: its mask read and its rows
+    written once, each distinct 32-byte sector of ``keys`` that holds a live
+    row's key (the kernel reads a key only where the mask is set), plus each
+    distinct 32-byte sector of the table that the live rows' walks reach (``slot_rows`` at every slot a walk
     visits, ``slot_keys`` at the occupied ones), walked as the plain version
     walks them."""
     import torch
@@ -220,6 +235,7 @@ def probe_bytes(slot_keys, slot_rows, keys, mask, trips: int) -> int:
     rows_sectors = torch.zeros(slots * 4 // 32, dtype=torch.bool, device=keys.device)
     keys_sectors = torch.zeros(slots * 8 // 32, dtype=torch.bool, device=keys.device)
     live = mask.nonzero().squeeze(1)
+    key_sectors = int(torch.unique(live >> 2).numel())
     home = ph._hash_base(keys.unsqueeze(0), slots)[live].long()
     want = keys[live]
     for d in range(trips):
@@ -233,7 +249,7 @@ def probe_bytes(slot_keys, slot_rows, keys, mask, trips: int) -> int:
         live, home, want = live[walking], home[walking], want[walking]
     n = keys.shape[0]
     table = 32 * int(rows_sectors.sum() + keys_sectors.sum())
-    return table + n * 8 + n + n * 4
+    return table + 32 * key_sectors + n + n * 4
 
 
 def insert_rounds(device, comps, mask, slots) -> None:
@@ -356,10 +372,9 @@ def oracle_q3(schema: str):
     and the number of source rows it read."""
     from presto_tpu_torch.connectors.tpch import generator as g
     from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
-    from presto_tpu_torch.ops.expressions import days_from_civil
 
     sf = SCHEMAS[schema]
-    cut = days_from_civil(1995, 3, 15)
+    cut = civil_day(1995, 3, 15)
     c = g.generate_rows("customer", 0, g.table_row_count("customer", sf), sf,
                         ["c_custkey", "c_mktsegment"])
     building = c["c_custkey"][c["c_mktsegment"] == g.DICT_SEGMENT.code_of("BUILDING")]
@@ -498,13 +513,12 @@ def oracle_q1(schema: str):
 
     from presto_tpu_torch.connectors.tpch import generator as g
     from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
-    from presto_tpu_torch.ops.expressions import days_from_civil
 
     sf = SCHEMAS[schema]
     li = g.lineitem_for_orders(0, g.table_row_count("orders", sf), sf,
                                ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
                                 "l_returnflag", "l_linestatus", "l_shipdate"])
-    keep = li["l_shipdate"] <= days_from_civil(1998, 12, 1) - 90
+    keep = li["l_shipdate"] <= civil_day(1998, 12, 1) - 90
     col = {k: v[keep].astype(np.int64) for k, v in li.items()}
     disc_price = col["l_extendedprice"] * (100 - col["l_discount"])  # scale 4
     charge = disc_price * (100 + col["l_tax"])                         # scale 6
@@ -531,14 +545,13 @@ def oracle_q6(schema: str):
     """TPC-H Q6 in numpy over the port's generator."""
     from presto_tpu_torch.connectors.tpch import generator as g
     from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
-    from presto_tpu_torch.ops.expressions import days_from_civil
 
     sf = SCHEMAS[schema]
     li = g.lineitem_for_orders(0, g.table_row_count("orders", sf), sf,
                                ["l_quantity", "l_extendedprice", "l_discount", "l_shipdate"])
     col = {k: v.astype(np.int64) for k, v in li.items()}
-    keep = (col["l_shipdate"] >= days_from_civil(1994, 1, 1)) & \
-        (col["l_shipdate"] < days_from_civil(1995, 1, 1)) & \
+    keep = (col["l_shipdate"] >= civil_day(1994, 1, 1)) & \
+        (col["l_shipdate"] < civil_day(1995, 1, 1)) & \
         (col["l_discount"] >= 5) & (col["l_discount"] <= 7) & (col["l_quantity"] < 2400)
     rev = int((col["l_extendedprice"][keep] * col["l_discount"][keep]).sum())
     return [[Decimal(rev) / 10 ** 4 if keep.any() else None]], len(keep)
@@ -569,7 +582,6 @@ def oracle_q5(schema: str):
     lies in ASIA. No (lineitem, customer) pair is made."""
     from presto_tpu_torch.connectors.tpch import generator as g
     from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
-    from presto_tpu_torch.ops.expressions import days_from_civil
 
     sf = SCHEMAS[schema]
     r = _table("region", sf, ["r_regionkey", "r_name"])
@@ -580,8 +592,8 @@ def oracle_q5(schema: str):
     o = _table("orders", sf, ["o_orderkey", "o_custkey", "o_orderdate"])
     li = g.lineitem_for_orders(0, len(o["o_orderkey"]), sf,
                                ["l_orderkey", "l_suppkey", "l_extendedprice", "l_discount"])
-    in_year = (o["o_orderdate"] >= days_from_civil(1994, 1, 1)) & \
-        (o["o_orderdate"] < days_from_civil(1995, 1, 1))
+    in_year = (o["o_orderdate"] >= civil_day(1994, 1, 1)) & \
+        (o["o_orderdate"] < civil_day(1995, 1, 1))
     opos, ohit = _find(o["o_orderkey"], li["l_orderkey"])
     ohit &= in_year[opos]
     cpos, chit = _find(c["c_custkey"], o["o_custkey"][opos])
@@ -669,6 +681,63 @@ def oracle_q13(schema: str):
 
 
 JOIN_ORACLES = {5: oracle_q5, 9: oracle_q9, 13: oracle_q13}
+
+
+def oracle_q14(schema: str):
+    """TPC-H Q14 in numpy over the port's generator: the promotion share of
+    one month's revenue, with ``p_type like 'PROMO%'`` tested on the decoded
+    strings and the ratio taken exactly (``Fraction``) before the one
+    rounding to a float."""
+    from fractions import Fraction
+
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    sf = SCHEMAS[schema]
+    p = _table("part", sf, ["p_partkey", "p_type"])
+    n_orders = g.table_row_count("orders", sf)
+    li = g.lineitem_for_orders(0, n_orders, sf, ["l_partkey", "l_extendedprice",
+                                                 "l_discount", "l_shipdate"])
+    keep = (li["l_shipdate"] >= civil_day(1995, 9, 1)) & \
+        (li["l_shipdate"] < civil_day(1995, 10, 1))
+    ppos, phit = _find(p["p_partkey"], li["l_partkey"][keep])
+    promo = np.asarray([t.startswith("PROMO") for t in g.DICT_P_TYPE.lookup(p["p_type"])],
+                       dtype=bool)[ppos] & phit
+    rev = li["l_extendedprice"][keep].astype(np.int64) * \
+        (100 - li["l_discount"][keep].astype(np.int64))
+    share = Fraction(100 * int(rev[promo].sum()), int(rev[phit].sum()))
+    return [[float(share)]], len(p["p_partkey"]) + len(li["l_partkey"])
+
+
+def oracle_q22(schema: str):
+    """TPC-H Q22 in numpy over the port's generator: the country code is the
+    first two characters of the decoded ``c_phone`` string, the scalar
+    subquery's average is compared exactly (``Fraction``), and NOT EXISTS
+    is a membership test on the orders' customer keys."""
+    from fractions import Fraction
+
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    sf = SCHEMAS[schema]
+    c = _table("customer", sf, ["c_custkey", "c_phone", "c_acctbal"])
+    o = _table("orders", sf, ["o_custkey"])
+    codes = np.asarray([ph[:2] for ph in g.DICT_PHONE.lookup(c["c_phone"])], dtype=object)
+    in_set = np.isin(codes, ["13", "31", "23", "29", "30", "18", "17"])
+    bal = c["c_acctbal"].astype(np.int64)
+    pos = in_set & (bal > 0)
+    avg = Fraction(int(bal[pos].sum()), int(pos.sum()))  # in cents
+    above = np.asarray([Fraction(int(b)) > avg for b in bal], dtype=bool)
+    keep = in_set & above & ~np.isin(c["c_custkey"], o["o_custkey"])
+    rows = []
+    for code in sorted(set(codes[keep])):
+        sel = keep & (codes == code)
+        rows.append([code, int(sel.sum()), Decimal(int(bal[sel].sum())) / 100])
+    return rows, len(c["c_custkey"]) + len(o["o_custkey"])
+
+
+# numpy oracles of queries first run in phase 11
+DEFAULT_PATH_ORACLES = {14: oracle_q14, 22: oracle_q22}
 
 
 def same_rows(got, want) -> bool:
@@ -913,7 +982,8 @@ class ProbeStreams:
 class KernelCapture:
     """Records, while on, the inputs of the largest join-build insert (one
     key component), of the first grouping insert (more components) and of
-    the first probe, as the query path gives them to the wrappers."""
+    the first probe of a page with rows, as the query path gives them to
+    the wrappers."""
 
     def __enter__(self):
         from presto_tpu_torch.ops import pallas_hash as ph
@@ -931,7 +1001,7 @@ class KernelCapture:
             return cap.insert(comps, mask, slots, *rest, **kw)
 
         def probe(slot_keys, slot_rows, keys, mask, trips):
-            if cap.probe_args is None:
+            if cap.probe_args is None and keys.shape[0]:
                 cap.probe_args = (slot_keys, slot_rows, keys, mask, trips)
             return cap.probe(slot_keys, slot_rows, keys, mask, trips)
 
@@ -1079,20 +1149,25 @@ def check_fused_probe(device, capture, reps: int = 20, plain_reps: int = 3) -> N
         f"({nbytes} bytes)")
 
 
-def check_path_kernels(device, capture, reps: int = 20, plain_reps: int = 3) -> None:
+def check_path_kernels(device, capture, reps: int = 20, plain_reps: int = 3,
+                       run: str = "unfused SQL Q9", need_grouping: bool = True) -> None:
     """Both kernels against their plain versions, bit for bit, at the shapes
-    the unfused SQL Q9 gave them (its largest join build, its first grouped
-    page and its first probe), with their times and bounds."""
+    ``run`` gave them (its largest join build, its first grouped page where
+    it grouped one through the insert, and its first probe), with their
+    times and bounds."""
     from presto_tpu_torch.ops import pallas_hash as ph
 
-    if capture is None or None in (capture.build, capture.grouping, capture.probe_args):
-        raise AssertionError("the unfused SQL Q9 did not give both kernels their inputs")
-    for label, (comps, mask, slots) in (("join build", capture.build),
-                                        ("grouping", capture.grouping)):
+    if capture is None or None in (capture.build, capture.probe_args) or \
+            (need_grouping and capture.grouping is None):
+        raise AssertionError(f"the {run} did not give both kernels their inputs")
+    inserts = [("join build", capture.build)]
+    if capture.grouping is not None:
+        inserts.append(("grouping", capture.grouping))
+    for label, (comps, mask, slots) in inserts:
         got = ph.insert_table(comps, mask, slots)
         err = _max_abs_err(zip(got, ph.insert_table_reference(comps, mask, slots)))
         if err != 0:
-            raise AssertionError(f"Q9 {label} insert differs from its plain version: {err}")
+            raise AssertionError(f"{run} {label} insert differs from its plain version: {err}")
         ncomps, n = comps.shape
         live = int(mask.sum())
         nbytes = n + live * ncomps * 8 + n * 4 + ncomps * slots * 8 + slots * 4 + 3 * 4
@@ -1100,7 +1175,7 @@ def check_path_kernels(device, capture, reps: int = 20, plain_reps: int = 3) -> 
         dev_ms = device_ms(lambda: ph.insert_table(comps, mask, slots), reps, "ht_insert_")
         plain_ms = time_ms(lambda: ph.insert_table_reference(comps, mask, slots),
                            plain_reps, device)
-        log(f"KERNEL insert at the unfused SQL Q9 {label} shape: ncomps={ncomps} n={n} live={live} "
+        log(f"KERNEL insert at the {run} {label} shape: ncomps={ncomps} n={n} live={live} "
             f"slots={slots}: bit-identical, stats {got[3].tolist()}; kernel {ms:.4f} ms "
             f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
             f"{nbytes / HBM_RATE * 1e3:.4f} ms ({nbytes} bytes)")
@@ -1109,14 +1184,14 @@ def check_path_kernels(device, capture, reps: int = 20, plain_reps: int = 3) -> 
     err = _max_abs_err([(got, ph.probe_table_reference(slot_keys, slot_rows, keys, mask,
                                                        trips))])
     if err != 0:
-        raise AssertionError(f"Q9 probe differs from its plain version: {err}")
+        raise AssertionError(f"{run} probe differs from its plain version: {err}")
     nbytes = probe_bytes(slot_keys, slot_rows, keys, mask, trips)
     ms = time_ms(lambda: ph.probe_table(slot_keys, slot_rows, keys, mask, trips), reps, device)
     dev_ms = device_ms(lambda: ph.probe_table(slot_keys, slot_rows, keys, mask, trips), reps,
                        "ht_probe_rows")
     plain_ms = time_ms(lambda: ph.probe_table_reference(slot_keys, slot_rows, keys, mask,
                                                         trips), plain_reps, device)
-    log(f"KERNEL probe at the unfused SQL Q9 shape: slots={slot_rows.shape[0]} n={keys.shape[0]} "
+    log(f"KERNEL probe at the {run} shape: slots={slot_rows.shape[0]} n={keys.shape[0]} "
         f"live={int(mask.sum())} trips={trips}: bit-identical, {int((got >= 0).sum())} hits; "
         f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
         f"{nbytes / HBM_RATE * 1e3:.4f} ms ({nbytes} bytes)")
@@ -1190,7 +1265,8 @@ def _fmt_scan(st) -> str:
             f"stall {st['compute_stall_s']:.4f}s; {st['pages']} pages, {st['bytes']} bytes")
 
 
-def run_default_path_phase(device, records: dict, schema: str = "sf1") -> dict:
+def run_default_path_phase(device, records: dict, schema: str = "sf1",
+                           captures: Optional[dict] = None) -> dict:
     """Every ported query at SF1 with ``hash_kernels="pallas"`` under the full
     defaults (four drivers per cut pipeline, the staged scan, the resident
     cache): a cold run (cache cleared first) and a warm run, which replays
@@ -1199,16 +1275,20 @@ def run_default_path_phase(device, records: dict, schema: str = "sf1") -> dict:
     those phases' runs); then the oracle properties, cold and warm (Q5
     once). Fails unless the rows equal the oracle's, the warm run replayed
     pages and staged none, the insert launched once per join build and
-    grouped page, nothing fell back, and Q18's inner grouping spilled.
-    Returns the records of every query."""
+    grouped page, a query that built on the table probed it with the
+    kernel, nothing fell back, Q18's inner grouping spilled, and Q14's
+    and Q22's rows equal their numpy oracles. ``captures`` maps a query to the
+    ``KernelCapture`` its cold run is made under. Returns the records of
+    every query."""
+    import contextlib
+
     import torch
 
+    from presto_tpu_torch.exec.local_planner import LocalExecutionPlanner
     from presto_tpu_torch.models.tpch_sql import QUERIES
     from presto_tpu_torch.ops import pallas_hash as ph
     from presto_tpu_torch.ops.scan import RESIDENT_CACHE
     from presto_tpu_torch.utils.metrics import METRICS
-
-    from presto_tpu_torch.exec.local_planner import LocalExecutionPlanner
 
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -1224,7 +1304,8 @@ def run_default_path_phase(device, records: dict, schema: str = "sf1") -> dict:
                 RESIDENT_CACHE.clear()
                 spilled = METRICS.counter_value("agg.spilled_folds")
                 t0 = time.perf_counter()
-                cold = runner.execute(QUERIES[q])
+                with (captures or {}).get(q) or contextlib.nullcontext():
+                    cold = runner.execute(QUERIES[q])
                 sync()
                 rec["cold_s"] = time.perf_counter() - t0
                 rec["cold_spills"] = METRICS.counter_value("agg.spilled_folds") - spilled
@@ -1264,8 +1345,16 @@ def run_default_path_phase(device, records: dict, schema: str = "sf1") -> dict:
         if on_card and launches["insert"] != builds + pages:
             raise AssertionError(f"SQL Q{q}: insert launches {launches['insert']} != join "
                                  f"builds {builds} + grouped pages {pages}")
+        if on_card and builds and not launches["probe"]:
+            raise AssertionError(f"SQL Q{q}: {builds} tables built, none probed by the kernel")
         if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
             raise AssertionError(f"SQL Q{q}: a fallback: {delta}")
+        if q in DEFAULT_PATH_ORACLES:
+            want, _ = DEFAULT_PATH_ORACLES[q](schema)
+            if not same_rows(rec["rows"], want):
+                raise AssertionError(f"SQL Q{q} rows differ from the numpy oracle:\n"
+                                     f"{rec['rows']}\n{want}")
+            log(f"SQL Q{q} {schema}: {len(want)} rows equal to the numpy oracle")
         if q == 18:
             spills = delta.get("agg.spilled_folds", 0)
             if not (rec.get("cold_spills") and spills):
@@ -1277,8 +1366,12 @@ def run_default_path_phase(device, records: dict, schema: str = "sf1") -> dict:
             f"{rec['cold_s']:.4f}s, warm (resident) wall {rec['warm_s']:.4f}s, oracle "
             f"{' / '.join(f'{w:.4f}s' for w in walls)}; warm run replayed "
             f"{rec['resident_pages']} resident pages; launches {launches}; "
-            f"join builds {int(builds)}, grouped pages {int(pages)}")
+            f"join builds {int(builds)}, fallbacks {int(delta['pallas.join_fallbacks'])}, "
+            f"grouped pages {int(pages)}")
         log(f"  cold scan stages: {_fmt_scan(rec['scan'])}")
+        if delta.get("join.semi_pages"):
+            log(f"  filtered semi probes on the warm run: {int(delta['join.semi_pages'])} "
+                f"pages, {int(delta['join.semi_chunks'])} chunks of candidate pairs")
         if q == 18:
             log(f"  Q18 spilled folds: cold {int(rec['cold_spills'])}, warm "
                 f"{int(delta['agg.spilled_folds'])}; host merge seconds "
@@ -1387,7 +1480,11 @@ def main() -> int:
         compare_walls(device)
         check_fused_probe(device, fused_capture)
         check_stage_failure(device)
-        records = run_default_path_phase(device, records)
+        captures = {q: KernelCapture() for q in PATH_KERNEL_QUERIES}
+        records = run_default_path_phase(device, records, captures=captures)
+        for q, capture in captures.items():
+            check_path_kernels(device, capture, run=f"SQL Q{q} cold run",
+                               need_grouping=False)
         check_cpu_rows(records)
     except Exception:  # a failed phase: report it and print no result
         import traceback

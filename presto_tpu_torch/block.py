@@ -41,12 +41,14 @@ class Dictionary:
     dictionary only if they are the same object.
     """
 
-    __slots__ = ("values", "_index", "_ranks", "_token")
+    __slots__ = ("values", "_index", "_ranks", "_order", "_sorted", "_token",
+                 "_tables")
 
     def __init__(self, values: Sequence[str]):
         self.values = np.asarray(values, dtype=object)
         self._index = None
         self._ranks = None
+        self._sorted = None
 
     def token(self) -> int:
         """Process-unique identity for cache keys (``utils/kernel_cache``),
@@ -88,7 +90,35 @@ class Dictionary:
             ranks = np.empty(len(self.values), dtype=np.int32)
             ranks[order] = np.arange(len(self.values), dtype=np.int32)
             self._ranks = ranks
+            self._order = order.astype(np.int32)
         return self._ranks
+
+    def sort_order(self) -> np.ndarray:
+        """Inverse of ``sort_keys``: rank -> code."""
+        self.sort_keys()
+        return self._order
+
+    def sort_table(self, which: str, device) -> torch.Tensor:
+        """``sort_keys()`` ("ranks") or ``sort_order()`` ("order") as an
+        int32 tensor on ``device``, copied there once per device and
+        dictionary size."""
+        arr = self.sort_keys() if which == "ranks" else self.sort_order()
+        tables = getattr(self, "_tables", None)
+        if tables is None:
+            tables = self._tables = {}
+        key = (which, torch.device(device), len(arr))
+        if key not in tables:
+            tables[key] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(device)
+        return tables[key]
+
+    def is_sorted(self) -> bool:
+        """True when the codes are the lexicographic ranks, so that min/max
+        may reduce codes directly."""
+        if self._sorted is None or self._sorted[1] != len(self.values):
+            v = self.values.astype(str)
+            ok = bool(np.all(v[:-1] <= v[1:])) if len(v) > 1 else True
+            self._sorted = (ok, len(self.values))
+        return self._sorted[0]
 
     def __hash__(self):
         return id(self)
@@ -144,14 +174,16 @@ class Page:
         cols = []
         for b in self.blocks:
             arr = b.data[idx].cpu().numpy()
-            nulls = b.nulls[idx].cpu().numpy() if b.nulls is not None else None
+            # only non-NULL rows are decoded: a NULL row's data is whatever
+            # its operator left there (a min/max identity, say)
+            keep = ~b.nulls[idx].cpu().numpy() if b.nulls is not None else \
+                np.ones(len(arr), dtype=bool)
+            vals = np.full(len(arr), None, dtype=object)
             if b.dictionary is not None:
-                vals = list(b.dictionary.lookup(arr.astype(np.int64)))
+                vals[keep] = b.dictionary.lookup(arr[keep].astype(np.int64))
             else:
-                vals = [b.type.to_python(v) for v in arr]
-            if nulls is not None:
-                vals = [None if n else v for v, n in zip(vals, nulls)]
-            cols.append(vals)
+                vals[keep] = [b.type.to_python(v) for v in arr[keep]]
+            cols.append(list(vals))
         return [list(row) for row in zip(*cols)] if cols else []
 
 

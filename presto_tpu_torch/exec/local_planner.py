@@ -1,7 +1,7 @@
 """Local execution planner of the PyTorch port: logical plan -> driver pipelines.
 
 Counterpart of ``presto_tpu/exec/local_planner.py`` for the plan shapes of
-TPC-H Q1, Q3, Q5, Q6, Q9 and Q13, on an explicit ``device``:
+the 22 TPC-H queries, on an explicit ``device``:
 
 - Filter/Project chains collapse into one PageProcessor, which runs inside
   the scan when the chain sits on a TableScanNode (``visit_fused_stage``).
@@ -10,8 +10,14 @@ TPC-H Q1, Q3, Q5, Q6, Q9 and Q13, on an explicit ``device``:
   (``_join_strategy``); the probe pipeline blocks on its lookup source.
   INNER and LEFT joins take any number of equi-keys, and builds that the
   connector's unique column sets do not prove unique expand.
-- A semi join (IN / EXISTS without a join filter) builds its filtering
-  side sorted and probes SEMI or ANTI, null-aware for IN / NOT IN.
+- A semi join (IN / EXISTS) builds its filtering side sorted and probes
+  SEMI or ANTI, null-aware for IN / NOT IN. A residual filter (a
+  decorrelated EXISTS with non-equi conjuncts, Q21) is compiled over
+  [probe columns, build columns] and checked per candidate pair; the build
+  carries its columns as payload.
+- A join with no criteria (a scalar subquery's cross join) joins on a
+  constant BIGINT 0 key that both sides project; its build is sorted, and
+  unique when it is an ``EnforceSingleRowNode``.
 - With ``coalesce_pages`` a filtered scan feeding either side of a join
   ends in a CoalesceOperator (``_maybe_coalesce``).
 - With ``segment_fusion`` each maximal run of page-local operators becomes
@@ -44,22 +50,23 @@ from .. import resolve_device
 from ..block import Dictionary
 from ..metadata import MetadataManager, Session, default_page_capacity
 from ..ops.aggregates import AggregateCall, resolve_aggregate
-from ..ops.expressions import (InputLayout, RowExpression, SymbolRef, input_ref,
-                               resolve_symbols, symbol_ref)
+from ..ops.expressions import (Constant, ExpressionCompiler, InputLayout, RowExpression,
+                               SymbolRef, input_ref, resolve_symbols, symbol_ref, symbols_in)
 from ..ops.filter_project import FilterProjectOperatorFactory, PageProcessor
 from ..ops.hash_agg import SINGLE, HashAggregationOperatorFactory
 from ..ops.hash_join import (ANTI, FULL, INNER, LEFT, SEMI, JoinBuildOperatorFactory,
                              LookupJoinOperatorFactory, join_strategy)
 from ..ops.scan import TableScanOperatorFactory
+from ..ops.single_row import EnforceSingleRowOperatorFactory
 from ..ops.topn import (LimitOperatorFactory, OrderByOperatorFactory, SortOrder,
                         TopNOperatorFactory)
 from ..spi.connector import ConcatPageSource, Constraint
 from ..sql.planner.optimizer import and_all, substitute
-from ..sql.planner.plan import (AggregationNode, FilterNode, JoinNode, LimitNode,
-                                OutputNode, PlanNode, ProjectNode, SemiJoinNode, SortNode,
-                                Symbol, TableScanNode, TopNNode)
+from ..sql.planner.plan import (AggregationNode, EnforceSingleRowNode, FilterNode, JoinNode,
+                                LimitNode, OutputNode, PlanNode, ProjectNode, SemiJoinNode,
+                                SortNode, Symbol, TableScanNode, TopNNode)
 from ..sql.planner.plan import SINGLE as P_SINGLE
-from ..types import BOOLEAN, Type
+from ..types import BIGINT, BOOLEAN, Type
 from ..utils.testing import PageConsumerFactory
 from .driver import Driver
 
@@ -362,7 +369,7 @@ class LocalExecutionPlanner:
     def visit_JoinNode(self, node: JoinNode) -> Chain:
         jt = self._join_type(node)
         if not node.criteria:
-            raise NotImplementedError("cross joins are not ported to presto_tpu_torch")
+            return self._plan_cross_join(node, jt)
         if node.residual is not None:
             raise NotImplementedError("join filters are not ported to presto_tpu_torch")
         probe_chain = self._maybe_coalesce(self.visit(node.left))
@@ -394,23 +401,77 @@ class LocalExecutionPlanner:
         out_dicts = [probe_chain.dicts[c] for c in probe_out_ch] + [d for _, d in payload_meta]
         return Chain(probe_chain.factories + [probe_fac], probe_out + build_out, out_dicts)
 
+    def _plan_cross_join(self, node: JoinNode, jt: str) -> Chain:
+        """A join with no criteria (scalar subqueries): both sides project a
+        constant BIGINT 0 key and join on it; the build is expected tiny."""
+        zero = Constant(BIGINT, 0)
+        left = self.visit(node.left)
+        right = self.visit(node.right)
+        ck_l = Symbol("$xkey_probe", BIGINT)
+        ck_r = Symbol("$xkey_build", BIGINT)
+        left = self._append_project(
+            left, [(s, symbol_ref(s.name, s.type)) for s in left.symbols] + [(ck_l, zero)])
+        right = self._append_project(
+            right, [(s, symbol_ref(s.name, s.type)) for s in right.symbols] + [(ck_r, zero)])
+        out_syms = node.outputs()
+        right_names = {s.name for s in node.right.outputs()}
+        probe_out = [s for s in out_syms if s.name not in right_names]
+        build_out = [s for s in out_syms if s.name in right_names]
+        payload_ch = [right.channel(s.name) for s in build_out]
+        payload_meta = right.meta([s.name for s in build_out])
+        build_fac = JoinBuildOperatorFactory(
+            next(self._ids), [right.channel(ck_r.name)], payload_ch, payload_meta,
+            strategy="sorted", unique=isinstance(node.right, EnforceSingleRowNode),
+            device=self.device)
+        self._add_pipeline(right.factories + [build_fac])
+        probe_out_ch = [left.channel(s.name) for s in probe_out]
+        probe_fac = LookupJoinOperatorFactory(
+            next(self._ids), build_fac.lookup_factory, [left.channel(ck_l.name)],
+            probe_out_ch, left.meta([s.name for s in probe_out]),
+            list(range(len(payload_ch))), payload_meta, jt, unique_build=build_fac.unique)
+        out_dicts = [left.dicts[c] for c in probe_out_ch] + [d for _, d in payload_meta]
+        return Chain(left.factories + [probe_fac], probe_out + build_out, out_dicts)
+
     def visit_SemiJoinNode(self, node: SemiJoinNode) -> Chain:
         """IN / EXISTS: the filtering side builds sorted (its keys are not
-        proven unique) and the source probes SEMI, or ANTI when negated."""
-        if node.residual is not None:
-            raise NotImplementedError("semi join filters are not ported to presto_tpu_torch")
+        proven unique) and the source probes SEMI, or ANTI when negated. A
+        residual filter is compiled over [probe columns..., build columns...]
+        (each side's symbols in name order) and checked per candidate pair;
+        the build carries its filter columns as payload."""
         if node.mark is not None:
             raise NotImplementedError("mark semi joins are not ported to presto_tpu_torch")
         src = self.visit(node.source)
         filt = self.visit(node.filtering_source)
+        filter_fn = None
+        filter_probe_ch: List[int] = []
+        filter_build_ch: List[int] = []
+        payload_ch: List[int] = []
+        payload_meta: List[Tuple[Type, Optional[Dictionary]]] = []
+        if node.residual is not None:
+            rsyms = symbols_in(node.residual)
+            src_names = {s.name for s in src.symbols}
+            probe_list = sorted(n for n in rsyms if n in src_names)
+            build_list = sorted(n for n in rsyms if n not in src_names)
+            filter_probe_ch = [src.channel(n) for n in probe_list]
+            payload_ch = [filt.channel(n) for n in build_list]
+            payload_meta = filt.meta(build_list)
+            filter_build_ch = list(range(len(build_list)))
+            mapping = {n: i for i, n in enumerate(probe_list + build_list)}
+            layout = InputLayout(
+                [src.symbols[c].type for c in filter_probe_ch] + [t for t, _ in payload_meta],
+                [src.dicts[c] for c in filter_probe_ch] + [d for _, d in payload_meta])
+            filter_fn = ExpressionCompiler(layout).compile(
+                resolve_symbols(node.residual, mapping))
         build_fac = JoinBuildOperatorFactory(
-            next(self._ids), [filt.channel(node.filtering_key.name)], [], [],
-            strategy="sorted", unique=False, device=self.device)
+            next(self._ids), [filt.channel(node.filtering_key.name)], payload_ch,
+            payload_meta, strategy="sorted", unique=False, device=self.device)
         self._add_pipeline(filt.factories + [build_fac])
         fac = LookupJoinOperatorFactory(
             next(self._ids), build_fac.lookup_factory, [src.channel(node.source_key.name)],
             list(range(len(src.symbols))), src.meta([s.name for s in src.symbols]), [], [],
-            ANTI if node.negated else SEMI, null_aware=node.null_aware)
+            ANTI if node.negated else SEMI, filter_fn=filter_fn,
+            filter_probe_channels=filter_probe_ch, filter_build_channels=filter_build_ch,
+            null_aware=node.null_aware)
         return Chain(src.factories + [fac], list(src.symbols), list(src.dicts))
 
     def _join_strategy(self, join_type: str, build_key_ch, unique: bool) -> str:
@@ -452,6 +513,8 @@ class LocalExecutionPlanner:
             return self._keys_unique(node.source, keys)
         if isinstance(node, AggregationNode):
             return {k.name for k in node.keys} <= names
+        if isinstance(node, EnforceSingleRowNode):
+            return True
         return False
 
     # ------------------------------------------------------- aggregation
@@ -481,9 +544,13 @@ class LocalExecutionPlanner:
                                    getattr(ac, "params", ()))
             arg_ch = [src.channel(a.name) for a in ac.args]
             mask_ch = src.channel(ac.filter.name) if ac.filter is not None else None
-            calls.append(AggregateCall(fn, arg_ch, mask_ch, output_dictionary=fn.output_dict))
+            # min/max over a dictionary column pass its codes through
+            out_dict = fn.output_dict
+            if ac.name in ("min", "max") and arg_ch and src.dicts[arg_ch[0]] is not None:
+                out_dict = src.dicts[arg_ch[0]]
+            calls.append(AggregateCall(fn, arg_ch, mask_ch, output_dictionary=out_dict))
             out_syms.append(sym)
-            out_dicts.append(fn.output_dict)
+            out_dicts.append(out_dict)
         # hash_kernels -> the grouping builder's insert-or-accumulate mode
         hash_grouping = {"pallas": "force", "auto": "auto"}.get(self.hash_kernels, "off")
         fac = HashAggregationOperatorFactory(
@@ -514,6 +581,12 @@ class LocalExecutionPlanner:
     def visit_LimitNode(self, node: LimitNode) -> Chain:
         src = self.visit(node.source)
         fac = LimitOperatorFactory(next(self._ids), node.count, [s.type for s in src.symbols])
+        return Chain(src.factories + [fac], list(src.symbols), list(src.dicts))
+
+    def visit_EnforceSingleRowNode(self, node: EnforceSingleRowNode) -> Chain:
+        src = self.visit(node.source)
+        fac = EnforceSingleRowOperatorFactory(next(self._ids), [s.type for s in src.symbols],
+                                              list(src.dicts), self.device)
         return Chain(src.factories + [fac], list(src.symbols), list(src.dicts))
 
     # ---------------------------------------------------------- helpers

@@ -1,4 +1,4 @@
-"""Aggregate functions of the PyTorch port: sum, count and avg.
+"""Aggregate functions of the PyTorch port: sum, count, avg, min and max.
 
 Counterpart of ``presto_tpu/ops/aggregates.py``. A function is a descriptor
 whose per-row contributions (``input_map``), per-state-column reduce kind
@@ -13,7 +13,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..types import BIGINT, DOUBLE, DecimalType, Type, is_floating
+from ..block import _NP_TO_TORCH
+from ..types import BIGINT, DOUBLE, DecimalType, Type, is_floating, is_string
 
 SUM, MIN, MAX = "sum", "min", "max"  # reduce kinds of the grouping kernels
 
@@ -51,7 +52,7 @@ def _ones(mask):
 def resolve_aggregate(name: str, arg_types: Sequence[Type], distinct: bool = False,
                       params: Sequence[object] = ()) -> AggregateFunction:
     """Aggregate lookup by name and argument types, with the reference's
-    signature: ``sum``, ``avg`` and ``count``/``count(*)``. DISTINCT and
+    signature: ``sum``, ``avg``, ``min``, ``max`` and ``count``/``count(*)``. DISTINCT and
     literal parameters are not ported and raise."""
     fn = _resolve_aggregate(name, arg_types, distinct, params)
     # the resolve arguments fully determine the function's behaviour
@@ -125,6 +126,30 @@ def _resolve_aggregate(name: str, arg_types: Sequence[Type], distinct: bool,
                                 _ones(mask)),
             lambda s: (s[0] / torch.clamp(s[1], min=1).to(torch.float64), s[1] == 0),
             [DOUBLE, BIGINT])
+    if name in ("min", "max"):
+        t = arg_types[0]
+        if is_string(t):
+            # VARCHAR reduces dictionary codes, as the reference does (ranks
+            # for an unsorted dictionary, ops/hash_agg.py); the planner hands
+            # the column's dictionary to the output block
+            dtype = np.dtype(np.int32)
+            ident = np.int32(2**31 - 1) if name == "min" else np.int32(-(2**31))
+        else:
+            dtype = np.dtype(t.np_dtype)
+            if dtype.kind == "f":
+                ident = np.inf if name == "min" else -np.inf
+            else:
+                info = np.iinfo(dtype)
+                ident = info.max if name == "min" else info.min
+        # a masked-off row contributes the identity; the row count marks an
+        # empty group NULL
+        tdtype, fill = _NP_TO_TORCH[dtype], float(ident) if dtype.kind == "f" else int(ident)
+        return AggregateFunction(
+            name, t,
+            [StateColumn(dtype, MIN if name == "min" else MAX, ident),
+             StateColumn(np.dtype(np.int64), SUM, 0)],
+            lambda args, mask: (torch.where(mask, args[0].to(tdtype), fill), _ones(mask)),
+            lambda s: (s[0], s[1] == 0), [t, BIGINT])
     raise NotImplementedError(f"aggregate {name} is not ported yet")
 
 

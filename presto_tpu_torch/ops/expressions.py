@@ -1,7 +1,7 @@
 """Row-expression IR and its compiler to torch closures.
 
-Counterpart of ``presto_tpu/ops/expressions.py`` for the functions that TPC-H
-Q1, Q3, Q5, Q6, Q9 and Q13 use. The IR is the same; the compiler composes closures over
+Counterpart of ``presto_tpu/ops/expressions.py`` for the functions that the
+22 TPC-H queries use. The IR is the same; the compiler composes closures over
 tensors instead of jnp arrays. Its rules are the reference's:
 
 - every compiled node yields ``(data, nulls)``, with ``nulls=None`` meaning
@@ -13,7 +13,16 @@ tensors instead of jnp arrays. Its rules are the reference's:
   resolves to the set of matching codes, or, over a
   ``PackedWordsDictionary``, to a dynamic program over the packed word
   fields (``_packed_like``);
-- DATE is int32 days, with the reference's civil-date helpers.
+- DATE is int32 days, with the reference's civil-date helpers;
+- ``divide`` with a DECIMAL or floating operand, and any arithmetic where a
+  DECIMAL meets a DOUBLE, runs in float64 on the unscaled values; integral
+  ``divide`` truncates toward zero and ``modulus`` takes the dividend's sign;
+- IF, SWITCH (searched CASE) and COALESCE select per row with
+  ``torch.where``; a NULL condition counts as false, and the branches'
+  dictionaries must be one dictionary (``_merge_dicts``);
+- ``substr`` over a dictionary column rewrites the dictionary on the host
+  and remaps the codes; over a virtual dictionary it takes the generator's
+  ``substr_rules``.
 
 Anything else raises ``NotImplementedError``.
 """
@@ -27,7 +36,7 @@ import numpy as np
 import torch
 
 from ..block import Dictionary, torch_dtype
-from ..types import (BIGINT, DATE, DOUBLE, INTEGER, DecimalType, Type,
+from ..types import (BIGINT, DATE, DOUBLE, INTEGER, REAL, UNKNOWN, DecimalType, Type,
                      is_floating, is_integral, is_string)
 
 CompiledValue = Tuple[torch.Tensor, Optional[torch.Tensor]]  # (data, null_mask)
@@ -80,7 +89,7 @@ class Call(RowExpression):
 
 @dataclasses.dataclass(frozen=True)
 class SpecialForm(RowExpression):
-    """AND / OR / NOT / IN / BETWEEN / CAST."""
+    """AND / OR / NOT / IN / BETWEEN / CAST / IS_NULL / IF / COALESCE / SWITCH."""
     form: str
     args: Tuple[RowExpression, ...]
 
@@ -204,7 +213,7 @@ class CompiledExpression:
 _CMP_OPS = {"equal": torch.eq, "not_equal": torch.ne, "less_than": torch.lt,
             "less_than_or_equal": torch.le, "greater_than": torch.gt,
             "greater_than_or_equal": torch.ge}
-_ARITH = {"add", "subtract", "multiply", "negate"}
+_ARITH = {"add", "subtract", "multiply", "divide", "modulus", "negate"}
 
 
 class ExpressionCompiler:
@@ -226,15 +235,18 @@ class ExpressionCompiler:
         if isinstance(expr, Constant):
             return self._compile_constant(expr)
         if isinstance(expr, SpecialForm):
-            return self._compile_special(expr), None
+            return self._compile_special(expr)
         if isinstance(expr, Call):
-            return self._compile_call(expr), None
+            return self._compile_call(expr)
         raise TypeError(f"unknown expression node {expr!r}")
 
     def _compile_constant(self, expr: Constant):
         # 0-d CPU tensors: torch treats them as scalars next to device tensors
         if expr.value is None:
-            raise NotImplementedError("NULL literals are not ported yet")
+            z = torch.tensor(np.asarray(0, dtype=(BIGINT if expr.type is UNKNOWN
+                                                   else expr.type).np_dtype))
+            null = torch.tensor(True)
+            return (lambda datas, nulls: (z, null)), None
         if is_string(expr.type):
             # kept python-side: comparisons resolve it against the other
             # side's dictionary; a projected string constant gets its own
@@ -250,6 +262,7 @@ class ExpressionCompiler:
     # --- special forms ------------------------------------------------------
 
     def _compile_special(self, expr: SpecialForm):
+        """-> (fn, output_dictionary)."""
         form = expr.form
         if form in ("AND", "OR"):
             parts = [self._compile(a)[0] for a in expr.args]
@@ -263,7 +276,7 @@ class ExpressionCompiler:
                     acc_n = _logic_nulls(is_and, acc_d, acc_n, d, n)
                     acc_d = new_d
                 return acc_d, acc_n
-            return fn
+            return fn, None
 
         if form == "NOT":
             f = self._compile(expr.args[0])[0]
@@ -271,10 +284,53 @@ class ExpressionCompiler:
             def fn(datas, nulls):
                 d, n = f(datas, nulls)
                 return ~d, n
-            return fn
+            return fn, None
+
+        if form == "IS_NULL":
+            f = self._compile(expr.args[0])[0]
+
+            def fn(datas, nulls):
+                d, n = f(datas, nulls)
+                if n is None:
+                    return torch.zeros(d.shape, dtype=torch.bool, device=d.device), None
+                return n, None
+            return fn, None
+
+        if form == "IF":
+            c = self._compile(expr.args[0])[0]
+            t, td = self._compile(expr.args[1])
+            e, ed = self._compile(expr.args[2])
+            out_dict = _merge_dicts(td, ed)
+            dtype = _value_dtype(expr.type)
+
+            def fn(datas, nulls):
+                cond = _true(*c(datas, nulls))
+                td_, tn = t(datas, nulls)
+                ed_, en = e(datas, nulls)
+                return _where(cond, td_, ed_, dtype), _where_nulls(cond, tn, en)
+            return fn, out_dict
+
+        if form == "COALESCE":
+            parts = [self._compile(a) for a in expr.args]
+            out_dict = None
+            for _, d in parts:
+                out_dict = _merge_dicts(out_dict, d)
+            dtype = _value_dtype(expr.type)
+
+            def fn(datas, nulls):
+                data, n = parts[0][0](datas, nulls)
+                data = data.to(dtype)
+                for p, _ in parts[1:]:
+                    if n is None:
+                        break
+                    pd, pn = p(datas, nulls)
+                    data = _where(n, pd, data, dtype)
+                    n = pn if pn is None else (n & pn)
+                return data, n
+            return fn, out_dict
 
         if form == "IN":
-            return self._compile_in(expr)
+            return self._compile_in(expr), None
 
         if form == "BETWEEN":
             v, lo, hi = expr.args
@@ -285,10 +341,32 @@ class ExpressionCompiler:
                 g, gn = ge(datas, nulls)
                 l, ln = le(datas, nulls)
                 return g & l, _combine_nulls(gn, ln)
-            return fn
+            return fn, None
 
         if form == "CAST":
             return self._compile_cast(expr)
+
+        if form == "SWITCH":
+            # searched CASE, flattened: cond1, val1, cond2, val2, ..., default
+            pairs, default = expr.args[:-1], expr.args[-1]
+            conds = [self._compile(pairs[i])[0] for i in range(0, len(pairs), 2)]
+            vals = [self._compile(pairs[i + 1]) for i in range(0, len(pairs), 2)]
+            dflt, out_dict = self._compile(default)
+            for _, vd in vals:
+                out_dict = _merge_dicts(out_dict, vd)
+            dtype = _value_dtype(expr.type)
+
+            def fn(datas, nulls):
+                data, n = dflt(datas, nulls)
+                data = data.to(dtype)
+                # in reverse, so that the first match wins
+                for c, (v, _) in zip(reversed(conds), reversed(vals)):
+                    cond = _true(*c(datas, nulls))
+                    vd_, vn = v(datas, nulls)
+                    data = _where(cond, vd_, data, dtype)
+                    n = _where_nulls(cond, vn, n)
+                return data, n
+            return fn, out_dict
 
         raise NotImplementedError(f"special form {form} is not ported yet")
 
@@ -320,10 +398,10 @@ class ExpressionCompiler:
 
     def _compile_cast(self, expr: SpecialForm):
         src, target = expr.args[0], expr.type
-        f = self._compile(src)[0]
+        f, d = self._compile(src)
         st = src.type
         if st == target:
-            return f
+            return f, d
         if isinstance(st, DecimalType) and is_floating(target):
             conv = lambda d: _unscale(d, st.scale)  # noqa: E731
         elif isinstance(target, DecimalType) and isinstance(st, DecimalType):
@@ -344,18 +422,19 @@ class ExpressionCompiler:
         def fn(datas, nulls):
             d, n = f(datas, nulls)
             return conv(d), n
-        return fn
+        return fn, None
 
     # --- calls --------------------------------------------------------------
 
     def _compile_call(self, expr: Call):
+        """-> (fn, output_dictionary)."""
         name = expr.name
         if name in _CMP_OPS:
-            return self._compile_comparison(name, expr.args[0], expr.args[1])
+            return self._compile_comparison(name, expr.args[0], expr.args[1]), None
         if name in _ARITH:
-            return self._compile_arithmetic(expr)
+            return self._compile_arithmetic(expr), None
         if name == "like":
-            return self._compile_like(expr)
+            return self._compile_like(expr), None
         if name in ("year", "month", "day"):
             f = self._compile(expr.args[0])[0]
             part = ("year", "month", "day").index(name)
@@ -363,8 +442,49 @@ class ExpressionCompiler:
             def fn(datas, nulls):
                 d, n = f(datas, nulls)
                 return _civil_from_days(d.to(torch.int32))[part].to(torch.int64), n
-            return fn
+            return fn, None
+        if name in ("substr", "substring"):
+            return self._compile_substr(expr)
         raise NotImplementedError(f"function {name} is not ported yet")
+
+    def _compile_substr(self, expr: Call):
+        """substr over a dictionary column with literal bounds: the
+        dictionary is rewritten on the host and the codes remapped on the
+        device. A virtual dictionary (no values) needs the generator's
+        synthesized rule for these bounds; anything else raises."""
+        value, start = expr.args[0], expr.args[1]
+        length = expr.args[2] if len(expr.args) > 2 else None
+        vf, d = self._compile(value)
+        if d is None or not isinstance(start, Constant) or \
+                (length is not None and not isinstance(length, Constant)):
+            raise NotImplementedError("substr needs a dictionary input and literal bounds")
+        if not hasattr(d, "values"):
+            key = (int(start.value), int(length.value) if length is not None else None)
+            rule = getattr(d, "substr_rules", {}).get(key)
+            if rule is None:
+                raise NotImplementedError(
+                    f"substr over a virtual dictionary ({type(d).__name__}) has no "
+                    f"synthesized rule for {key}")
+            nd, transform = rule
+
+            def vfn(datas, nulls):
+                vd, vn = vf(datas, nulls)
+                return transform(vd).to(torch.int32), vn
+            return vfn, nd
+        s = int(start.value) - 1
+        ln = int(length.value) if length is not None else None
+        new_values = [v[s:s + ln] if ln is not None else v[s:] for v in d.values]
+        nd = Dictionary(sorted(set(new_values)))
+        index = nd.index()
+        remap = torch.from_numpy(np.asarray([index[v] for v in new_values], dtype=np.int32))
+        on_device = {}
+
+        def fn(datas, nulls):
+            vd, vn = vf(datas, nulls)
+            if vd.device not in on_device:
+                on_device[vd.device] = remap.to(vd.device)
+            return on_device[vd.device][vd.long()], vn
+        return fn, nd
 
     def _compile_like(self, expr: Call):
         """LIKE against a literal pattern: the matching codes of the value's
@@ -497,11 +617,39 @@ class ExpressionCompiler:
                     return d, n
                 a = a * (10 ** (oscale - lscale))
                 b = b * (10 ** (oscale - rscale))
-                return (a + b if name == "add" else a - b), n
+                if name == "add":
+                    return a + b, n
+                if name == "subtract":
+                    return a - b, n
+                if name == "modulus":
+                    # SQL mod takes the sign of the DIVIDEND
+                    return _sign_mod(a, _nonzero(b)), n
+                raise AssertionError(name)
+            if out is DOUBLE or out is REAL:
+                # float64 on the unscaled values, in the reference's order
+                a = _unscale(ld, lscale)
+                b = _unscale(rd, rscale)
+                if name == "modulus":
+                    return _sign_mod(a, b), n
+                op = {"add": torch.add, "subtract": torch.sub, "multiply": torch.mul,
+                      "divide": torch.div}[name]
+                return op(a, b), n
             if not is_integral(out):
                 raise NotImplementedError(f"{name} on {out.display_name()} is not ported yet")
+            dtype = torch_dtype(out)
+            if name == "divide":
+                # truncate toward zero. As in the reference, a zero divisor
+                # divides by 1 (x / 0 is x) and x mod 0 is 0, not an error
+                a = ld.to(torch.int64)
+                b = rd.to(torch.int64)
+                bs = _nonzero(b)
+                q = torch.div(a, bs, rounding_mode="floor")
+                r = a - q * bs
+                return torch.where((r != 0) & ((a < 0) ^ (b < 0)), q + 1, q).to(dtype), n
+            if name == "modulus":
+                return _sign_mod(ld, _nonzero(rd)).to(dtype), n
             d = {"add": torch.add, "subtract": torch.sub, "multiply": torch.mul}[name](ld, rd)
-            return d.to(torch_dtype(out)), n
+            return d.to(dtype), n
         return fn
 
 
@@ -615,6 +763,66 @@ def _unscale(d: torch.Tensor, scale: int) -> torch.Tensor:
     port multiplies the same way so DOUBLE results agree bit for bit."""
     d = d.to(torch.float64)
     return d * (1.0 / 10 ** scale) if scale else d
+
+
+def _nonzero(b: torch.Tensor) -> torch.Tensor:
+    """The divisor with 0 replaced by 1."""
+    return torch.where(b == 0, torch.ones_like(b), b)
+
+
+def _sign_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SQL ``mod``: |a| mod |b| with the sign of the dividend (a DOUBLE
+    divisor of 0 gives NaN)."""
+    return torch.sign(a) * torch.remainder(torch.abs(a), torch.abs(b))
+
+
+def _value_dtype(t: Type) -> torch.dtype:
+    """Tensor dtype of a CASE/IF/COALESCE result; an untyped NULL is BIGINT."""
+    return torch_dtype(BIGINT if t is UNKNOWN else t)
+
+
+def _true(d: torch.Tensor, n: Optional[torch.Tensor]) -> torch.Tensor:
+    """A condition's rows that are TRUE: NULL counts as false."""
+    return d if n is None else (d & ~n)
+
+
+def _is_cpu_scalar(t: torch.Tensor) -> bool:
+    return t.ndim == 0 and t.device.type == "cpu"
+
+
+def _where(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+           dtype: torch.dtype) -> torch.Tensor:
+    """``torch.where(cond, a, b)`` in ``dtype``. Constants are 0-d CPU
+    tensors; they enter as Python scalars, so a page copies nothing to the
+    device for them. A constant condition picks its branch."""
+    a, b = a.to(dtype), b.to(dtype)
+    if _is_cpu_scalar(cond):
+        return a if bool(cond) else b
+    if _is_cpu_scalar(a) and _is_cpu_scalar(b):
+        a = torch.full(cond.shape, a.item(), dtype=dtype, device=cond.device)
+    return torch.where(cond, a.item() if _is_cpu_scalar(a) else a,
+                       b.item() if _is_cpu_scalar(b) else b)
+
+
+def _where_nulls(cond, tn, en) -> Optional[torch.Tensor]:
+    """Null mask of a per-row branch select; None when neither side has one."""
+    if tn is None and en is None:
+        return None
+    tn = torch.tensor(False) if tn is None else tn
+    en = torch.tensor(False) if en is None else en
+    return _where(cond, tn, en, torch.bool)
+
+
+def _merge_dicts(a: Optional[Dictionary], b: Optional[Dictionary]) -> Optional[Dictionary]:
+    """Output dictionary of a branch merge (IF/SWITCH/COALESCE). NULL and
+    non-string branches carry none; two distinct dictionaries would need a
+    re-encode, which the reference does not do either."""
+    if a is None:
+        return b
+    if b is None or a is b:
+        return a
+    raise NotImplementedError(
+        "CASE/COALESCE across two distinct dictionaries requires re-encoding")
 
 
 def _combine_nulls(a, b):

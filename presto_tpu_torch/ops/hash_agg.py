@@ -121,7 +121,7 @@ def _call_contributions(calls, page: Page):
     datas = tuple(b.data for b in page.blocks)
     contribs = []
     for call in calls:
-        args = tuple(datas[c] for c in call.input_channels)
+        args = tuple(_ordering_codes(call, page.blocks[c]) for c in call.input_channels)
         m = page.mask
         for c in call.input_channels:
             if page.blocks[c].nulls is not None:
@@ -133,6 +133,20 @@ def _call_contributions(calls, page: Page):
             m = m & mc
         contribs.extend(call.function.input_map(args, m))
     return contribs
+
+
+def _ranked_min_max(call) -> bool:
+    """min/max over a dictionary whose codes are not in lexicographic order
+    reduce ranks instead, as the reference's do."""
+    d = call.output_dictionary
+    return call.function.name in ("min", "max") and d is not None \
+        and hasattr(d, "values") and not d.is_sorted()
+
+
+def _ordering_codes(call, block: Block) -> torch.Tensor:
+    if block.dictionary is not None and _ranked_min_max(call):
+        return block.dictionary.sort_table("ranks", block.data.device)[block.data.long()]
+    return block.data
 
 
 def sort_group_reduce(keys: Tuple[torch.Tensor, ...], mask: torch.Tensor,
@@ -650,6 +664,11 @@ class HashAggregationOperator(Operator):
             nulls = None
             if isinstance(out, tuple):  # (data, null_mask) contract
                 out, nulls = out
+            if _ranked_min_max(call):
+                # the winning rank back to its code; an empty group's
+                # identity clips to some code, which its null flag masks
+                order = call.output_dictionary.sort_table("order", out.device)
+                out = order[out.long().clamp(0, len(order) - 1)]
             out_cols.append((call.function.output_type,
                              out.to(torch_dtype(call.function.output_type)),
                              call.output_dictionary, nulls))

@@ -13,9 +13,9 @@ Two build strategies:
 2. PALLAS: the open-addressing table of ``ops/pallas_hash.py``, built by the
    insert kernel and probed by the probe kernel (CUDA on the card, the plain
    versions on the CPU). Only unique single-key INNER/LEFT builds may take
-   it (``pallas_join_eligible``); an oversized table, an insert overflow or
-   a probe bound above ``PROBE_TRIPS_CAP`` falls back to SORTED at build
-   time, as in the reference, and the ``pallas.join_builds`` and
+   it (``pallas_join_eligible``); a table above ``MAX_TABLE_SLOTS`` for
+   its live rows, an insert overflow or a probe bound above
+   ``PROBE_TRIPS_CAP`` falls back to SORTED at build time, and the ``pallas.join_builds`` and
    ``pallas.join_fallbacks`` counters record which happened.
 
 A unique build with exact keys emits one output page per probe page
@@ -298,14 +298,19 @@ class JoinBuildOperator(Operator):
         return src
 
     def _build_pallas(self, keys, payload, mask) -> Optional[LookupSource]:
-        """Open-addressing build. One host sync reads the insert's
-        [overflow, max_run, distinct] stats, which buys the probe trip count;
-        returns None (the caller builds sorted) on an oversized table, an
-        insert overflow or an excessive probe bound."""
+        """Open-addressing build. Two host syncs: the live row count, which
+        sizes the table, and the insert's [overflow, max_run, distinct]
+        stats, which buy the probe trip count; returns None (the caller
+        builds sorted) on an oversized table, an insert overflow or an
+        excessive probe bound.
+
+        The table is sized from the live rows, where the reference sizes it
+        from the pages' capacity: a build of one coalesced or grouped page
+        of 2^22 rows with a few live keys would otherwise ask for more than
+        ``MAX_TABLE_SLOTS`` and fall back."""
         from . import pallas_hash as ph
 
-        n = int(keys[0].shape[0])
-        slots = ph.table_slots(n)
+        slots = ph.table_slots(int(mask.sum()))
         # float keys are ineligible: the table stores int64 values and the
         # probe has no true-key verify
         if keys[0].is_floating_point() or keys[0].is_complex():
@@ -756,9 +761,11 @@ class LookupJoinOperator(Operator):
         total = int(total)
         cap = page.capacity
         any_match = torch.zeros(cap, dtype=torch.bool, device=page.device)
+        METRICS.count("join.semi_pages")
         for base in range(0, total, cap):
             any_match = self._semi_chunk(page, probe_keys, lo, offsets, base, total,
                                          any_match)
+            METRICS.count("join.semi_chunks")
         if self.f.join_type == SEMI:
             keep = page.mask & any_match
         else:

@@ -305,8 +305,10 @@ def probe_table(slot_keys: torch.Tensor, slot_rows: torch.Tensor,
         raise RuntimeError(f"probe_table: no kernel for device {dev}")
     from .. import kernels
 
-    lib = kernels.library()
     out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:  # nothing to launch, so nothing to count
+        return out
+    lib = kernels.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ht_probe(slot_keys.data_ptr(), slot_rows.data_ptr(), slots,

@@ -5,7 +5,9 @@ build counts ``pallas.join_builds`` when it builds an open-addressing table
 and ``pallas.join_fallbacks`` when it falls back to the sorted build, under
 the same names as the reference. The expanding probe counts the rows it
 expands (``join.expanded_rows``) and the pages it emits them in
-(``join.expansion_chunks``); the reference has no such counters. Fused
+(``join.expansion_chunks``), and the filtered semi probe the pages it
+takes (``join.semi_pages``) and the chunks of candidate pairs it checks
+(``join.semi_chunks``); the reference has no such counters. Fused
 segments count their calls (``segments.dispatches``) and compositions
 (``segments.compiles``) under the reference's names; page coalescing counts
 the pages it takes and emits (``coalesce.pages_in``, ``coalesce.pages_out``),

@@ -134,6 +134,17 @@ def test_probe_kernel_matches_plain_version(cuda):
     assert (got >= 0).any() and (got < 0).any()
 
 
+def test_probe_of_an_empty_page_launches_nothing(cuda):
+    slot_keys = torch.zeros(16, dtype=torch.int64, device=cuda)
+    slot_rows = torch.full((16,), ph.EMPTY, dtype=torch.int32, device=cuda)
+    keys = torch.zeros(0, dtype=torch.int64, device=cuda)
+    mask = torch.zeros(0, dtype=torch.bool, device=cuda)
+    before = ph.probe_table.launches
+    got = ph.probe_table(slot_keys, slot_rows, keys, mask, 4)
+    assert ph.probe_table.launches == before
+    assert got.shape == (0,) and got.dtype == torch.int32 and got.device.type == "cuda"
+
+
 @pytest.mark.parametrize("case", EDGE_CASES)
 def test_insert_kernel_worklist_edges(cuda, case):
     comps, mask, slots, trips = insert_edge_case(case)
@@ -258,14 +269,16 @@ def test_fused_segments_on_the_card_equal_the_cpu_run(cuda, q):
     assert sum(s["probe_launches"] for s in raw) > 0
 
 
-@pytest.mark.parametrize("q", [4, 7, 10, 16, 18, 19, 20])
+@pytest.mark.parametrize("q", [4, 7, 10, 16, 18, 19, 20, 2, 8, 11, 12, 14, 15, 17, 21, 22])
 def test_never_run_queries_on_the_card_equal_the_cpu_run(cuda, q):
     """The queries no earlier card run reached (SEMI/ANTI and null-aware
-    NOT IN probes among them), at ``tiny`` under the full defaults: four
+    NOT IN probes among them; then CASE, division, min/max, scalar
+    subqueries and filtered semi joins), at ``tiny`` under the full defaults: four
     drivers per cut pipeline and the staged scan on the card, one driver
     on the CPU; the rows are equal, DOUBLE to 1e-12 relative, and the card
     launched no plain kernel: the insert once per join build and grouped
-    page."""
+    page. The join fallbacks equal the CPU run's, which tier-1 holds equal
+    to the reference's."""
     import math
 
     from presto_tpu_torch.metadata import Session
@@ -277,14 +290,16 @@ def test_never_run_queries_on_the_card_equal_the_cpu_run(cuda, q):
     for dev in ("cpu", cuda):
         session = Session(catalog="tpch", schema="tiny",
                           properties={"hash_kernels": "pallas", "page_capacity": 1 << 18})
-        builds, pages = (METRICS.counter_value(k)
-                         for k in ("pallas.join_builds", "pallas.agg_pages"))
+        builds, pages, fallbacks = (METRICS.counter_value(k) for k in (
+            "pallas.join_builds", "pallas.agg_pages", "pallas.join_fallbacks"))
         inserts = ph.insert_table.launches
         res = LocalQueryRunner(session, device=dev).execute(QUERIES[q])
         delta = METRICS.counter_value("pallas.join_builds") - builds + \
             METRICS.counter_value("pallas.agg_pages") - pages
-        runs[str(dev)] = res, delta, ph.insert_table.launches - inserts
-    (cpu, _, _), (card, delta, inserts) = runs["cpu"], runs[str(cuda)]
+        fell = METRICS.counter_value("pallas.join_fallbacks") - fallbacks
+        runs[str(dev)] = res, delta, ph.insert_table.launches - inserts, fell
+    (cpu, _, _, cpu_fell), (card, delta, inserts, card_fell) = runs["cpu"], runs[str(cuda)]
+    assert card_fell == cpu_fell
     assert card.rows and len(card.rows) == len(cpu.rows)
     assert max(card.drivers) == 4 and max(cpu.drivers) == 1
     for g, w in zip(card.rows, cpu.rows):

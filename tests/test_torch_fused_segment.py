@@ -23,6 +23,11 @@ from presto_tpu_torch.utils.metrics import METRICS
 from test_torch_sql import COUNTERS, UNFUSED, assert_same_rows
 
 DEFAULT_QUERIES = (1, 3, 5, 6, 7, 9, 10, 13, 19)
+# the queries of CASE, division, min/max, scalar subqueries and filtered
+# semi joins: held here under pallas only (both kernel settings, and the
+# unfused path, in test_torch_sql_tpch_exprs.py and test_torch_sql_subqueries.py)
+NEW_QUERIES = (2, 8, 11, 12, 14, 15, 17, 21, 22)
+J = "LookupJoin(inner)"
 # segments as the reference plans them at tiny: (operators, dispatches) each
 SEGMENTS = {
     1: [], 6: [],
@@ -32,6 +37,22 @@ SEGMENTS = {
     9: [(["LookupJoin(inner)"] * 3, 8),
         (["LookupJoin(inner)", "FilterProject", "HashAggregation(single)"], 8)],
     13: [(["FilterProject", "HashAggregation(single)"], 1)],
+    2: [([J, J, J, "HashAggregation(single)"], 8), (["FilterProject", J], 1),
+        ([J, J, J, "TopN"], 1)],
+    8: [([J] * 7 + ["FilterProject", "HashAggregation(single)"], 8)],
+    11: [([J, J, "FilterProject", "HashAggregation(single)"], 8),
+         ([J, J, "FilterProject", "HashAggregation(single)"], 8),
+         (["FilterProject", J, "FilterProject"], 1)],
+    12: [([J, "FilterProject", "HashAggregation(single)"], 1)],
+    14: [([J, "FilterProject", "HashAggregation(single)"], 1)],
+    # the scalar subquery's max, then the join on its one-row build
+    15: [(["FilterProject", "HashAggregation(single)"], 1), ([J, J, "FilterProject"], 1)],
+    17: [([J, J, "FilterProject", "HashAggregation(single)"], 8)],
+    # the filtered EXISTS / NOT EXISTS probes are never page-local
+    21: [([J, J, J], 8), (["FilterProject", "HashAggregation(single)"], 8)],
+    # the cross join's probe on the one-row build fuses; so does the NOT EXISTS
+    22: [(["FilterProject", J, "FilterProject", "LookupJoin(anti)", "FilterProject",
+           "HashAggregation(single)"], 8)],
 }
 
 
@@ -68,8 +89,9 @@ def test_session_defaults_match_reference():
         assert RefSession().get(prop) is True
 
 
-@pytest.mark.parametrize("hash_kernels", ["sorted", "pallas"])
-@pytest.mark.parametrize("q", DEFAULT_QUERIES)
+@pytest.mark.parametrize("q,hash_kernels",
+                         [(q, hk) for q in DEFAULT_QUERIES for hk in ("sorted", "pallas")]
+                         + [(q, "pallas") for q in NEW_QUERIES])
 def test_default_path_matches_reference(q, hash_kernels):
     props = {"hash_kernels": hash_kernels}
     want_rows, want_seg, want_delta = ref_run(REF_QUERIES[q], props)
