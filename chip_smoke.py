@@ -82,9 +82,30 @@ Phases, each of which must pass:
    of Q15 (its one-row ``max`` build among them), Q17 (the build of its
    grouping's result, one page of 2^22 rows) and Q21 gave them. Then
    the port's CPU run of each query but Q5 must give the card's rows;
-12. print the kernels line (JSON, with each kernel's warm-run launches per
-   SQL query under ``launches_by_query``), the card line, and last the
-   result line.
+12. all 22 TPC-DS queries of ``models/tpcds_sql.py`` (Q64 and Q72 among
+   them) as SQL at ``tpcds.sf1`` with ``hash_kernels="pallas"`` under the
+   full defaults: cold, warm (counters set to 0 just before it) and once
+   under the oracle properties, with equal rows. A TPC-DS scan has no cache
+   token, so the warm run regenerates its pages (it must replay none).
+   Fails unless the insert launched once per join build and grouped page,
+   a query that built a table probed it with the kernel, and nothing fell
+   back. Prints per query the drivers per pipeline, the walls, the warm
+   scan stage seconds, the launches and builds. Q64 and Q72 also print
+   their expansion chunks, expanded rows and peak device memory, get a
+   profiler pass, and hold both kernels against their plain versions, bit
+   for bit, at the shapes of their cold runs' largest build and first
+   probe page. Then the port's CPU run of each must give the card's rows
+   (Q50 gives none in both);
+13. five set operations at ``tpch.sf1`` (UNION ALL of two date-disjoint
+   ``lineitem`` selections grouped by ``l_returnflag``; customers EXCEPT
+   order customers; an INTERSECT of early order customers with BUILDING
+   customers; a ROLLUP of ``lineitem``; a UNION of ``n_name`` and
+   ``r_name``, whose dictionaries differ, so one branch remaps its
+   codes), cold and warm, each against a numpy oracle and the CPU run;
+14. print the kernels line (JSON, with each kernel's warm-run launches per
+   SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
+   ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``), the card
+   line, and last the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -96,6 +117,7 @@ not beside the script, or when any phase fails. It imports nothing of JAX.
 from __future__ import annotations
 
 import datetime
+import gc
 import json
 import os
 import subprocess
@@ -112,6 +134,9 @@ SEED = 20261017
 DOUBLE_REL_TOL = 1e-12
 # device-memory rate of an H100 SXM, bytes/s (NVIDIA's data sheet)
 HBM_RATE = 3.35e12
+# device_ms: clock cycles of the spin kernel that holds the stream while a
+# bracketed call is queued (about 10 ms on an H100)
+SPIN_CYCLES = 20_000_000
 TPU_KERNELS = {"insert": "presto_tpu/ops/pallas_hash.py:197",
                "probe": "presto_tpu/ops/pallas_hash.py:261"}
 KERNEL_SOURCE = "presto_tpu_torch/kernels/hash_table.cu"
@@ -170,25 +195,56 @@ def time_ms(fn, reps: int, device) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int, name: str) -> float:
-    """Device time of one call of ``fn`` from ``torch.profiler``: for each
-    CUDA kernel whose name holds ``name``, the median of its times over
-    ``reps`` calls, summed over the kernels. Host time is not in it."""
+def device_ms(wrapper, args, reps: int) -> float:
+    """Device time of one call of ``wrapper(*args)``: the median over
+    ``reps`` calls of the time between two CUDA events recorded around the
+    call while a spin kernel (``torch.cuda._sleep``) holds the stream, so
+    that the events bracket the call's kernels and not the host's launch
+    cost, less the median of the same bracket around nothing. A bracket
+    whose spin ran out before it was queued (the host thread stalled, for
+    instance waiting for the interpreter lock) is not device time and is
+    taken again, up to ``reps`` times in all; then it raises. It also fails
+    unless the wrapper counts one launch per call. (``torch.profiler`` lost
+    kernel records in short windows, more of them the longer the process
+    had profiled; PERF.md section 6.)"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
-            times.setdefault(e.name, []).append(e.time_range.elapsed_us())
-    if not times:
-        raise AssertionError(f"the profiler saw no kernel named like {name!r}")
-    return sum(float(np.median(t)) for t in times.values()) / 1e3
+    retakes = 0
+
+    def span(call) -> float:
+        nonlocal retakes
+        while True:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            call()
+            end.record()
+            late = start.query()
+            torch.cuda.synchronize()
+            if not late:
+                return start.elapsed_time(end)
+            retakes += 1
+            if retakes > reps:
+                raise AssertionError(f"{wrapper.__name__}: the spin kernel ran out before "
+                                     f"the bracket was queued {retakes} times")
+
+    wrapper(*args)
+    torch.cuda.synchronize()
+    launches = wrapper.launches
+    gc.disable()  # as timeit does: a collection would stall the host thread
+    try:
+        busy = [span(lambda: wrapper(*args)) for _ in range(reps)]
+        calls = wrapper.launches - launches
+        if calls != reps + retakes:  # a retaken bracket calls the wrapper again
+            raise AssertionError(f"{wrapper.__name__}: {calls} launches for {reps} calls "
+                                 f"and {retakes} retaken")
+        idle = [span(lambda: None) for _ in range(reps)]
+    finally:
+        gc.enable()
+    if retakes:
+        log(f"DEVICE_MS {wrapper.__name__}: {retakes} bracket(s) retaken")
+    return float(np.median(busy) - np.median(idle))
 
 
 def build_kernels() -> None:
@@ -328,8 +384,7 @@ def check_kernels(device, reps: int = 20, plain_reps: int = 3):
                        plain_reps, device)
     nbytes = n * 8 + n + slots * 8 + slots * 4 + n * 4 + 3 * 4
     out["insert"] = {"max_abs_err": err, "ms": ms,
-                     "device_ms": device_ms(lambda: ph.insert_table(comps1, mask1, slots),
-                                            reps, "ht_insert_"),
+                     "device_ms": device_ms(ph.insert_table, (comps1, mask1, slots), reps),
                      "plain_ms": plain_ms, "bound_ms": nbytes / HBM_RATE * 1e3,
                      "bytes": nbytes}
 
@@ -355,9 +410,9 @@ def check_kernels(device, reps: int = 20, plain_reps: int = 3):
                                                         pmask, trips), plain_reps, device)
     nbytes = probe_bytes(slot_comps[0], slot_rows, pkeys, pmask, trips)
     out["probe"] = {"max_abs_err": err, "ms": ms,
-                    "device_ms": device_ms(lambda: ph.probe_table(slot_comps[0], slot_rows,
-                                                                  pkeys, pmask, trips),
-                                           reps, "ht_probe_rows"),
+                    "device_ms": device_ms(ph.probe_table,
+                                           (slot_comps[0], slot_rows, pkeys, pmask, trips),
+                                           reps),
                     "plain_ms": plain_ms, "bound_ms": nbytes / HBM_RATE * 1e3,
                     "bytes": nbytes}
     for name, m in out.items():
@@ -1138,8 +1193,7 @@ def check_fused_probe(device, capture, reps: int = 20, plain_reps: int = 3) -> N
         raise AssertionError(f"fused-stage probe differs from its plain version: {err}")
     nbytes = probe_bytes(slot_keys, slot_rows, keys, mask, trips)
     ms = time_ms(lambda: ph.probe_table(slot_keys, slot_rows, keys, mask, trips), reps, device)
-    dev_ms = device_ms(lambda: ph.probe_table(slot_keys, slot_rows, keys, mask, trips), reps,
-                       "ht_probe_rows")
+    dev_ms = device_ms(ph.probe_table, (slot_keys, slot_rows, keys, mask, trips), reps)
     plain_ms = time_ms(lambda: ph.probe_table_reference(slot_keys, slot_rows, keys, mask,
                                                         trips), plain_reps, device)
     log(f"KERNEL probe at the SQL Q3 fused-stage shape (first coalesced probe page): "
@@ -1172,7 +1226,7 @@ def check_path_kernels(device, capture, reps: int = 20, plain_reps: int = 3,
         live = int(mask.sum())
         nbytes = n + live * ncomps * 8 + n * 4 + ncomps * slots * 8 + slots * 4 + 3 * 4
         ms = time_ms(lambda: ph.insert_table(comps, mask, slots), reps, device)
-        dev_ms = device_ms(lambda: ph.insert_table(comps, mask, slots), reps, "ht_insert_")
+        dev_ms = device_ms(ph.insert_table, (comps, mask, slots), reps)
         plain_ms = time_ms(lambda: ph.insert_table_reference(comps, mask, slots),
                            plain_reps, device)
         log(f"KERNEL insert at the {run} {label} shape: ncomps={ncomps} n={n} live={live} "
@@ -1187,8 +1241,7 @@ def check_path_kernels(device, capture, reps: int = 20, plain_reps: int = 3,
         raise AssertionError(f"{run} probe differs from its plain version: {err}")
     nbytes = probe_bytes(slot_keys, slot_rows, keys, mask, trips)
     ms = time_ms(lambda: ph.probe_table(slot_keys, slot_rows, keys, mask, trips), reps, device)
-    dev_ms = device_ms(lambda: ph.probe_table(slot_keys, slot_rows, keys, mask, trips), reps,
-                       "ht_probe_rows")
+    dev_ms = device_ms(ph.probe_table, (slot_keys, slot_rows, keys, mask, trips), reps)
     plain_ms = time_ms(lambda: ph.probe_table_reference(slot_keys, slot_rows, keys, mask,
                                                         trips), plain_reps, device)
     log(f"KERNEL probe at the {run} shape: slots={slot_rows.shape[0]} n={keys.shape[0]} "
@@ -1214,7 +1267,7 @@ def check_grouping_insert(device, capture, reps: int = 20, plain_reps: int = 3) 
     ncomps, n = comps.shape
     stats = got[3].tolist()
     ms = time_ms(lambda: ph.insert_table(comps, mask, slots), reps, device)
-    dev_ms = device_ms(lambda: ph.insert_table(comps, mask, slots), reps, "ht_insert_")
+    dev_ms = device_ms(ph.insert_table, (comps, mask, slots), reps)
     plain_ms = time_ms(lambda: ph.insert_table_reference(comps, mask, slots), plain_reps,
                        device)
     # what this page needs: the mask, the live rows' key components, every
@@ -1399,6 +1452,259 @@ def check_cpu_rows(records: dict, schema: str = "sf1") -> None:
     RESIDENT_CACHE.clear()  # the host pages are no use to the card
 
 
+# phase 12: TPC-DS at SF1 (no cache token: every run regenerates its pages)
+DS_DEEP = (64, 72)   # the north-star pair: profiler, expansion, kernel shapes
+DS_NO_ROWS = (50,)   # returns no rows at tiny and SF1, in both packages
+
+
+def ds_runner(device, schema: str, **props):
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.runner import LocalQueryRunner
+
+    return LocalQueryRunner(Session(catalog="tpcds", schema=schema,
+                                    properties={"hash_kernels": "pallas", **props}),
+                            device=device)
+
+
+def run_tpcds_phase(device, schema: str = "sf1") -> dict:
+    """Every TPC-DS query of ``models/tpcds_sql.py`` with
+    ``hash_kernels="pallas"`` under the full defaults: a cold run, a warm
+    run with the launch counters and ``COUNTERS`` set to 0 just before it
+    and read just after, and one run under the oracle properties. A TPC-DS
+    scan has no cache token, so warm regenerates its pages too. Fails
+    unless the three runs give the same rows, the warm run replayed no
+    resident page, the insert launched once per join build and grouped
+    page, a query that built on the table probed it with the kernel, and
+    nothing fell back. Q64 and Q72 also print their expansion and peak
+    device memory, get a profiler pass, and hold both kernels against their
+    plain versions at the shapes their cold runs gave them. Returns the
+    records."""
+    import contextlib
+
+    import torch
+
+    from presto_tpu_torch.models.tpcds_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+    for q in sorted(QUERIES):
+        capture = KernelCapture() if q in DS_DEEP else None
+        runner = ds_runner(device, schema)
+        RESIDENT_CACHE.clear()
+        t0 = time.perf_counter()
+        with capture or contextlib.nullcontext():
+            cold = runner.execute(QUERIES[q])
+        sync()
+        cold_s = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        before = {k: METRICS.counter_value(k) for k in COUNTERS}
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        t0 = time.perf_counter()
+        res = runner.execute(QUERIES[q])
+        sync()
+        warm_s = time.perf_counter() - t0
+        launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
+        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        t0 = time.perf_counter()
+        oracle = ds_runner(device, schema, **ORACLE_PROPS).execute(QUERIES[q])
+        sync()
+        oracle_s = time.perf_counter() - t0
+        rec = {"q": q, "rows": res.rows, "launches": launches, "delta": delta,
+               "drivers": res.drivers, "cold_s": cold_s, "warm_s": warm_s,
+               "oracle_s": oracle_s, "peak": peak, "scan": (cold.stats or {}).get("scan_pipeline"),
+               "warm_scan": (res.stats or {}).get("scan_pipeline")}
+        if not (same_rows(cold.rows, res.rows) and same_rows(oracle.rows, res.rows)):
+            raise AssertionError(f"SQL DS Q{q}: cold, warm and oracle-property rows differ:\n"
+                                 f"{cold.rows}\n{res.rows}\n{oracle.rows}")
+        if not res.rows and q not in DS_NO_ROWS:
+            raise AssertionError(f"SQL DS Q{q} returned no rows")
+        if max(oracle.drivers) != 1 or res.resident_pages or not rec["warm_scan"]:
+            raise AssertionError(f"SQL DS Q{q}: oracle drivers {oracle.drivers}, warm run "
+                                 f"replayed {res.resident_pages} pages, staged "
+                                 f"{rec['warm_scan']}")
+        builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
+        if on_card and launches["insert"] != builds + pages:
+            raise AssertionError(f"SQL DS Q{q}: insert launches {launches['insert']} != join "
+                                 f"builds {builds} + grouped pages {pages}")
+        if on_card and builds and not launches["probe"]:
+            raise AssertionError(f"SQL DS Q{q}: {builds} tables built, none probed by the "
+                                 f"kernel")
+        if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+            raise AssertionError(f"SQL DS Q{q}: a fallback: {delta}")
+        out[q] = rec
+        log(f"DSPATH SQL DS Q{q} {schema}: {len(res.rows)} rows equal cold, warm and under the "
+            f"oracle properties; drivers per pipeline {res.drivers}; cold wall {cold_s:.4f}s, "
+            f"warm wall {warm_s:.4f}s (regenerated, {res.resident_pages} resident pages), "
+            f"oracle {oracle_s:.4f}s; launches {launches}; join builds {int(builds)}, "
+            f"fallbacks {int(delta['pallas.join_fallbacks'])}, grouped pages {int(pages)}")
+        log(f"  warm scan stages: {_fmt_scan(rec['warm_scan'])}")
+        if q in DS_DEEP:
+            log(f"  SQL DS Q{q} expansion on the warm run: "
+                f"{int(delta['join.expansion_chunks'])} chunks, "
+                f"{int(delta['join.expanded_rows'])} expanded rows; peak device memory "
+                f"{peak} bytes")
+            profile_q3(device, schema, run=lambda: runner.execute(QUERIES[q]),
+                       label=f"SQL DS Q{q}")
+            check_path_kernels(device, capture, run=f"SQL DS Q{q} cold run",
+                               need_grouping=False)
+    return out
+
+
+def check_ds_cpu_rows(records: dict, schema: str = "sf1") -> None:
+    """The port's own CPU run of each TPC-DS query under the defaults: rows
+    equal to the card's."""
+    from presto_tpu_torch.models.tpcds_sql import QUERIES
+
+    for q in sorted(QUERIES):
+        t0 = time.perf_counter()
+        rows = ds_runner("cpu", schema).execute(QUERIES[q]).rows
+        if not same_rows(records[q]["rows"], rows):
+            raise AssertionError(f"SQL DS Q{q}: the card's rows differ from the CPU run's:\n"
+                                 f"{records[q]['rows']}\n{rows}")
+        log(f"CPU SQL DS Q{q} {schema}: {len(rows)} rows equal to the card's "
+            f"({time.perf_counter() - t0:.2f}s on the host)")
+
+
+# phase 13: set operations at TPC-H SF1, each against a numpy oracle
+SETOP_SQL = {
+    "union all": "select l_returnflag, count(*), sum(l_quantity) from "
+                 "(select l_returnflag, l_quantity from lineitem "
+                 "where l_shipdate < date '1994-01-01' union all "
+                 "select l_returnflag, l_quantity from lineitem "
+                 "where l_shipdate >= date '1997-01-01') t group by l_returnflag order by 1",
+    "except": "select c_custkey from customer except select o_custkey from orders order by 1",
+    "intersect": "select o_custkey from orders where o_orderdate < date '1993-01-01' "
+                 "intersect select c_custkey from customer where c_mktsegment = 'BUILDING' "
+                 "order by 1",
+    "rollup": "select l_returnflag, l_linestatus, count(*), sum(l_extendedprice) "
+              "from lineitem group by rollup(l_returnflag, l_linestatus) order by 1, 2",
+    "union dictionaries": "select n_name from nation union select r_name from region "
+                          "order by 1",
+}
+
+
+def _nulls_last(rows, ncols: int):
+    return sorted(rows, key=lambda r: [(v is None, v if v is not None else 0)
+                                       for v in r[:ncols]])
+
+
+def oracle_setop(label: str, schema: str):
+    """The set-operation query ``label`` in numpy over the port's TPC-H
+    generator: rows as Python values, ORDER BY with NULLS LAST."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    sf = SCHEMAS[schema]
+    n_orders = g.table_row_count("orders", sf)
+    if label in ("union all", "rollup"):
+        li = g.lineitem_for_orders(0, n_orders, sf, ["l_returnflag", "l_linestatus",
+                                                     "l_quantity", "l_extendedprice",
+                                                     "l_shipdate"])
+        flag = g.DICT_RETURNFLAG.lookup(li["l_returnflag"].astype(np.int64))
+        if label == "union all":
+            sel = (li["l_shipdate"] < civil_day(1994, 1, 1)) | \
+                (li["l_shipdate"] >= civil_day(1997, 1, 1))
+            qty = li["l_quantity"].astype(np.int64)
+            return [[f, int((sel & (flag == f)).sum()),
+                     Decimal(int(qty[sel & (flag == f)].sum())) / 100]
+                    for f in sorted(set(flag[sel]))]
+        status = g.DICT_LINESTATUS.lookup(li["l_linestatus"].astype(np.int64))
+        price = li["l_extendedprice"].astype(np.int64)
+        rows = []
+        for f in sorted(set(flag)):
+            for st in sorted(set(status[flag == f])):
+                sel = (flag == f) & (status == st)
+                rows.append([f, st, int(sel.sum()), Decimal(int(price[sel].sum())) / 100])
+            sel = flag == f
+            rows.append([f, None, int(sel.sum()), Decimal(int(price[sel].sum())) / 100])
+        rows.append([None, None, len(flag), Decimal(int(price.sum())) / 100])
+        return _nulls_last(rows, 2)
+    if label == "union dictionaries":
+        return [[v] for v in sorted(set(g.REGIONS) | {n for n, _ in g.NATIONS})]
+    c = _table("customer", sf, ["c_custkey", "c_mktsegment"])
+    o = _table("orders", sf, ["o_custkey", "o_orderdate"])
+    if label == "except":
+        keys = np.setdiff1d(c["c_custkey"], o["o_custkey"])
+    else:
+        building = c["c_custkey"][c["c_mktsegment"] == g.DICT_SEGMENT.code_of("BUILDING")]
+        keys = np.intersect1d(o["o_custkey"][o["o_orderdate"] < civil_day(1993, 1, 1)],
+                              building)
+    return [[int(k)] for k in keys]
+
+
+def run_setops_phase(device, schema: str = "sf1") -> dict:
+    """The five set-operation queries at TPC-H SF1 with ``hash_kernels=
+    "pallas"`` under the defaults: a cold run, a warm run with the counters
+    set to 0 just before it, and the port's CPU run. Fails unless the rows
+    equal the numpy oracle and the CPU run's, the insert launched once per
+    join build and grouped page, nothing fell back, and the VARCHAR union
+    planned a code remap. Returns the records."""
+    import torch
+
+    from presto_tpu_torch.exec.local_planner import LocalExecutionPlanner
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.coalesce import DictionaryRemapOperatorFactory
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+    for label, sql in SETOP_SQL.items():
+        runner = sql_runner(device, "pallas", schema)
+        RESIDENT_CACHE.clear()
+        t0 = time.perf_counter()
+        runner.execute(sql)
+        sync()
+        cold_s = time.perf_counter() - t0
+        before = {k: METRICS.counter_value(k) for k in COUNTERS}
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        sync()
+        warm_s = time.perf_counter() - t0
+        launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
+        want = oracle_setop(label, schema)
+        if not same_rows(res.rows, want):
+            raise AssertionError(f"SETOP {label}: rows differ from the numpy oracle:\n"
+                                 f"{res.rows[:20]}\n{want[:20]}")
+        t0 = time.perf_counter()
+        cpu_rows = sql_runner("cpu", "pallas", schema).execute(sql).rows
+        cpu_s = time.perf_counter() - t0
+        if not same_rows(cpu_rows, res.rows):
+            raise AssertionError(f"SETOP {label}: the card's rows differ from the CPU run's")
+        builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
+        if on_card and launches["insert"] != builds + pages:
+            raise AssertionError(f"SETOP {label}: insert launches {launches['insert']} != "
+                                 f"join builds {builds} + grouped pages {pages}")
+        if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+            raise AssertionError(f"SETOP {label}: a fallback: {delta}")
+        if label == "union dictionaries":
+            plan = LocalExecutionPlanner(runner.metadata, runner.session, device).plan(
+                runner.plan_sql(sql))
+            remapped = [f for chain in plan.pipelines for f in chain
+                        if isinstance(f, DictionaryRemapOperatorFactory)
+                        and any(r is not None for r in f.remaps)]
+            if not remapped:
+                raise AssertionError("SETOP union dictionaries: no branch remaps its codes")
+        out[label] = {"rows": res.rows, "launches": launches, "delta": delta}
+        log(f"SETOP {label} {schema}: {len(res.rows)} rows equal to the numpy oracle and to "
+            f"the CPU run ({cpu_s:.2f}s on the host); drivers per pipeline {res.drivers}; "
+            f"cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s ({res.resident_pages} resident "
+            f"pages); launches {launches}; join builds {int(builds)}, grouped pages "
+            f"{int(pages)}")
+    return out
+
+
 def check_stage_failure(device) -> None:
     """A scan stage that raises on a pool thread surfaces in the consumer
     (``ScanPipeline._fail`` puts the error on the output queue) and stays
@@ -1486,6 +1792,9 @@ def main() -> int:
             check_path_kernels(device, capture, run=f"SQL Q{q} cold run",
                                need_grouping=False)
         check_cpu_rows(records)
+        ds_records = run_tpcds_phase(device)
+        check_ds_cpu_rows(ds_records)
+        setop_records = run_setops_phase(device)
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -1497,8 +1806,11 @@ def main() -> int:
                 "max_abs_err": m["max_abs_err"], "ms": m["ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": "bytes", "library_ms": None,
-                "launches_by_query": {f"SQL Q{q}": records[q]["launches"][k]
-                                      for q in sorted(records)}}
+                "launches_by_query": {
+                    **{f"SQL Q{q}": records[q]["launches"][k] for q in sorted(records)},
+                    **{f"SQL DS Q{q}": ds_records[q]["launches"][k] for q in sorted(ds_records)},
+                    **{f"SQL SETOP {label}": rec["launches"][k]
+                       for label, rec in setop_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

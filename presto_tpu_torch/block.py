@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .types import Type
+from .types import VARCHAR, Type
 
 
 def torch_dtype(t: Type) -> torch.dtype:
@@ -205,6 +205,23 @@ def _compact(page: Page) -> Page:
         new_blocks.append(Block(b.type, out, nulls, b.dictionary))
     new_mask = torch.arange(cap, device=mask.device) < n
     return Page(tuple(new_blocks), new_mask)
+
+
+def block_from_strings(values: Sequence[Optional[str]], type_: Type = VARCHAR,
+                       dictionary: Optional[Dictionary] = None) -> Block:
+    """Dictionary-encode Python strings into a host varchar block (int32
+    codes on the CPU; a new dictionary of the sorted distinct values unless
+    one is given). NULLs get code 0 under the null mask."""
+    if dictionary is None:
+        dictionary = Dictionary(sorted({v for v in values if v is not None}))
+    index = dictionary.index()
+    codes = np.fromiter(((index[v] if v is not None else 0) for v in values),
+                        dtype=np.int32, count=len(values))
+    nulls = None
+    if any(v is None for v in values):
+        nulls = torch.from_numpy(np.fromiter((v is None for v in values), dtype=np.bool_,
+                                             count=len(values)))
+    return Block(type_, torch.from_numpy(codes), nulls, dictionary)
 
 
 def page_from_arrays(types: Sequence[Type], arrays: Sequence[np.ndarray],

@@ -34,6 +34,12 @@ the 22 TPC-H queries, on an explicit ``device``:
   builds. N is ``driver_parallelism``: AUTO gives ``task_concurrency`` on a
   CUDA device and 1 on the CPU. Fusion runs after the cut.
 - Every scan gets the session's pipeline knobs (``scan_options``).
+- A VALUES list (``SELECT`` without ``FROM``) is one literal host page,
+  scanned once.
+- UNION [ALL], INTERSECT, EXCEPT and grouping sets plan as a UnionNode:
+  each branch drains, in one driver, into a page buffer, and a replay scan
+  reads the buffers once every branch has finished. Branch dictionaries
+  are unified first (a minority branch remaps its codes on the device).
 
 Fusion, coalescing, the scan pipeline and parallel drivers are on by
 default, as in the reference; turned off, the port runs the reference's
@@ -46,8 +52,11 @@ import dataclasses
 import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
 from .. import resolve_device
-from ..block import Dictionary
+from ..block import Block, Dictionary, Page, block_from_strings
 from ..metadata import MetadataManager, Session, default_page_capacity
 from ..ops.aggregates import AggregateCall, resolve_aggregate
 from ..ops.expressions import (Constant, ExpressionCompiler, InputLayout, RowExpression,
@@ -60,15 +69,48 @@ from ..ops.scan import TableScanOperatorFactory
 from ..ops.single_row import EnforceSingleRowOperatorFactory
 from ..ops.topn import (LimitOperatorFactory, OrderByOperatorFactory, SortOrder,
                         TopNOperatorFactory)
-from ..spi.connector import ConcatPageSource, Constraint
+from ..spi.connector import ConcatPageSource, ConnectorPageSource, Constraint, FixedPageSource
 from ..sql.planner.optimizer import and_all, substitute
 from ..sql.planner.plan import (AggregationNode, EnforceSingleRowNode, FilterNode, JoinNode,
                                 LimitNode, OutputNode, PlanNode, ProjectNode, SemiJoinNode,
-                                SortNode, Symbol, TableScanNode, TopNNode)
+                                SortNode, Symbol, TableScanNode, TopNNode, UnionNode,
+                                ValuesNode)
 from ..sql.planner.plan import SINGLE as P_SINGLE
-from ..types import BIGINT, BOOLEAN, Type
+from ..types import BIGINT, BOOLEAN, Type, is_string
 from ..utils.testing import PageConsumerFactory
 from .driver import Driver
+
+
+# union dictionaries interned by value, so that planning the same query
+# again yields the same Dictionary object (its token keeps caches warm)
+_UNION_DICTS: Dict[tuple, Dictionary] = {}
+
+
+def _intern_union_dict(values: List[str]) -> Dictionary:
+    key = tuple(values)
+    d = _UNION_DICTS.get(key)
+    if d is None:
+        if len(_UNION_DICTS) > 256:
+            _UNION_DICTS.clear()
+        d = _UNION_DICTS[key] = Dictionary(values)
+    return d
+
+
+# the port plans one local task, so every operator belongs to worker 0
+_WORKER = 0
+
+
+class _ReplaySource(ConnectorPageSource):
+    """A union's output: the pages of each branch buffer, in branch order,
+    read when the scan first asks (after every branch ended). It has no
+    ``cache_token``, so its pages never enter the resident cache."""
+
+    def __init__(self, buffers: List[PageConsumerFactory]):
+        self.buffers = buffers
+
+    def __iter__(self):
+        for b in self.buffers:
+            yield from b.pages_for(_WORKER)
 
 
 @dataclasses.dataclass
@@ -350,6 +392,32 @@ class LocalExecutionPlanner:
                                        processor.output_types, processor, self.device)
         return Chain([fac], [s for s, _ in node.assignments], processor.output_dicts)
 
+    def visit_ValuesNode(self, node: ValuesNode) -> Chain:
+        """One literal host page of the rows; the scan uploads it once."""
+        cap = max(len(node.rows), 1)
+        blocks = []
+        dicts: List[Optional[Dictionary]] = []
+        for i, sym in enumerate(node.symbols):
+            vals = [r[i] for r in node.rows]
+            if is_string(sym.type):
+                b = block_from_strings(vals, sym.type)
+            else:
+                arr = np.zeros(cap, dtype=sym.type.np_dtype)
+                nulls = np.zeros(cap, dtype=np.bool_)
+                for j, v in enumerate(vals):
+                    if v is None:
+                        nulls[j] = True
+                    else:
+                        arr[j] = v
+                b = Block(sym.type, torch.from_numpy(arr),
+                          torch.from_numpy(nulls) if nulls.any() else None, None)
+            blocks.append(b)
+            dicts.append(b.dictionary)
+        page = Page(tuple(blocks), torch.arange(cap) < len(node.rows))
+        fac = TableScanOperatorFactory(next(self._ids), [FixedPageSource([page])],
+                                       [s.type for s in node.symbols], None, self.device)
+        return Chain([fac], list(node.symbols), dicts)
+
     # ------------------------------------------------------------- joins
 
     def _maybe_coalesce(self, chain: Chain) -> Chain:
@@ -588,6 +656,88 @@ class LocalExecutionPlanner:
         fac = EnforceSingleRowOperatorFactory(next(self._ids), [s.type for s in src.symbols],
                                               list(src.dicts), self.device)
         return Chain(src.factories + [fac], list(src.symbols), list(src.dicts))
+
+    # ---------------------------------------------------------------- union
+
+    def visit_UnionNode(self, node: UnionNode) -> Chain:
+        """Materialized concatenation: each branch drains into a page buffer
+        in one driver; a replay scan reads the buffers once every branch
+        has finished (the reference's ``visit_UnionNode``)."""
+        chains: List[Chain] = []
+        for child, mapping in zip(node.sources, node.symbol_mappings):
+            chain = self.visit(child)
+            if [s.name for s in chain.symbols] != [m.name for m in mapping]:
+                chain = self._append_project(
+                    chain, [(m, symbol_ref(m.name, m.type)) for m in mapping])
+            chains.append(chain)
+        dicts, remaps = self._unify_dictionaries(chains, len(node.symbol_mappings[0]))
+        buffers: List[PageConsumerFactory] = []
+        for bi, (chain, mapping) in enumerate(zip(chains, node.symbol_mappings)):
+            facs = list(chain.factories)
+            types = [m.type for m in mapping]
+            needs_rebind = any(d is not None and chain.dicts[c] is not d
+                               for c, d in enumerate(dicts))
+            if needs_rebind or any(r is not None for r in remaps[bi]):
+                from ..ops.coalesce import DictionaryRemapOperatorFactory
+
+                facs.append(DictionaryRemapOperatorFactory(
+                    next(self._ids), types, remaps[bi], target_dicts=dicts,
+                    device=self.device))
+            buf = PageConsumerFactory(next(self._ids), types)
+            # one driver, not _add_pipeline: the replay keeps branch order
+            self.pipelines.append(facs + [buf])
+            buffers.append(buf)
+
+        def all_branches_done() -> bool:
+            return all(b.consumers_by_worker.get(_WORKER)
+                       and all(c.is_finished() for c in b.consumers_by_worker[_WORKER])
+                       for b in buffers)
+
+        fac = TableScanOperatorFactory(next(self._ids), [_ReplaySource(buffers)],
+                                       [s.type for s in node.symbols], None, self.device,
+                                       ready=all_branches_done)
+        return Chain([fac], list(node.symbols), dicts)
+
+    @staticmethod
+    def _unify_dictionaries(chains: List[Chain], ncols: int):
+        """Per column, the union's dictionary, and per branch the remap
+        tables (old code -> union code, None = none needed):
+
+        - a branch with no dictionary (a grouping set's NULL constants)
+          adopts its siblings': its codes are dead under the NULL mask;
+        - two real dictionaries merge, in branch order, and a branch whose
+          values are not the union's prefix remaps its codes;
+        - distinct virtual (formatted) dictionaries cannot merge."""
+        dicts: List[Optional[Dictionary]] = []
+        remaps: List[List[Optional[np.ndarray]]] = [[None] * ncols for _ in chains]
+        for c in range(ncols):
+            branch_dicts = [ch.dicts[c] for ch in chains]
+            real = [d for d in branch_dicts if d is not None]
+            if not real:
+                dicts.append(None)
+                continue
+            if all(d is real[0] for d in real):
+                dicts.append(real[0])
+                continue
+            if any(not hasattr(d, "values") for d in real):
+                raise NotImplementedError(
+                    "UNION across distinct VIRTUAL dictionaries has no "
+                    "re-encode (formatted columns must share one source)")
+            seen: Dict[str, int] = {}
+            values: List[str] = []
+            for d in real:
+                for v in d.values:
+                    if v not in seen:
+                        seen[v] = len(values)
+                        values.append(v)
+            for bi, d in enumerate(branch_dicts):
+                if d is not None and list(d.values) != values:
+                    remap = np.asarray([seen[v] for v in d.values], dtype=np.int32)
+                    # a prefix of the union needs only the rebind, no gather
+                    if not np.array_equal(remap, np.arange(len(remap), dtype=np.int32)):
+                        remaps[bi][c] = remap
+            dicts.append(_intern_union_dict(values))
+        return dicts, remaps
 
     # ---------------------------------------------------------- helpers
 

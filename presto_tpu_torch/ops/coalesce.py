@@ -17,14 +17,18 @@ scales with the filter's survivors.
 - A page of another capacity flushes the accumulator as a page of its own
   and restarts at the new capacity.
 
-``DictionaryRemapOperator`` of the reference serves UNION, which the port
-has not ported. The counters ``coalesce.pages_in`` and
-``coalesce.pages_out`` are the port's own; the reference has none.
+``DictionaryRemapOperator`` serves UNION: a branch whose dictionary is
+not the union's maps its codes into the union dictionary, one gather per
+remapped column, and every block leaves carrying the union dictionary.
+
+The counters ``coalesce.pages_in`` and ``coalesce.pages_out`` are the
+port's own; the reference has none.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..block import Block, Page, _compact
@@ -147,3 +151,73 @@ class CoalesceOperatorFactory(OperatorFactory):
 
     def create_operator(self) -> CoalesceOperator:
         return CoalesceOperator(self.context(), self.types)
+
+
+class DictionaryRemapOperator(Operator):
+    """Re-encode dictionary codes through per-channel remap tables (the UNION
+    dictionary unification: a minority branch maps its codes into the union
+    dictionary on the device, one gather per remapped column)."""
+
+    def __init__(self, context: OperatorContext, types: List[Type],
+                 remaps: Sequence[Optional[torch.Tensor]], target_dicts=None):
+        super().__init__(context)
+        self._types = types
+        self._remaps = list(remaps)
+        self._target_dicts = target_dicts or [None] * len(types)
+        self._pending: List[Page] = []
+
+    @property
+    def output_types(self) -> List[Type]:
+        return self._types
+
+    def needs_input(self) -> bool:
+        return not self._finishing and not self._pending
+
+    @timed("add_input_ns")
+    def add_input(self, page: Page) -> None:
+        self.context.record_input(page, page.capacity)
+        blocks = []
+        for b, r, td in zip(page.blocks, self._remaps, self._target_dicts):
+            # an explicit None test: a virtual dictionary has length 0
+            if td is None:
+                td = b.dictionary
+            if r is None:
+                # no codes to translate, but the block must still carry the
+                # union dictionary: later page merges take the first block's
+                # dictionary, and a NULL branch's block without one would
+                # strip the decoding from the whole column
+                blocks.append(b if td is b.dictionary else Block(b.type, b.data, b.nulls, td))
+            else:
+                codes = torch.clamp(b.data.to(torch.int64), 0, r.shape[0] - 1)
+                blocks.append(Block(b.type, r[codes], b.nulls, td))
+        self._pending.append(Page(tuple(blocks), page.mask))
+
+    @timed("get_output_ns")
+    def get_output(self) -> Optional[Page]:
+        if self._pending:
+            page = self._pending.pop(0)
+            self.context.record_output(page, page.capacity)
+            return page
+        return None
+
+    def is_finished(self) -> bool:
+        return self._finishing and not self._pending
+
+
+class DictionaryRemapOperatorFactory(OperatorFactory):
+    """``remaps``: one int32 host array (old code -> union code) or None per
+    channel, copied to ``device`` once here, not once per page;
+    ``target_dicts``: the union dictionary per channel (None = keep)."""
+
+    def __init__(self, operator_id: int, types: List[Type],
+                 remaps: Sequence[Optional[np.ndarray]], target_dicts=None, device="cpu"):
+        super().__init__(operator_id, "DictionaryRemap")
+        self.types = types
+        self.remaps = [None if r is None
+                       else torch.from_numpy(np.ascontiguousarray(r, dtype=np.int32)).to(device)
+                       for r in remaps]
+        self.target_dicts = target_dicts
+
+    def create_operator(self) -> DictionaryRemapOperator:
+        return DictionaryRemapOperator(self.context(), self.types, self.remaps,
+                                       self.target_dicts)

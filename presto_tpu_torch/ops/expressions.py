@@ -634,6 +634,10 @@ class ExpressionCompiler:
                 op = {"add": torch.add, "subtract": torch.sub, "multiply": torch.mul,
                       "divide": torch.div}[name]
                 return op(a, b), n
+            if out is DATE and name in ("add", "subtract"):
+                # date ± integer days, on int64 and back to int32 days
+                op = torch.add if name == "add" else torch.sub
+                return op(ld.to(torch.int64), rd.to(torch.int64)).to(torch.int32), n
             if not is_integral(out):
                 raise NotImplementedError(f"{name} on {out.display_name()} is not ported yet")
             dtype = torch_dtype(out)

@@ -18,6 +18,9 @@ Counterpart of ``presto_tpu/ops/scan.py`` ``TableScanOperator``:
   the change.
 - Narrow wire dtypes are widened to the declared types on the device
   (``_widen_page``), then the scan's own filter/project runs.
+- A scan given a ``ready`` poll (a UNION's replay of its branches'
+  buffers) reports itself blocked through ``is_blocked()`` until the poll
+  is true, so the task executor parks its driver instead of spinning.
 """
 from __future__ import annotations
 
@@ -93,9 +96,10 @@ def _widen_page(page: Page) -> Page:
 class TableScanOperator(Operator):
     def __init__(self, context, source: ConnectorPageSource, types: List[Type],
                  processor: Optional[PageProcessor], device: torch.device,
-                 scan_options: Optional[dict] = None):
+                 scan_options: Optional[dict] = None, ready=None):
         super().__init__(context)
         self.source = source
+        self._ready = ready  # None = always ready; else polled before reading
         self._types = types
         self.processor = processor
         self.device = device
@@ -119,6 +123,16 @@ class TableScanOperator(Operator):
                 self._replay = iter(hit)
             else:
                 self._collected = []
+
+    def is_blocked(self):
+        """A replay scan blocks until its producers have finished: under the
+        threaded executor, pipeline order does not imply completion order."""
+        if self._ready is None:
+            return None
+        if self._ready():
+            self._ready = None
+            return None
+        return self._ready
 
     @property
     def output_types(self) -> List[Type]:
@@ -206,11 +220,13 @@ class TableScanOperator(Operator):
 class TableScanOperatorFactory(OperatorFactory):
     """Each create_operator() call consumes the next unclaimed page source.
     ``set_parallelism(n)`` deals the splits into n sources, one per
-    driver; ``parallel_drivers`` is the driver count the plan creates."""
+    driver; ``parallel_drivers`` is the driver count the plan creates.
+    ``ready``, when given, is the poll every scan of the factory waits on."""
 
     def __init__(self, operator_id: int, page_sources, types: List[Type],
-                 processor: Optional[PageProcessor], device: torch.device):
+                 processor: Optional[PageProcessor], device: torch.device, ready=None):
         super().__init__(operator_id, "TableScan")
+        self._ready = ready
         self._sources = list(page_sources)
         self._types = types
         self._processor = processor
@@ -240,4 +256,5 @@ class TableScanOperatorFactory(OperatorFactory):
 
     def create_operator(self) -> Operator:
         return TableScanOperator(self.context(), self._sources.pop(0), self._types,
-                                 self._processor, self.device, self.scan_options)
+                                 self._processor, self.device, self.scan_options,
+                                 ready=self._ready)

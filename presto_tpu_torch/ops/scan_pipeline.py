@@ -186,12 +186,15 @@ class Rebatcher:
 
 def upload_page(page: Page, device: torch.device) -> Page:
     """Copy a host page to ``device``: pinned and non-blocking on CUDA; on
-    the CPU the tensors are returned as they are."""
+    the CPU the tensors are returned as they are, and so are tensors already
+    on the card (a UNION's replayed pages)."""
     if device.type != "cuda":
         return page
 
     def up(t):
-        return None if t is None else t.pin_memory().to(device, non_blocking=True)
+        if t is None or t.device.type != "cpu":
+            return t
+        return t.pin_memory().to(device, non_blocking=True)
 
     blocks = tuple(Block(b.type, up(b.data), up(b.nulls), b.dictionary) for b in page.blocks)
     return Page(blocks, up(page.mask))

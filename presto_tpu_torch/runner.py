@@ -4,12 +4,14 @@ Counterpart of ``presto_tpu/runner.py`` ``LocalQueryRunner`` for queries,
 EXPLAIN and SHOW TABLES / SCHEMAS / COLUMNS, in-process, on an explicit
 device: ``LocalQueryRunner(session, catalogs, device="cuda")`` raises
 without CUDA unless it is given ``device="cpu"``. Its default catalog
-registers ``tpch`` only. The drivers run on a threaded ``TaskExecutor``
-of ``task_concurrency`` runner threads; when a driver fails, every driver
-is closed (stopping its scan pipeline's stages and releasing its pool
-client) before the error propagates. Tracing, access control, writes,
-EXPLAIN ANALYZE, the memory context and grouped execution are not ported;
-a statement that needs one raises ``NotImplementedError``.
+registers ``tpch`` and ``tpcds``, as the reference's does; the reference's
+``memory`` and ``blackhole`` catalogs are not ported. The drivers run on a
+threaded ``TaskExecutor`` of ``task_concurrency`` runner threads; when a
+driver fails, every driver is closed (stopping its scan pipeline's stages
+and releasing its pool client) before the error propagates. Tracing,
+access control, writes, EXPLAIN ANALYZE, the memory context and grouped
+execution are not ported; a statement that needs one raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import dataclasses
 from typing import List, Optional
 
 from . import resolve_device
+from .connectors.tpcds.connector import TpcdsConnector
 from .connectors.tpch.connector import TpchConnector
 from .exec.local_planner import LocalExecutionPlanner
 from .exec.task_executor import TaskExecutor
@@ -87,6 +90,7 @@ class LocalQueryRunner:
         if catalogs is None:
             catalogs = CatalogManager()
             catalogs.register("tpch", TpchConnector("tpch"))
+            catalogs.register("tpcds", TpcdsConnector("tpcds"))
         self.catalogs = catalogs
         self.metadata = MetadataManager(catalogs)
         self.session = session or Session(catalog="tpch", schema="tiny")

@@ -118,6 +118,17 @@ class ConnectorPageSource(abc.ABC):
         return None
 
 
+class FixedPageSource(ConnectorPageSource):
+    """A fixed list of pages (a VALUES list). It has no ``cache_token``:
+    its pages never enter the resident cache."""
+
+    def __init__(self, pages: Sequence[Page]):
+        self._pages = list(pages)
+
+    def __iter__(self):
+        return iter(self._pages)
+
+
 class ConcatPageSource(ConnectorPageSource):
     """The pages of several sources, one source after the other."""
 

@@ -1,8 +1,13 @@
 """Page sink of the PyTorch port (``presto_tpu/utils/testing.py``
-``PageConsumerOperator``/``PageConsumerFactory``)."""
+``PageConsumerOperator``/``PageConsumerFactory``).
+
+The sink is also a UNION branch's buffer: the planner's replay scan reads
+``pages_for(worker)`` once every consumer of that worker
+(``consumers_by_worker``) has finished. The port plans one local task, so
+every operator is created for worker 0."""
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from ..block import Page
 from ..ops.operator import Operator, OperatorContext, OperatorFactory
@@ -40,10 +45,12 @@ class PageConsumerFactory(OperatorFactory):
         super().__init__(operator_id, "PageConsumer")
         self.types = types or []
         self.consumers: List[PageConsumerOperator] = []
+        self.consumers_by_worker: Dict[int, List[PageConsumerOperator]] = {}
 
-    def create_operator(self) -> PageConsumerOperator:
+    def create_operator(self, worker: int = 0) -> PageConsumerOperator:
         op = PageConsumerOperator(self.context(), self.types)
         self.consumers.append(op)
+        self.consumers_by_worker.setdefault(worker, []).append(op)
         return op
 
     def rows(self) -> List[list]:
@@ -52,3 +59,7 @@ class PageConsumerFactory(OperatorFactory):
         for c in self.consumers:
             out.extend(c.rows())
         return out
+
+    def pages_for(self, worker: int) -> List[Page]:
+        """Every page the consumers of ``worker`` received, in driver order."""
+        return [p for c in self.consumers_by_worker.get(worker, []) for p in c.pages]
