@@ -102,10 +102,28 @@ Phases, each of which must pass:
    customers; a ROLLUP of ``lineitem``; a UNION of ``n_name`` and
    ``r_name``, whose dictionaries differ, so one branch remaps its
    codes), cold and warm, each against a numpy oracle and the CPU run;
-14. print the kernels line (JSON, with each kernel's warm-run launches per
+14. windows, FULL joins and the new aggregates at ``tpch.sf1``
+   (``P14_SQL``): two window specifications over ``orders`` and the top 3
+   lines of each order with ``lag`` over ``lineitem`` (one 8 x 2^20-row
+   page; peak device memory printed), ``orders full join customer`` (a
+   unique build: the customers without orders come from the epilogue) and
+   ``customer full join orders`` (a duplicate-key build), a ``lineitem``
+   dashboard of ``approx_distinct``, ``approx_percentile``, ``stddev``,
+   ``var_pop``, ``corr``, ``min_by``, ``max_by``, ``bool_and``,
+   ``count_if`` and ``arbitrary`` grouped by flag and status and global, a
+   per-day DATE grouping (``min_by``, ``stddev``, ``count_if``) that must
+   take the insert kernel, and a sketch grouping above 8,192 groups that
+   must spill. Each runs cold and warm (counters set to 0 just before it)
+   and on the CPU; the rows must equal a numpy oracle (``check_p14_rows``:
+   exact where the result is, the sketches within their error bounds,
+   ``min_by``/``max_by`` a row holding the extreme, the statistics to
+   ``STAT_REL_TOL``) and the CPU run's; nothing may fall back. The insert
+   is held against its plain version at the per-day grouping's shape.
+   Prints one ``WINDOW``/``FULLJOIN``/``AGG`` line per query;
+15. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
-   ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``), the card
-   line, and last the result line.
+   ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
+   ``SQL P14 agg per day``), the card line, and last the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -829,8 +847,8 @@ def run_sql_query(device, q: int, schema: str, cold_capture=None, unfused_captur
     ``cold_capture``), then a warm run with the launch counters and
     ``COUNTERS`` set to 0 just before it and read just after; then the
     query unfused (under ``unfused_capture``) and under
-    ``hash_kernels="sorted"`` (Q5's with one driver: four double its wall,
-    PERF.md §5). Fails unless the unfused rows equal the fused ones.
+    ``hash_kernels="sorted"`` (Q5's two with one driver: four double its
+    wall, PERF.md §5). Fails unless the unfused rows equal the fused ones.
     Returns what the phases check and print."""
     import contextlib
 
@@ -864,17 +882,18 @@ def run_sql_query(device, q: int, schema: str, cold_capture=None, unfused_captur
     launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
     delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    one_driver = {"driver_parallelism": 1} if q == 5 else {}
     t0 = time.perf_counter()
     with unfused_capture or contextlib.nullcontext():
-        unfused = sql_runner(device, "pallas", schema, **UNFUSED).execute(QUERIES[q])
+        unfused = sql_runner(device, "pallas", schema, **UNFUSED, **one_driver) \
+            .execute(QUERIES[q])
     sync()
     unfused_s = time.perf_counter() - t0
     if not same_rows(unfused.rows, res.rows):
         raise AssertionError(f"SQL Q{q} rows fused and unfused differ:\n{res.rows}\n"
                              f"{unfused.rows}")
     t0 = time.perf_counter()
-    sorted_props = {"driver_parallelism": 1} if q == 5 else {}
-    sorted_rows = sql_runner(device, "sorted", schema, **sorted_props).execute(QUERIES[q]).rows
+    sorted_rows = sql_runner(device, "sorted", schema, **one_driver).execute(QUERIES[q]).rows
     sync()
     sorted_s = time.perf_counter() - t0
     return {"q": q, "rows": res.rows, "segments": (res.stats or {}).get("segments"),
@@ -1705,6 +1724,399 @@ def run_setops_phase(device, schema: str = "sf1") -> dict:
     return out
 
 
+# phase 14: windows, FULL joins and the rest of the aggregates at TPC-H SF1
+P14_SQL = {
+    # two window specifications over orders, checked through order-free sums
+    # (row_number among equal prices depends on page order under 4 drivers)
+    "window orders": (
+        "select o_orderpriority, count(*), sum(rs), sum(rn), sum(rn * rn), sum(rk), "
+        "sum(rk * o_orderkey), max(rk) from (select o_orderkey, o_orderpriority, "
+        "sum(o_totalprice) over (partition by o_custkey order by o_orderkey) rs, "
+        "row_number() over (partition by o_orderpriority order by o_totalprice desc) rn, "
+        "rank() over (partition by o_orderpriority order by o_totalprice desc) rk "
+        "from orders) t group by 1 order by 1"),
+    # the top 3 lines of each order, with the previous line's price
+    "window lineitem": (
+        "select count(*), sum(l_extendedprice), count(prev), sum(prev), sum(rk) from "
+        "(select l_extendedprice, rank() over (partition by l_orderkey order by "
+        "l_extendedprice desc) rk, lag(l_extendedprice) over (partition by l_orderkey "
+        "order by l_linenumber) prev from lineitem) t where rk <= 3"),
+    # a unique build (customer); the customers without orders come from the epilogue
+    "full orders customer": (
+        "select count(*), count(o_orderkey), count(c_custkey), sum(o_totalprice), "
+        "sum(c_acctbal) from orders full join customer on o_custkey = c_custkey"),
+    # a duplicate-key build (orders by o_custkey): expansion and visited marks
+    "full customer orders": (
+        "select count(*), count(o_orderkey), count(c_custkey), sum(o_totalprice), "
+        "sum(c_acctbal) from customer full join orders on c_custkey = o_custkey"),
+    "agg dashboard": (
+        "select l_returnflag, l_linestatus, approx_distinct(l_orderkey), "
+        "approx_percentile(l_extendedprice, 0.5), stddev(l_quantity), "
+        "var_pop(l_extendedprice), corr(l_quantity, l_extendedprice), "
+        "min_by(l_orderkey, l_extendedprice), max_by(l_orderkey, l_shipdate), "
+        "bool_and(l_quantity > 0), count_if(l_discount > 0.05), arbitrary(l_shipmode), "
+        "min(l_extendedprice), max(l_shipdate), count(*) from lineitem group by 1, 2 "
+        "order by 1, 2"),
+    "agg dashboard global": (
+        "select approx_distinct(l_orderkey), approx_percentile(l_extendedprice, 0.5), "
+        "stddev(l_quantity), var_pop(l_extendedprice), corr(l_quantity, l_extendedprice), "
+        "min_by(l_orderkey, l_extendedprice), max_by(l_orderkey, l_shipdate), "
+        "bool_and(l_quantity > 0), count_if(l_discount > 0.05), arbitrary(l_shipmode), "
+        "min(l_extendedprice), max(l_shipdate), count(*) from lineitem"),
+    # a per-day dashboard: ~2,400 DATE groups through the insert kernel
+    "agg per day": (
+        "select o_orderdate, min_by(o_orderkey, o_totalprice), min(o_totalprice), "
+        "stddev(o_totalprice), count_if(o_orderstatus = 'F'), count(*) from orders "
+        "group by 1 order by 1"),
+    # a sketch grouping above WIDE_STATE_MAX_GROUPS (~30,000 groups, each page
+    # under 8,192 of them): its wide partials spill to host RAM
+    "agg sketch spill": (
+        "select o_orderkey / 200, approx_distinct(o_custkey), count(*) from orders "
+        "group by 1 order by 1"),
+}
+# the sums-of-powers statistics (stddev, var_pop, corr) against their exact
+# values: float64 sums taken by atomics in a changing order, then the
+# reference's E[x^2] - E[x]^2 formula
+STAT_REL_TOL = 1e-9
+# HyperLogLog with m = 2048: three standard errors (1.04 / sqrt(m) each)
+HLL_REL_TOL = 3 * 1.04 / 2048 ** 0.5
+# the bound of the reference's own test of approx_percentile
+PCT_REL_TOL = 0.10
+# a small group's HyperLogLog estimate (linear counting, ~50 distinct
+# values in 2,048 registers) is off by about its register collisions,
+# Poisson with mean n^2 / 2m ~ 0.6: over 30,000 groups the largest is ~6
+HLL_SMALL_ABS_TOL = 8
+# ... and the groups' estimates together (linear counting rounds up)
+HLL_SUM_REL_TOL = 0.02
+# the columns that depend on page order among equal ordering values (the
+# winning row of min_by/max_by): held to the oracle's set of rows, not to
+# the CPU run
+P14_ORDER_DEPENDENT = {"agg dashboard": (7, 8), "agg dashboard global": (5, 6),
+                       "agg per day": (1,)}
+
+
+def _stats(x, y=None):
+    """Exact stddev_samp(x), var_pop(x) and corr(x, y) of integer columns
+    (Fractions), as floats."""
+    from fractions import Fraction
+
+    n = len(x)
+    sx, sxx = int(x.sum()), int((x.astype(object) ** 2).sum())
+    var_pop = Fraction(sxx * n - sx * sx, n * n)
+    out = {"var_pop": float(var_pop),
+           "stddev": float(var_pop * n / max(n - 1, 1)) ** 0.5}
+    if y is not None:
+        sy, syy = int(y.sum()), int((y.astype(object) ** 2).sum())
+        sxy = int((x.astype(object) * y.astype(object)).sum())
+        cov = Fraction(sxy * n - sx * sy, 1)
+        vx, vy = Fraction(sxx * n - sx * sx, 1), Fraction(syy * n - sy * sy, 1)
+        out["corr"] = float(cov) / (float(vx) * float(vy)) ** 0.5
+    return out
+
+
+def _close(a, b, rel: float) -> bool:
+    import math
+
+    return isinstance(a, float) and math.isclose(a, b, rel_tol=rel, abs_tol=0.0)
+
+
+def _check_dashboard(row, li, sel, base: int, label: str) -> None:
+    """One dashboard row against the lineitem rows ``sel``: the sketches
+    within their bounds, the statistics to STAT_REL_TOL, min_by/max_by's
+    payload a row holding the extreme, and the rest exact."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+
+    price = li["l_extendedprice"][sel].astype(np.int64)
+    qty = li["l_quantity"][sel].astype(np.int64)
+    okey = li["l_orderkey"][sel]
+    ship = li["l_shipdate"][sel].astype(np.int64)
+    exact_distinct = len(np.unique(okey))
+    if abs(row[base] - exact_distinct) > HLL_REL_TOL * exact_distinct:
+        raise AssertionError(f"P14 {label}: approx_distinct {row[base]} vs {exact_distinct}")
+    median = int(np.sort(price)[len(price) // 2])
+    if abs(float(row[base + 1]) * 100 - median) > PCT_REL_TOL * median:
+        raise AssertionError(f"P14 {label}: approx_percentile {row[base + 1]} vs {median / 100}")
+    st = _stats(qty, price)
+    for i, name, scale in ((base + 2, "stddev", 100.0), (base + 3, "var_pop", 1e4),
+                           (base + 4, "corr", 1.0)):
+        want = (_stats(qty)["stddev"] / scale if name == "stddev" else
+                _stats(price)["var_pop"] / scale if name == "var_pop" else st["corr"])
+        if not _close(row[i], want, STAT_REL_TOL):
+            raise AssertionError(f"P14 {label}: {name} {row[i]} vs {want}")
+    if row[base + 5] not in set(okey[price == price.min()].tolist()):
+        raise AssertionError(f"P14 {label}: min_by's order {row[base + 5]} has no minimal price")
+    if row[base + 6] not in set(okey[ship == ship.max()].tolist()):
+        raise AssertionError(f"P14 {label}: max_by's order {row[base + 6]} has no latest date")
+    modes = li["l_shipmode"][sel].astype(np.int64)
+    want = [bool((qty > 0).all()), int((li["l_discount"][sel] > 5).sum()),
+            g.DICT_SHIP_MODE.values[int(modes.max())], Decimal(int(price.min())) / 100,
+            datetime.date(1970, 1, 1) + datetime.timedelta(days=int(ship.max())), len(price)]
+    if row[base + 7:] != want:
+        raise AssertionError(f"P14 {label}: {row[base + 7:]} vs {want}")
+
+
+def check_p14_rows(label: str, rows, schema: str) -> None:
+    """Phase 14's query ``label`` against a numpy oracle over the port's
+    generator; raises on a mismatch."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    sf = SCHEMAS[schema]
+    n_orders = g.table_row_count("orders", sf)
+    if label == "window orders":
+        o = _table("orders", sf, ["o_orderkey", "o_custkey", "o_totalprice", "o_orderpriority"])
+        key, cust = o["o_orderkey"].astype(np.int64), o["o_custkey"].astype(np.int64)
+        price, pri = o["o_totalprice"].astype(np.int64), o["o_orderpriority"].astype(np.int64)
+        order = np.lexsort((key, cust))
+        cs = np.cumsum(price[order])
+        new = np.ones(len(order), dtype=bool)
+        new[1:] = cust[order][1:] != cust[order][:-1]
+        start = np.maximum.accumulate(np.where(new, np.arange(len(order)), 0))
+        rs = np.empty_like(cs)
+        rs[order] = cs - np.where(start > 0, cs[np.maximum(start - 1, 0)], 0)
+        order = np.lexsort((-price, pri))
+        sp, spr = pri[order], price[order]
+        newp = np.ones(len(order), dtype=bool)
+        newp[1:] = sp[1:] != sp[:-1]
+        newk = newp.copy()
+        newk[1:] |= spr[1:] != spr[:-1]
+        idx = np.arange(len(order))
+        pstart = np.maximum.accumulate(np.where(newp, idx, 0))
+        kstart = np.maximum.accumulate(np.where(newk, idx, 0))
+        rk = np.empty(len(order), dtype=np.int64)
+        rk[order] = kstart - pstart + 1
+        want = []
+        for code in np.unique(pri):
+            sel = pri == code
+            n = int(sel.sum())
+            want.append([g.DICT_PRIORITY.values[int(code)], n, Decimal(int(rs[sel].sum())) / 100,
+                         n * (n + 1) // 2, n * (n + 1) * (2 * n + 1) // 6, int(rk[sel].sum()),
+                         int((rk[sel] * key[sel]).sum()), int(rk[sel].max())])
+        want.sort(key=lambda r: r[0])
+    elif label == "window lineitem":
+        li = g.lineitem_for_orders(0, n_orders, sf, ["l_orderkey", "l_linenumber",
+                                                     "l_extendedprice"])
+        okey, line = li["l_orderkey"].astype(np.int64), li["l_linenumber"].astype(np.int64)
+        price = li["l_extendedprice"].astype(np.int64)
+        idx = np.arange(len(okey))
+        order = np.lexsort((-price, okey))
+        so, sp = okey[order], price[order]
+        newp = np.ones(len(order), dtype=bool)
+        newp[1:] = so[1:] != so[:-1]
+        newk = newp.copy()
+        newk[1:] |= sp[1:] != sp[:-1]
+        rk = np.empty(len(order), dtype=np.int64)
+        rk[order] = np.maximum.accumulate(np.where(newk, idx, 0)) - \
+            np.maximum.accumulate(np.where(newp, idx, 0)) + 1
+        order = np.lexsort((line, okey))
+        so = okey[order]
+        has_prev = np.zeros(len(order), dtype=bool)
+        has_prev[1:] = so[1:] == so[:-1]
+        prev_sorted = np.concatenate([[0], price[order][:-1]])
+        prev, prev_ok = np.empty_like(price), np.empty(len(order), dtype=bool)
+        prev[order], prev_ok[order] = prev_sorted, has_prev
+        keep = rk <= 3
+        want = [[int(keep.sum()), Decimal(int(price[keep].sum())) / 100,
+                 int((keep & prev_ok).sum()), Decimal(int(prev[keep & prev_ok].sum())) / 100,
+                 int(rk[keep].sum())]]
+    elif label.startswith("full"):
+        c = _table("customer", sf, ["c_custkey", "c_acctbal"])
+        o = _table("orders", sf, ["o_custkey", "o_totalprice"])
+        pos, hit = _find(c["c_custkey"], o["o_custkey"])
+        if not hit.all():
+            raise AssertionError("an order without its customer in the generator")
+        per = np.bincount(pos, minlength=len(c["c_custkey"]))
+        bal = c["c_acctbal"].astype(np.int64)
+        total = len(o["o_custkey"]) + int((per == 0).sum())
+        want = [[total, len(o["o_custkey"]), total,
+                 Decimal(int(o["o_totalprice"].astype(np.int64).sum())) / 100,
+                 Decimal(int((bal * np.maximum(per, 1)).sum())) / 100]]
+    elif label.startswith("agg dashboard"):
+        li = g.lineitem_for_orders(0, n_orders, sf, [
+            "l_orderkey", "l_extendedprice", "l_quantity", "l_discount", "l_shipdate",
+            "l_returnflag", "l_linestatus", "l_shipmode"])
+        if label == "agg dashboard global":
+            if len(rows) != 1:
+                raise AssertionError(f"P14 {label}: {len(rows)} rows")
+            _check_dashboard(rows[0], li, np.ones(len(li["l_orderkey"]), dtype=bool), 0, label)
+            return
+        groups = sorted({(g.DICT_RETURNFLAG.values[f], g.DICT_LINESTATUS.values[s])
+                         for f, s in zip(li["l_returnflag"].tolist(), li["l_linestatus"].tolist())})
+        if [tuple(r[:2]) for r in rows] != groups:
+            raise AssertionError(f"P14 {label}: groups {[r[:2] for r in rows]} vs {groups}")
+        for row in rows:
+            sel = (li["l_returnflag"] == g.DICT_RETURNFLAG.code_of(row[0])) & \
+                  (li["l_linestatus"] == g.DICT_LINESTATUS.code_of(row[1]))
+            _check_dashboard(row, li, sel, 2, label)
+        return
+    elif label == "agg per day":
+        o = _table("orders", sf, ["o_orderkey", "o_orderdate", "o_totalprice", "o_orderstatus"])
+        day, price = o["o_orderdate"].astype(np.int64), o["o_totalprice"].astype(np.int64)
+        days = np.unique(day)
+        if [r[0] for r in rows] != [datetime.date(1970, 1, 1) + datetime.timedelta(days=int(d))
+                                    for d in days]:
+            raise AssertionError(f"P14 {label}: the days differ")
+        order = np.argsort(day, kind="stable")
+        bounds = np.searchsorted(day[order], days, side="left").tolist() + [len(day)]
+        f_code = g.DICT_ORDERSTATUS.code_of("F")
+        for r, lo, hi in zip(rows, bounds[:-1], bounds[1:]):
+            sel = order[lo:hi]
+            p = price[sel]
+            if r[1] not in set(o["o_orderkey"][sel][p == p.min()].tolist()):
+                raise AssertionError(f"P14 {label}: min_by's order {r[1]} on {r[0]}")
+            want_sd = _stats(p)["stddev"] / 100
+            if r[2] != Decimal(int(p.min())) / 100 or not _close(r[3], want_sd, STAT_REL_TOL) \
+                    or r[4] != int((o["o_orderstatus"][sel] == f_code).sum()) or r[5] != len(p):
+                raise AssertionError(f"P14 {label}: {r} on {r[0]}")
+        return
+    elif label == "agg sketch spill":
+        o = _table("orders", sf, ["o_orderkey", "o_custkey"])
+        bucket = o["o_orderkey"].astype(np.int64) // 200
+        pairs = np.unique(np.stack([bucket, o["o_custkey"].astype(np.int64)]), axis=1)
+        keys, exact = np.unique(pairs[0], return_counts=True)
+        counts = np.bincount(np.searchsorted(keys, bucket), minlength=len(keys))
+        if [r[0] for r in rows] != keys.tolist() or [r[2] for r in rows] != counts.tolist():
+            raise AssertionError(f"P14 {label}: groups or counts differ")
+        got = np.asarray([r[1] for r in rows])
+        err = np.abs(got - exact)
+        if (err > np.maximum(HLL_REL_TOL * exact, HLL_SMALL_ABS_TOL)).any():
+            raise AssertionError(f"P14 {label}: approx_distinct off by up to {int(err.max())}")
+        if abs(int(got.sum()) - int(exact.sum())) > HLL_SUM_REL_TOL * exact.sum():
+            raise AssertionError(f"P14 {label}: the estimates sum to {int(got.sum())} against "
+                                 f"{int(exact.sum())}")
+        return
+    else:
+        raise KeyError(label)
+    if not same_rows(rows, want):
+        raise AssertionError(f"P14 {label}: rows differ from the numpy oracle:\n"
+                             f"{rows[:5]}\n{want[:5]}")
+
+
+def same_p14_rows(label: str, got, want) -> bool:
+    """The card's rows against the CPU run's: exact (DOUBLE statistics to
+    STAT_REL_TOL), but for the order-dependent min_by/max_by payloads,
+    which the oracle holds instead."""
+    skip = P14_ORDER_DEPENDENT.get(label, ())
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        for i, (a, b) in enumerate(zip(g, w)):
+            if i in skip:
+                continue
+            if isinstance(a, float) or isinstance(b, float):
+                if not _close(a, b, STAT_REL_TOL):
+                    return False
+            elif type(a) is not type(b) or a != b:
+                return False
+    return True
+
+
+def check_insert_at(device, label: str, comps, mask, slots, reps: int = 20,
+                    plain_reps: int = 3) -> dict:
+    """The insert against its plain version, bit for bit, at one captured
+    shape, with its times and its bound; returns them."""
+    from presto_tpu_torch.ops import pallas_hash as ph
+
+    got = ph.insert_table(comps, mask, slots)
+    err = _max_abs_err(zip(got, ph.insert_table_reference(comps, mask, slots)))
+    if err != 0:
+        raise AssertionError(f"{label} insert differs from its plain version: {err}")
+    ncomps, n = comps.shape
+    live = int(mask.sum())
+    nbytes = n + live * ncomps * 8 + n * 4 + ncomps * slots * 8 + slots * 4 + 3 * 4
+    out = {"ms": time_ms(lambda: ph.insert_table(comps, mask, slots), reps, device),
+           "device_ms": device_ms(ph.insert_table, (comps, mask, slots), reps),
+           "plain_ms": time_ms(lambda: ph.insert_table_reference(comps, mask, slots),
+                               plain_reps, device),
+           "bound_ms": nbytes / HBM_RATE * 1e3}
+    log(f"KERNEL insert at the {label} shape: ncomps={ncomps} n={n} live={live} slots={slots}: "
+        f"bit-identical, stats {got[3].tolist()}; kernel {out['ms']:.4f} ms (device "
+        f"{out['device_ms']:.4f} ms), plain {out['plain_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({nbytes} bytes)")
+    return out
+
+
+def run_p14_phase(device, schema: str = "sf1") -> dict:
+    """Phase 14: windows, FULL joins and the new aggregates at TPC-H
+    ``schema`` with ``hash_kernels="pallas"`` under the full defaults: each
+    query cold (cache cleared; its kernel inputs captured), warm (launch
+    counters and ``COUNTERS`` set to 0 just before it, the peak device
+    memory reset) and on the CPU. Fails unless the rows equal the numpy
+    oracle's and the CPU run's, the insert launched once per join build and
+    grouped page, nothing fell back, the per-day grouping took the insert
+    (and the insert equals its plain version at that shape) and the sketch
+    grouping spilled. Returns the records."""
+    import torch
+
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    extra = ("join.unmatched_build_rows", "agg.spilled_folds")
+    out = {}
+    for label, sql in P14_SQL.items():
+        runner = sql_runner(device, "pallas", schema)
+        RESIDENT_CACHE.clear()
+        capture = KernelCapture()
+        t0 = time.perf_counter()
+        with capture:
+            runner.execute(sql)
+            sync()
+        cold_s = time.perf_counter() - t0
+        before = {k: METRICS.counter_value(k) for k in COUNTERS + extra}
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        base_mem = torch.cuda.memory_allocated(device) if on_card else 0
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        sync()
+        warm_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+        launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS + extra}
+        check_p14_rows(label, res.rows, schema)
+        t0 = time.perf_counter()
+        cpu_rows = sql_runner("cpu", "pallas", schema).execute(sql).rows
+        cpu_s = time.perf_counter() - t0
+        check_p14_rows(label, cpu_rows, schema)
+        if not same_p14_rows(label, res.rows, cpu_rows):
+            raise AssertionError(f"P14 {label}: the card's rows differ from the CPU run's:\n"
+                                 f"{res.rows[:3]}\n{cpu_rows[:3]}")
+        builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
+        if on_card and launches["insert"] != builds + pages:
+            raise AssertionError(f"P14 {label}: insert launches {launches['insert']} != "
+                                 f"join builds {builds} + grouped pages {pages}")
+        if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+            raise AssertionError(f"P14 {label}: a fallback: {delta}")
+        rec = {"rows": res.rows, "launches": launches, "delta": delta}
+        kind = label.split()[0].upper().replace("FULL", "FULLJOIN")
+        if label == "agg per day":
+            if pages <= 0:
+                raise AssertionError(f"P14 {label}: no page was grouped through the insert")
+            if capture.grouping is None:
+                raise AssertionError(f"P14 {label}: the cold run captured no grouping insert")
+            comps, mask, slots = capture.grouping
+            if on_card:
+                rec["insert"] = check_insert_at(device, "phase 14 per-day DATE grouping",
+                                                comps, mask, slots)
+        if label == "agg sketch spill" and delta["agg.spilled_folds"] <= 0:
+            raise AssertionError(f"P14 {label}: the wide partials did not spill")
+        out[label] = rec
+        log(f"{kind} {label} {schema}: {len(res.rows)} rows equal to the numpy oracle and to "
+            f"the CPU run ({cpu_s:.2f}s on the host); drivers per pipeline {res.drivers}; "
+            f"cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s; launches {launches}; join "
+            f"builds {int(builds)}, grouped pages {int(pages)}; epilogue rows "
+            f"{int(delta['join.unmatched_build_rows'])}, spilled folds "
+            f"{int(delta['agg.spilled_folds'])}, expansion chunks "
+            f"{int(delta['join.expansion_chunks'])}; device memory {base_mem / 2**30:.3f} GiB "
+            f"before, peak {peak / 2**30:.3f} GiB")
+    return out
+
+
 def check_stage_failure(device) -> None:
     """A scan stage that raises on a pool thread surfaces in the consumer
     (``ScanPipeline._fail`` puts the error on the output queue) and stays
@@ -1795,6 +2207,7 @@ def main() -> int:
         ds_records = run_tpcds_phase(device)
         check_ds_cpu_rows(ds_records)
         setop_records = run_setops_phase(device)
+        p14_records = run_p14_phase(device)
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -1810,7 +2223,9 @@ def main() -> int:
                     **{f"SQL Q{q}": records[q]["launches"][k] for q in sorted(records)},
                     **{f"SQL DS Q{q}": ds_records[q]["launches"][k] for q in sorted(ds_records)},
                     **{f"SQL SETOP {label}": rec["launches"][k]
-                       for label, rec in setop_records.items()}}}
+                       for label, rec in setop_records.items()},
+                    **{f"SQL P14 {label}": rec["launches"][k]
+                       for label, rec in p14_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

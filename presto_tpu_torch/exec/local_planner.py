@@ -18,6 +18,9 @@ the 22 TPC-H queries, on an explicit ``device``:
 - A join with no criteria (a scalar subquery's cross join) joins on a
   constant BIGINT 0 key that both sides project; its build is sorted, and
   unique when it is an ``EnforceSingleRowNode``.
+- A FULL join builds sorted with ``track_unmatched``; its probe emits the
+  unmatched build rows at finish, so it never runs on more than one driver.
+- A window is one WindowOperator over its source's rows.
 - With ``coalesce_pages`` a filtered scan feeding either side of a join
   ends in a CoalesceOperator (``_maybe_coalesce``).
 - With ``segment_fusion`` each maximal run of page-local operators becomes
@@ -458,7 +461,7 @@ class LocalExecutionPlanner:
         build_fac = JoinBuildOperatorFactory(
             next(self._ids), build_key_ch, payload_ch, payload_meta,
             strategy=self._join_strategy(jt, build_key_ch, unique), unique=unique,
-            device=self.device)
+            device=self.device, track_unmatched=node.type == "full")
         self._add_pipeline(build_chain.factories + [build_fac])
 
         probe_out_ch = [probe_chain.channel(s.name) for s in probe_out]
@@ -553,6 +556,8 @@ class LocalExecutionPlanner:
             return INNER
         if node.type == "left":  # RIGHT was flipped to LEFT by the planner
             return LEFT
+        if node.type == "full":
+            return FULL
         raise NotImplementedError(f"{node.type.upper()} joins are not ported to presto_tpu_torch")
 
     def _keys_unique(self, node: PlanNode, keys: List[Symbol]) -> bool:
@@ -612,10 +617,14 @@ class LocalExecutionPlanner:
                                    getattr(ac, "params", ()))
             arg_ch = [src.channel(a.name) for a in ac.args]
             mask_ch = src.channel(ac.filter.name) if ac.filter is not None else None
-            # min/max over a dictionary column pass its codes through
-            out_dict = fn.output_dict
-            if ac.name in ("min", "max") and arg_ch and src.dicts[arg_ch[0]] is not None:
+            # min/max/arbitrary and min_by/max_by over a dictionary column
+            # pass its codes through
+            out_dict = None
+            if ac.name in ("min", "max", "arbitrary", "any_value", "min_by", "max_by") \
+                    and arg_ch and src.dicts[arg_ch[0]] is not None:
                 out_dict = src.dicts[arg_ch[0]]
+            if fn.output_dict is not None:
+                out_dict = fn.output_dict
             calls.append(AggregateCall(fn, arg_ch, mask_ch, output_dictionary=out_dict))
             out_syms.append(sym)
             out_dicts.append(out_dict)
@@ -626,6 +635,37 @@ class LocalExecutionPlanner:
             self.page_capacity, max_groups=int(self.session.get("max_groups")),
             device=self.device, key_domains=key_domains, hash_grouping=hash_grouping)
         return Chain(src.factories + [fac], out_syms, out_dicts)
+
+    # ------------------------------------------------------------ window
+
+    def visit_WindowNode(self, node) -> Chain:
+        """One WindowOperator after the source: a stateful operator, so a
+        cut pipeline's producers end before it. ``avg`` over DECIMAL carries
+        its scale divisor; min/max and the positional functions over a
+        dictionary column carry its dictionary to the output."""
+        from ..ops.window import WindowOperatorFactory
+        from ..types import DecimalType
+
+        src = self.visit(node.source)
+        part_ch = [src.channel(k.name) for k in node.partition_keys]
+        call_channels, call_meta = [], []
+        for sym, call in node.calls:
+            arg_chs = [src.channel(a.name) for a in call.args]
+            scale_div = 1
+            if call.name == "avg" and arg_chs:
+                at = src.symbols[arg_chs[0]].type
+                if isinstance(at, DecimalType):
+                    scale_div = 10 ** at.scale
+            out_dict = None
+            if call.name in ("min", "max", "lag", "lead", "first_value", "last_value",
+                             "nth_value") and arg_chs and src.dicts[arg_chs[0]] is not None:
+                out_dict = src.dicts[arg_chs[0]]
+            call_channels.append((call.name, arg_chs, call.frame_mode, scale_div, call.offset))
+            call_meta.append((sym.type, out_dict))
+        fac = WindowOperatorFactory(next(self._ids), part_ch, self._orders(src, node.orderings),
+                                    call_channels, call_meta, [s.type for s in src.symbols])
+        return Chain(src.factories + [fac], src.symbols + [s for s, _ in node.calls],
+                     list(src.dicts) + [d for _, d in call_meta])
 
     # ------------------------------------------------- sort / limit
 

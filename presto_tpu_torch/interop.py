@@ -6,6 +6,10 @@
   ``insert_table`` (slot keys, slot rows) and the build's key and payload
   columns into the port's open-addressing ``LookupSource``, so one and the
   same table can be probed from both sides.
+- ``aggregation_state_from_numpy`` turns a reference aggregation builder's
+  result (group keys, state columns, the sketches' (groups, width) tables
+  among them, and the validity mask) into the port's, so the port's
+  ``final_map`` can finish a state the reference built.
 
 Nothing here imports the reference: the caller hands over numpy arrays.
 """
@@ -17,13 +21,15 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .block import Block, Dictionary, Page, torch_dtype
+from .block import _NP_TO_TORCH, Block, Dictionary, Page, torch_dtype
+from .ops.aggregates import AggregateCall
 from .ops.hash_join import LookupSource
 from .types import Type
 
 
 def _tensor(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+    # a read-only array (a JAX array's view) is copied once
+    return torch.from_numpy(np.require(a, requirements=["C", "W"])).to(device=device, dtype=dtype)
 
 
 def page_from_numpy(types: Sequence[Type], arrays: Sequence[np.ndarray],
@@ -60,3 +66,29 @@ def lookup_source_from_table(slot_keys: np.ndarray, slot_rows: np.ndarray, trips
         ph_rows=rows,
         ph_trips=int(trips),
         payload_nulls=tuple(None for _ in payload))
+
+
+def aggregation_state_from_numpy(calls: Sequence[AggregateCall], keys: Sequence[np.ndarray],
+                                 states: Sequence[np.ndarray], valid: np.ndarray,
+                                 device="cuda") -> Tuple[tuple, tuple, torch.Tensor]:
+    """A builder's ``finish`` triple (keys, states, valid) on ``device`` from
+    the reference's numpy arrays: the interleaved (value, null flag) key
+    columns, one array per state column of ``calls`` in order (a vector
+    state as a (groups, width) array: HyperLogLog registers float32, the
+    percentile histogram float64), and the (groups,) validity mask. Each
+    state array must have its column's width; it takes its column's dtype."""
+    device = resolve_device(device)
+    cols = [col for c in calls for col in c.function.state]
+    if len(cols) != len(states):
+        raise ValueError(f"{len(states)} state arrays for {len(cols)} state columns")
+    groups = np.asarray(valid).shape[0]
+    out = []
+    for col, a in zip(cols, states):
+        a = np.asarray(a)
+        want = (groups, col.width) if col.width > 1 else (groups,)
+        if a.shape != want:
+            raise ValueError(f"a state array of shape {a.shape}, its column needs {want}")
+        out.append(_tensor(a, _NP_TO_TORCH[np.dtype(col.dtype)], device))
+    key_tensors = tuple(torch.from_numpy(np.require(k, requirements=["C", "W"])).to(device)
+                        for k in keys)
+    return key_tensors, tuple(out), _tensor(np.asarray(valid), torch.bool, device)

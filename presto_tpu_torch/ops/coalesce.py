@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..block import Block, Page, _compact
 from ..types import Type
 from ..utils.metrics import METRICS
@@ -206,12 +207,14 @@ class DictionaryRemapOperator(Operator):
 
 class DictionaryRemapOperatorFactory(OperatorFactory):
     """``remaps``: one int32 host array (old code -> union code) or None per
-    channel, copied to ``device`` once here, not once per page;
-    ``target_dicts``: the union dictionary per channel (None = keep)."""
+    channel, copied to ``device`` (default ``"cuda"``; raises without CUDA)
+    once here, not once per page; ``target_dicts``: the union dictionary
+    per channel (None = keep)."""
 
     def __init__(self, operator_id: int, types: List[Type],
-                 remaps: Sequence[Optional[np.ndarray]], target_dicts=None, device="cpu"):
+                 remaps: Sequence[Optional[np.ndarray]], target_dicts=None, device="cuda"):
         super().__init__(operator_id, "DictionaryRemap")
+        device = resolve_device(device)
         self.types = types
         self.remaps = [None if r is None
                        else torch.from_numpy(np.ascontiguousarray(r, dtype=np.int32)).to(device)

@@ -27,8 +27,17 @@ moves the fold's complete inputs to host RAM (the reference's host-RAM
 spill rung) and keeps accumulating; ``finish`` then merges the spilled
 parts exactly on the host (``_host_merge_parts``), and the operator pages
 the host result onto the device one output page at a time. Each such fold
-counts ``agg.spilled_folds``. The PARTIAL/FINAL steps, vector states, the
-disk rung and memory revocation are not ported yet.
+counts ``agg.spilled_folds``.
+
+A vector (sketch) state is a (groups, width) table: a row's contribution is
+a (bucket, value) pair scattered into it (``_reduce_contrib``), and such a
+grouping keeps at most ``WIDE_STATE_MAX_GROUPS`` groups on the device,
+spilling the rest as above; it never takes the insert. An AMIN/AMAX column
+and the ACARRY columns after it (min_by/max_by) reduce jointly in every
+builder and in the host merge: the extreme ordering key, then the payload
+of the first row holding it, an earlier partial winning a tie. The
+PARTIAL/FINAL steps, the disk rung and memory revocation are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from ..block import _NP_TO_TORCH, Block, Dictionary, Page, torch_dtype
 from ..types import BOOLEAN, Type
 from ..utils import kernel_cache
 from ..utils.metrics import METRICS
-from .aggregates import MAX, MIN, SUM, AggregateCall
+from .aggregates import ACARRY, AMAX, AMIN, MAX, MIN, SUM, AggregateCall
 from .operator import Operator, OperatorContext, OperatorFactory, timed
 from .sorting import lexsort_fast
 
@@ -61,41 +70,130 @@ def _builder_key(tag, b, input_dicts) -> tuple:
 
 def _segment_reduce(kind: str, values: torch.Tensor, seg_ids: torch.Tensor,
                     num_segments: int) -> torch.Tensor:
-    """Reduce ``values`` into ``num_segments`` segments; empty segments hold
-    0 for SUM and the dtype's extreme for MIN/MAX, as ``jax.ops.segment_*``."""
+    """Reduce ``values`` (rows, or rows x width) into ``num_segments``
+    segments along the rows; empty segments hold 0 for SUM and the dtype's
+    extreme for MIN/MAX, as ``jax.ops.segment_*``."""
+    if values.dtype == torch.bool:
+        return _segment_reduce(kind, values.to(torch.uint8), seg_ids, num_segments) \
+            .to(torch.bool)
     idx = seg_ids.long()
+    shape = (num_segments,) + tuple(values.shape[1:])
     if kind == SUM:
-        out = torch.zeros(num_segments, dtype=values.dtype, device=values.device)
+        out = torch.zeros(shape, dtype=values.dtype, device=values.device)
         return out.index_add_(0, idx, values)
     if kind not in (MIN, MAX):
         raise ValueError(kind)
-    info = torch.finfo if values.is_floating_point() else torch.iinfo
     if values.is_floating_point():
         fill = float("inf") if kind == MIN else float("-inf")
     else:
-        fill = info(values.dtype).max if kind == MIN else info(values.dtype).min
-    out = torch.full((num_segments,), fill, dtype=values.dtype, device=values.device)
+        info = torch.iinfo(values.dtype)
+        fill = info.max if kind == MIN else info.min
+    if values.dim() > 1:
+        idx = idx.view(-1, *([1] * (values.dim() - 1))).expand_as(values)
+    out = torch.full(shape, fill, dtype=values.dtype, device=values.device)
     return out.scatter_reduce_(0, idx, values, "amin" if kind == MIN else "amax")
 
 
-def _reduce_all(contribs, kinds, gid: torch.Tensor, out_groups: int) -> List[torch.Tensor]:
-    """Reduce every contribution column into an (out_groups,) state; rows
-    routed to the trash segment (gid == out_groups) are left out."""
-    return [_segment_reduce(kind, c, gid, out_groups + 1)[:out_groups]
-            for kind, c in zip(kinds, contribs)]
+WIDE_STATE_MAX_GROUPS = 1 << 13  # group-table bound of the sketch (vector) states
+
+
+def _state_widths(calls) -> Tuple[int, ...]:
+    return tuple(col.width for c in calls for col in c.function.state)
+
+
+def _empty_state(widths, device) -> Tuple[torch.Tensor, ...]:
+    """Zero-group state tensors matching each column's width."""
+    return tuple(torch.zeros((0, w) if w > 1 else 0, dtype=torch.float64, device=device)
+                 for w in widths)
+
+
+def _reduce_contrib(kind: str, c, gid: torch.Tensor, num_segments: int, width: int,
+                    ident) -> torch.Tensor:
+    """Reduce one contribution column into a (num_segments[, width]) state.
+    A vector state's contribution is a (bucket, value) pair per row that
+    lands in state[group, bucket]; a bucket of ``width`` (a masked row) is
+    dropped, into one trash cell past the flattened table (an index out of
+    range raises on the CPU and is undefined on the card). Plain columns,
+    also 2-D states being re-grouped, reduce along the rows."""
+    if isinstance(c, tuple):
+        bucket, vals = c
+        cells = num_segments * width
+        flat = gid.to(torch.int64) * width + bucket.to(torch.int64)
+        flat = torch.where(bucket.to(torch.int64) < width, flat, cells)
+        base = torch.full((cells + 1,), ident, dtype=vals.dtype, device=vals.device)
+        if kind == SUM:
+            base.index_add_(0, flat, vals)
+        else:
+            base.scatter_reduce_(0, flat, vals, "amin" if kind == MIN else "amax")
+        return base[:cells].view(num_segments, width)
+    return _segment_reduce(kind, c, gid, num_segments)
+
+
+def _reduce_all(contribs, kinds, identities, widths, gid: torch.Tensor,
+                out_groups: int) -> List[torch.Tensor]:
+    """Reduce every contribution column into an (out_groups[, width]) state;
+    rows routed to the trash segment (gid == out_groups) are left out. An
+    AMIN/AMAX column and the ACARRY columns after it reduce jointly: the
+    segment's least (greatest) ordering key, then the payload of its FIRST
+    row that holds it (min_by/max_by)."""
+    n_seg = out_groups + 1
+    states = []
+    i = 0
+    while i < len(kinds):
+        kind = kinds[i]
+        if kind in (AMIN, AMAX):
+            y = contribs[i]
+            m = _segment_reduce(MIN if kind == AMIN else MAX, y, gid, n_seg)
+            nr = y.shape[0]
+            idx = torch.arange(nr, dtype=torch.int64, device=y.device)
+            best = torch.where(y == m[gid.long()], idx, nr)
+            win = torch.clamp(_segment_reduce(MIN, best, gid, n_seg), 0, max(nr - 1, 0))
+            states.append(m[:out_groups])
+            i += 1
+            while i < len(kinds) and kinds[i] == ACARRY:
+                c = contribs[i]
+                states.append(c[win][:out_groups] if nr else
+                              torch.full((out_groups,), identities[i], dtype=c.dtype,
+                                         device=c.device))
+                i += 1
+            continue
+        states.append(_reduce_contrib(kind, contribs[i], gid, n_seg, widths[i],
+                                      identities[i])[:out_groups])
+        i += 1
+    return states
 
 
 def _merge_tables(kinds, old, new) -> List[torch.Tensor]:
-    """Element-wise combine of two same-shape state tables."""
+    """Element-wise combine of two same-shape state tables, joint over the
+    AMIN/AMAX + ACARRY pairs: the new side wins only when strictly better,
+    so the earlier partial keeps a tie."""
     out = []
-    for kind, a, b in zip(kinds, old, new):
+    i = 0
+    while i < len(kinds):
+        kind = kinds[i]
+        if kind in (AMIN, AMAX):
+            better = (new[i] < old[i]) if kind == AMIN else (new[i] > old[i])
+            out.append(torch.where(better, new[i], old[i]))
+            i += 1
+            while i < len(kinds) and kinds[i] == ACARRY:
+                out.append(torch.where(better, new[i], old[i]))
+                i += 1
+            continue
+        a, b = old[i], new[i]
         if kind == SUM:
             out.append(a + b)
         elif kind == MIN:
             out.append(torch.minimum(a, b))
         else:
             out.append(torch.maximum(a, b))
+        i += 1
     return out
+
+
+def _where_valid(gvalid: torch.Tensor, s: torch.Tensor, ident) -> torch.Tensor:
+    """Identity-fill the invalid group slots, over vector states too."""
+    cond = gvalid[:, None] if s.dim() == 2 else gvalid
+    return torch.where(cond, s, torch.as_tensor(ident, dtype=s.dtype, device=s.device))
 
 
 def _null_safe_keys(page: Page, key_channels) -> Tuple[torch.Tensor, ...]:
@@ -117,13 +215,18 @@ def _null_safe_keys(page: Page, key_channels) -> Tuple[torch.Tensor, ...]:
 
 def _call_contributions(calls, page: Page):
     """Per-row state contributions for every call; a NULL input row
-    contributes nothing."""
+    contributes nothing (only a NULL ordering value, for min_by/max_by)."""
     datas = tuple(b.data for b in page.blocks)
     contribs = []
     for call in calls:
-        args = tuple(_ordering_codes(call, page.blocks[c]) for c in call.input_channels)
+        fn = call.function
+        args = tuple(_ordering_codes(call, ai, page.blocks[c])
+                     for ai, c in enumerate(call.input_channels))
         m = page.mask
-        for c in call.input_channels:
+        skip = fn.null_skip_channels
+        for ai, c in enumerate(call.input_channels):
+            if skip is not None and ai not in skip:
+                continue  # a NULL here does not exclude the row (min_by's x)
             if page.blocks[c].nulls is not None:
                 m = m & ~page.blocks[c].nulls
         if call.mask_channel is not None:
@@ -131,7 +234,11 @@ def _call_contributions(calls, page: Page):
             if page.blocks[call.mask_channel].nulls is not None:
                 mc = mc & ~page.blocks[call.mask_channel].nulls
             m = m & mc
-        contribs.extend(call.function.input_map(args, m))
+        if fn.needs_arg_nulls:
+            nulls = tuple(page.blocks[c].null_mask() for c in call.input_channels)
+            contribs.extend(fn.input_map(args, nulls, m))
+        else:
+            contribs.extend(fn.input_map(args, m))
     return contribs
 
 
@@ -143,15 +250,25 @@ def _ranked_min_max(call) -> bool:
         and hasattr(d, "values") and not d.is_sorted()
 
 
-def _ordering_codes(call, block: Block) -> torch.Tensor:
-    if block.dictionary is not None and _ranked_min_max(call):
-        return block.dictionary.sort_table("ranks", block.data.device)[block.data.long()]
+def _ordering_codes(call, arg_index: int, block: Block) -> torch.Tensor:
+    """An argument as the reduce sees it: an ordering argument (min/max's,
+    min_by/max_by's second) over an unsorted dictionary compares ranks.
+    min_by/max_by keep no ordering value in their output, so their ranks
+    need no mapping back."""
+    d = block.dictionary
+    if d is None:
+        return block.data
+    if _ranked_min_max(call) or (call.function.name in ("min_by", "max_by")
+                                 and arg_index == 1 and hasattr(d, "values")
+                                 and not d.is_sorted()):
+        return d.sort_table("ranks", block.data.device)[block.data.long()]
     return block.data
 
 
 def sort_group_reduce(keys: Tuple[torch.Tensor, ...], mask: torch.Tensor,
                       contribs: Tuple, kinds: Tuple[str, ...],
-                      identities: Tuple, out_groups: int):
+                      identities: Tuple, out_groups: int,
+                      widths: Optional[Tuple[int, ...]] = None):
     """Group rows by ``keys`` (exact, multi-column) and reduce ``contribs``.
 
     Returns (group_keys, group_states, group_valid_mask, num_groups); groups
@@ -160,10 +277,12 @@ def sort_group_reduce(keys: Tuple[torch.Tensor, ...], mask: torch.Tensor,
     """
     n = mask.shape[0]
     dev = mask.device
+    widths = widths or (1,) * len(kinds)
     order = lexsort_fast(tuple(reversed(keys)) + (~mask,)).long()
     sk = tuple(k[order] for k in keys)
     sv = mask[order]
-    sc = tuple(c[order] for c in contribs)
+    sc = tuple((c[0][order], c[1][order]) if isinstance(c, tuple) else c[order]
+               for c in contribs)
     first = torch.zeros(n, dtype=torch.bool, device=dev)
     first[:1] = True
     diff = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -174,7 +293,7 @@ def sort_group_reduce(keys: Tuple[torch.Tensor, ...], mask: torch.Tensor,
     num_groups = gid[-1] + 1 if n > 0 else torch.zeros((), dtype=torch.int32, device=dev)
     gid = torch.where(sv, gid, out_groups)  # trash bin
     gid = torch.clamp(gid, max=out_groups)  # overflow also lands in the bin
-    states = _reduce_all(sc, kinds, gid, out_groups)
+    states = _reduce_all(sc, kinds, identities, widths, gid, out_groups)
     # group keys: the first sorted row of each group
     first_row = _segment_reduce(MIN, torch.arange(n, dtype=torch.int32, device=dev),
                                 gid, out_groups + 1)[:out_groups]
@@ -182,7 +301,7 @@ def sort_group_reduce(keys: Tuple[torch.Tensor, ...], mask: torch.Tensor,
     gkeys = tuple(k[safe] for k in sk)
     gvalid = torch.arange(out_groups, device=dev) < torch.clamp(num_groups, max=out_groups)
     # empty-group states hold identities so MIN/MAX never leak sentinels
-    fixed = tuple(torch.where(gvalid, s, ident) for s, ident in zip(states, identities))
+    fixed = tuple(_where_valid(gvalid, s, ident) for s, ident in zip(states, identities))
     return gkeys, fixed, gvalid, num_groups
 
 
@@ -211,6 +330,13 @@ class GroupedAggregationBuilder:
         self.max_groups = max_groups
         self.kinds = tuple(col.reduce for c in calls for col in c.function.state)
         self.identities = tuple(col.identity for c in calls for col in c.function.state)
+        self.widths = _state_widths(calls)
+        # vector (sketch) states scatter into (groups, width) tables: that
+        # bounds both the per-page group table and the compact table; folds
+        # above it spill to host RAM as usual
+        self._wide_cap = WIDE_STATE_MAX_GROUPS if any(w > 1 for w in self.widths) else None
+        if self._wide_cap is not None:
+            self.max_groups = min(self.max_groups, self._wide_cap)
         self._key_channels: Tuple[int, ...] = ()
         self._acc = None          # (keys, states, valid) compact table
         self._pending: List = []  # (keys, states, valid) partials
@@ -240,7 +366,7 @@ class GroupedAggregationBuilder:
         keys = _null_safe_keys(page, self._key_channels)
         contribs = _call_contributions(self.calls, page)
         return sort_group_reduce(keys, page.mask, tuple(contribs), self.kinds,
-                                 self.identities, out_groups)
+                                 self.identities, out_groups, self.widths)
 
     def _page_raw(self, page: Page):
         """Defer mode: per-row keys and contributions, no per-page reduction;
@@ -248,8 +374,12 @@ class GroupedAggregationBuilder:
         keys = _null_safe_keys(page, self._key_channels)
         return keys, tuple(_call_contributions(self.calls, page)), page.mask
 
+    def _full_groups(self, capacity: int) -> int:
+        return capacity if self._wide_cap is None else min(capacity, self._wide_cap)
+
     def page_out_groups(self, capacity: int) -> int:
-        return capacity if self._out_groups is None else min(capacity, self._out_groups)
+        og = self._full_groups(capacity)
+        return og if self._out_groups is None else min(og, self._out_groups)
 
     def defer_raw(self) -> bool:
         """True once the first page showed that grouping does not reduce."""
@@ -283,11 +413,16 @@ class GroupedAggregationBuilder:
         when a shrunken table overflowed: the caller recomputes the page at
         the then-reset full size."""
         gkeys, gstates, gvalid, ng = partial
-        if out_groups < capacity:
+        if out_groups < self._full_groups(capacity):
             if int(ng) > out_groups:
                 self._out_groups = None  # the data disproved the bound
                 return False
-        elif self._defer is None:
+        elif self._wide_cap is not None and int(ng) > out_groups:
+            # a capped group table would merge groups silently: fail loudly,
+            # as the reference does
+            raise RuntimeError(f"sketch aggregate over more than {out_groups} groups in one "
+                               f"page is not supported")
+        elif self._defer is None and self._wide_cap is None:
             self._decide_strategy(int(ng), capacity)
         self._append((gkeys, gstates, gvalid), int(gvalid.shape[0]))
         return True
@@ -322,7 +457,10 @@ class GroupedAggregationBuilder:
 
     def _keys_hashable(self) -> bool:
         """The insert compares keys as int64 components: float keys (bit
-        equality is not SQL equality on -0.0) stay on the sort path."""
+        equality is not SQL equality on -0.0) and vector (sketch) states stay
+        on the sort path."""
+        if self._wide_cap is not None:
+            return False
         return all(np.issubdtype(np.dtype(t.np_dtype), np.integer)
                    or np.dtype(t.np_dtype) == np.bool_ for t in self.key_types)
 
@@ -344,12 +482,10 @@ class GroupedAggregationBuilder:
         # masked and overflowed rows -> the trash segment (an overflow also
         # raises the stats flag, and the caller discards this partial)
         gid = torch.where(mask & (gid >= 0), gid, slots)
-        states = _reduce_all(contribs, self.kinds, gid, slots)
+        states = _reduce_all(contribs, self.kinds, self.identities, self.widths, gid, slots)
         used = slot_rows >= 0
         gkeys = tuple(sc.to(torch_dtype(t)) for sc, t in zip(slot_comps, self.key_types))
-        fixed = tuple(torch.where(used, st, torch.as_tensor(ident, dtype=st.dtype,
-                                                             device=st.device))
-                      for st, ident in zip(states, self.identities))
+        fixed = tuple(_where_valid(used, st, ident) for st, ident in zip(states, self.identities))
         return gkeys, fixed, used, stats
 
     def _absorb_hash_page(self, page: Page) -> bool:
@@ -379,7 +515,7 @@ class GroupedAggregationBuilder:
         size = self._table_size or _pow2(min(int(valid.shape[0]), self.max_groups))
         while True:
             gkeys, gstates, gvalid, ngroups = sort_group_reduce(
-                keys, valid, states, self.kinds, self.identities, size)
+                keys, valid, states, self.kinds, self.identities, size, self.widths)
             n = int(ngroups)
             if n <= size or size >= self.max_groups:
                 break
@@ -421,9 +557,29 @@ class GroupedAggregationBuilder:
         for k in keys:
             boundary[1:] |= k[1:] != k[:-1]
         starts = np.flatnonzero(boundary)
+        states = [st[order] for st in states]
+        nrows = len(keys[0])
         reduce = {SUM: np.add, MIN: np.minimum, MAX: np.maximum}
-        out_states = [reduce[kind].reduceat(st[order], starts)
-                      for kind, st in zip(self.kinds, states)]
+        out_states = []
+        i = 0
+        while i < len(self.kinds):
+            kind = self.kinds[i]
+            if kind in (AMIN, AMAX):
+                # joint pair: the run's extreme ordering key, then the payload
+                # of the first (earliest-part) row that holds it
+                y = states[i]
+                m = (np.minimum if kind == AMIN else np.maximum).reduceat(y, starts)
+                counts = np.diff(np.append(starts, nrows))
+                cand = np.where(y == np.repeat(m, counts), np.arange(nrows), nrows)
+                win = np.clip(np.minimum.reduceat(cand, starts), 0, max(nrows - 1, 0))
+                out_states.append(m)
+                i += 1
+                while i < len(self.kinds) and self.kinds[i] == ACARRY:
+                    out_states.append(states[i][win])
+                    i += 1
+                continue
+            out_states.append(reduce[kind].reduceat(states[i], starts))
+            i += 1
         return [k[starts] for k in keys], out_states
 
     def _merge_spilled(self):
@@ -452,8 +608,8 @@ class GroupedAggregationBuilder:
             dev = self._device
             keys = tuple(torch.zeros(0, dtype=torch_dtype(t), device=dev)
                          for t in self.key_types)
-            states = tuple(torch.zeros(0, dtype=torch.float64, device=dev) for _ in self.kinds)
-            return keys, states, torch.zeros(0, dtype=torch.bool, device=dev)
+            return keys, _empty_state(self.widths, dev), \
+                torch.zeros(0, dtype=torch.bool, device=dev)
         out, self._acc, self._table_size = self._acc, None, None
         return out
 
@@ -474,9 +630,11 @@ class DirectAggregationBuilder:
         self.D = int(np.prod(self.domains))
         self.kinds = tuple(col.reduce for c in calls for col in c.function.state)
         self.state_cols = [col for c in calls for col in c.function.state]
+        self.identities = tuple(col.identity for col in self.state_cols)
+        self.widths = _state_widths(calls)
         self._device = torch.device(device)
         self._key_channels: Tuple[int, ...] = ()
-        self._table = None  # tuple of (D,) state tensors
+        self._table = None  # tuple of (D,) or (D, width) state tensors
         self._seen = None   # (D,) bool: the group occurred
 
     def set_channels(self, key_channels) -> "DirectAggregationBuilder":
@@ -495,7 +653,7 @@ class DirectAggregationBuilder:
             gid = gid * dom + code
         gid = torch.where(mask, gid, self.D)  # dead rows -> the trash segment
         contribs = _call_contributions(self.calls, page)
-        parts = _reduce_all(contribs, self.kinds, gid, self.D)
+        parts = _reduce_all(contribs, self.kinds, self.identities, self.widths, gid, self.D)
         hits = _segment_reduce(SUM, mask.to(torch.int32), gid, self.D + 1)[:self.D]
         return tuple(_merge_tables(self.kinds, table, parts)), seen | (hits > 0)
 
@@ -503,7 +661,8 @@ class DirectAggregationBuilder:
         """The (table, seen) state, made at first use."""
         if self._table is None:
             dev = self._device
-            self._table = tuple(torch.full((self.D,), col.identity,
+            self._table = tuple(torch.full((self.D, col.width) if col.width > 1 else (self.D,),
+                                           col.identity,
                                            dtype=_NP_TO_TORCH[np.dtype(col.dtype)], device=dev)
                                 for col in self.state_cols)
             self._seen = torch.zeros(self.D, dtype=torch.bool, device=dev)
@@ -522,8 +681,8 @@ class DirectAggregationBuilder:
             keys = tuple(x for t in self.key_types
                          for x in (torch.zeros(0, dtype=torch_dtype(t), device=dev),
                                    torch.zeros(0, dtype=torch.bool, device=dev)))
-            states = tuple(torch.zeros(0, dtype=torch.float64, device=dev) for _ in self.kinds)
-            return keys, states, torch.zeros(0, dtype=torch.bool, device=dev)
+            return keys, _empty_state(self.widths, dev), \
+                torch.zeros(0, dtype=torch.bool, device=dev)
         rem = torch.arange(self.D, dtype=torch.int32, device=self._seen.device)
         pairs = []
         for base, dom, t in zip(reversed(self.base_domains), reversed(self.domains),
@@ -539,7 +698,7 @@ class DirectAggregationBuilder:
 
 
 class GlobalAggregationBuilder:
-    """No GROUP BY: one scalar state per state column."""
+    """No GROUP BY: one scalar (or (width,) vector) state per state column."""
 
     compact_table = True
 
@@ -547,6 +706,7 @@ class GlobalAggregationBuilder:
         self.calls = list(calls)
         self.kinds = tuple(col.reduce for c in calls for col in c.function.state)
         self.state_cols = [col for c in calls for col in c.function.state]
+        self.widths = _state_widths(calls)
         self._device = torch.device(device)
         self._state = None
 
@@ -554,20 +714,42 @@ class GlobalAggregationBuilder:
         return self
 
     def _identity_state(self, device):
-        return tuple(torch.tensor(col.identity, dtype=_NP_TO_TORCH[np.dtype(col.dtype)],
-                                  device=device) for col in self.state_cols)
+        return tuple(torch.full((col.width,) if col.width > 1 else (), col.identity,
+                                dtype=_NP_TO_TORCH[np.dtype(col.dtype)], device=device)
+                     for col in self.state_cols)
 
     def _accumulate(self, page: Page, state):
-        """One page folded into the scalar state: a new state."""
+        """One page folded into the state: a new state. An AMIN/AMAX pair
+        takes the page's first extreme row (argmin/argmax) and replaces the
+        state only when strictly better, so an earlier page keeps a tie."""
         contribs = _call_contributions(self.calls, page)
         new = []
-        for kind, c, st in zip(self.kinds, contribs, state):
-            if kind == SUM:
-                new.append(st + c.sum())
-            elif kind == MIN:
-                new.append(torch.minimum(st, c.min()))
+        i = 0
+        while i < len(self.kinds):
+            kind, c, st = self.kinds[i], contribs[i], state[i]
+            if kind in (AMIN, AMAX):
+                am = (torch.argmin if kind == AMIN else torch.argmax)(c)
+                red = c[am]
+                better = (red < st) if kind == AMIN else (red > st)
+                new.append(torch.where(better, red, st))
+                i += 1
+                while i < len(self.kinds) and self.kinds[i] == ACARRY:
+                    new.append(torch.where(better, contribs[i][am], state[i]))
+                    i += 1
+                continue
+            if isinstance(c, tuple):  # vector state: scatter into one (width,) row
+                gid = torch.zeros(c[0].shape[0], dtype=torch.int64, device=c[0].device)
+                red = _reduce_contrib(kind, c, gid, 1, self.widths[i],
+                                      self.state_cols[i].identity)[0]
             else:
-                new.append(torch.maximum(st, c.max()))
+                red = c.sum(dim=0) if kind == SUM else c.min() if kind == MIN else c.max()
+            if kind == SUM:
+                new.append(st + red)
+            elif kind == MIN:
+                new.append(torch.minimum(st, red))
+            else:
+                new.append(torch.maximum(st, red))
+            i += 1
         return tuple(new)
 
     def init_state(self):
@@ -584,7 +766,7 @@ class GlobalAggregationBuilder:
     def finish(self):
         state = self._state if self._state is not None else self._identity_state(self._device)
         self._state = None
-        states = tuple(s.reshape(1) for s in state)
+        states = tuple(s.reshape(1, -1) if s.dim() else s.reshape(1) for s in state)
         return (), states, torch.ones(1, dtype=torch.bool, device=states[0].device)
 
 
@@ -598,8 +780,12 @@ def make_builder(key_types, key_domains, calls, max_groups: int = 1 << 20,
     key has a known small domain, GROUPED otherwise."""
     if not key_types:
         return GlobalAggregationBuilder(calls, device)
+    # vector (sketch) states make the dense table D x width: the direct
+    # strategy only while that stays small
+    wide = any(w > 1 for w in _state_widths(calls))
+    limit = min(DIRECT_DOMAIN_LIMIT, WIDE_STATE_MAX_GROUPS) if wide else DIRECT_DOMAIN_LIMIT
     if key_domains is not None and all(d is not None for d in key_domains) \
-            and int(np.prod(key_domains)) <= DIRECT_DOMAIN_LIMIT:
+            and int(np.prod(key_domains)) <= limit:
         return DirectAggregationBuilder(key_types, key_domains, calls, device)
     return GroupedAggregationBuilder(key_types, calls, max_groups, device, hash_grouping)
 

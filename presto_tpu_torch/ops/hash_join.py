@@ -1,6 +1,6 @@
 """Hash join of the PyTorch port: sorted and open-addressing lookup sources.
 
-Counterpart of ``presto_tpu/ops/hash_join.py`` for INNER and LEFT joins on
+Counterpart of ``presto_tpu/ops/hash_join.py`` for INNER, LEFT and FULL joins on
 any number of keys, with unique or duplicate build keys, and the SEMI and
 ANTI probes (null-aware for IN / NOT IN), exact-key or with a join filter.
 Two build strategies:
@@ -29,10 +29,19 @@ page-capacity chunk at a time (``_expand_kernel``), each chunk only when
 the consumer asks for it, with the true keys verified and LEFT's
 null-build row after a probe row's matches.
 
+A FULL join (RIGHT is planned as a flipped LEFT) builds sorted with
+``track_unmatched``: the build keeps its NULL-key rows aside and its live
+row count, the probe emits unmatched probe rows with NULL build columns and
+ORs every matched build row into a device visited flag (``_mark_rows``,
+``_mark_ranges``), and ``finish`` emits, once, the unvisited live build rows
+and then the NULL-key rows with NULL probe columns
+(``_emit_unmatched_build``). Such a probe runs on one driver.
+
 A build row's id is its position in the concatenation of the compacted
 build pages, as in the reference. The dense strategy (and the probe
-stage's DENSE branch), FULL/RIGHT joins, INNER/LEFT join filters and spill
-are not ported yet.
+stage's DENSE branch) and spill are not ported yet; INNER/LEFT join filters
+are never planned (the optimizer moves a one-sided residual into a filter
+and refuses a two-sided one on an outer join).
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ import dataclasses
 import threading
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -48,9 +58,7 @@ from ..types import Type
 from ..utils.metrics import METRICS
 from .operator import Operator, OperatorContext, OperatorFactory, timed
 
-INNER, LEFT, SEMI, ANTI = "inner", "left", "semi", "anti"
-# FULL is not ported; the name serves the fusion predicate, which refuses it
-FULL = "full"
+INNER, LEFT, FULL, SEMI, ANTI = "inner", "left", "full", "semi", "anti"
 
 # the reference's uint64 mixer constants as their int64 bit patterns
 _M1 = 0xFF51AFD7ED558CCD - (1 << 64)
@@ -111,6 +119,13 @@ class LookupSource:
     # a live build row had a NULL key: NOT IN (null-aware ANTI) then keeps
     # no row
     has_null_key: bool = False
+    # FULL joins (a build with track_unmatched): the live build rows (host
+    # int), and the NULL-key build rows' payload columns (host numpy), which
+    # never match and come out in the unmatched epilogue
+    build_count: int = 0
+    null_key_payload: Optional[Tuple] = None
+    null_key_nulls: Tuple = ()
+    null_key_count: int = 0
 
     @property
     def exact_keys(self) -> bool:
@@ -246,6 +261,9 @@ class JoinBuildOperator(Operator):
         self.f = factory
         self._pages: List[Page] = []
         self._saw_null_key = None  # device bool, read once at the build
+        # FULL joins: the payload of NULL-key build rows, kept aside (they
+        # match nothing but come out unmatched); masked here, not synced
+        self._null_key_pages: List[Page] = []
 
     @property
     def output_types(self) -> List[Type]:
@@ -261,6 +279,14 @@ class JoinBuildOperator(Operator):
                     else (self._saw_null_key | seen)
         self._pages.append(_compact_for_build(page, self.f.key_channels,
                                               self.f.payload_channels))
+        if self.f.track_unmatched and any(page.blocks[c].nulls is not None
+                                          for c in self.f.key_channels):
+            nk = torch.zeros_like(page.mask)
+            for c in self.f.key_channels:
+                if page.blocks[c].nulls is not None:
+                    nk = nk | page.blocks[c].nulls
+            sel = page.select_channels(self.f.payload_channels)
+            self._null_key_pages.append(sel.with_mask(nk & page.mask))
 
     def get_output(self) -> Optional[Page]:
         return None
@@ -295,7 +321,28 @@ class JoinBuildOperator(Operator):
         src.payload_nulls = pnulls
         if self._saw_null_key is not None:
             src.has_null_key = bool(self._saw_null_key)  # host sync, once per build
+        if self.f.track_unmatched:
+            src.build_count = int(mask.sum())
+            self._side_buffer(src)
         return src
+
+    def _side_buffer(self, src: LookupSource) -> None:
+        """A FULL build's NULL-key rows into the source, as host columns."""
+        if not self._null_key_pages:
+            return
+        pages = self._null_key_pages
+        keep = torch.cat([p.mask for p in pages]).cpu().numpy()
+        cols, nils = [], []
+        for i in range(len(self.f.payload_channels)):
+            cols.append(torch.cat([p.blocks[i].data for p in pages]).cpu().numpy()[keep])
+            if any(p.blocks[i].nulls is not None for p in pages):
+                nils.append(torch.cat([p.blocks[i].null_mask() for p in pages])
+                            .cpu().numpy()[keep])
+            else:
+                nils.append(None)
+        src.null_key_payload = tuple(cols)
+        src.null_key_nulls = tuple(nils)
+        src.null_key_count = int(keep.sum())
 
     def _build_pallas(self, keys, payload, mask) -> Optional[LookupSource]:
         """Open-addressing build. Two host syncs: the live row count, which
@@ -336,14 +383,18 @@ class JoinBuildOperatorFactory(OperatorFactory):
                  payload_channels: List[int],
                  payload_meta: List[Tuple[Type, Optional[Dictionary]]],
                  strategy: str = "sorted", unique: bool = False,
-                 device="cuda"):
+                 device="cuda", track_unmatched: bool = False):
         super().__init__(operator_id, "JoinBuild")
+        # FULL joins keep the NULL-key build rows and the live row count for
+        # the probe's unmatched-build epilogue
+        self.track_unmatched = track_unmatched
         if strategy not in ("sorted", "pallas"):
             raise ValueError(
                 f"unknown join build strategy {strategy!r}; hash_kernels "
                 "picks it (sorted | pallas | auto)")
-        if strategy == "pallas" and (not unique or len(key_channels) != 1):
-            # the open-addressing table stores one row per key slot
+        if strategy == "pallas" and (not unique or len(key_channels) != 1 or track_unmatched):
+            # the open-addressing table stores one row per key slot, and has
+            # no sorted_row order for the FULL join's unmatched epilogue
             raise ValueError(
                 "pallas join strategy requires a unique single-key "
                 "INNER/LEFT build; use hash_kernels='auto' (or 'sorted') so "
@@ -379,12 +430,13 @@ class JoinBuildOperatorFactory(OperatorFactory):
                 if o is op:
                     continue
                 op._pages.extend(o._pages)
+                op._null_key_pages.extend(o._null_key_pages)
                 if o._saw_null_key is not None:
                     op._saw_null_key = o._saw_null_key if op._saw_null_key is None \
                         else (op._saw_null_key | o._saw_null_key)
-                o._pages = []
+                o._pages, o._null_key_pages = [], []
             source = op._build()
-            op._pages = []  # consumed into the lookup source
+            op._pages, op._null_key_pages = [], []  # consumed into the lookup source
             self.lookup_factory.set(source)
 
 
@@ -526,7 +578,7 @@ def emit_matches(page: Page, row, probe_mask, aux, cfg: ProbeStageConfig) -> Pag
         return Page(sel.blocks, keep)
     return unique_join_page(page, row, payload, payload_nulls, cfg.probe_output_channels,
                             cfg.build_output_channels, cfg.payload_meta,
-                            cfg.join_type == INNER, cfg.join_type == LEFT)
+                            cfg.join_type == INNER, cfg.join_type in (LEFT, FULL))
 
 
 # ---------------------------------------------------------------------------
@@ -645,6 +697,9 @@ class LookupJoinOperator(Operator):
         self._outputs: List[Page] = []
         self._source: Optional[LookupSource] = None
         self._expansion: Optional[_Expansion] = None
+        # FULL: a device bool per build row, ORed in by every probe page
+        self._visited: Optional[torch.Tensor] = None
+        self._unmatched_emitted = False
         # the page-local stage's config and build tensors, from the live source
         self._stage_cfg: Optional[ProbeStageConfig] = None
         self._stage_aux = None
@@ -676,16 +731,21 @@ class LookupJoinOperator(Operator):
         for c in self.f.probe_key_channels:
             if page.blocks[c].nulls is not None:
                 probe_mask = probe_mask & ~page.blocks[c].nulls
-        if jt not in (INNER, LEFT, SEMI, ANTI):
+        if jt not in (INNER, LEFT, FULL, SEMI, ANTI):
             raise NotImplementedError(f"{jt} join is not ported yet")
+        if jt == FULL and self._visited is None:
+            self._visited = torch.zeros(src.key_arrays[0].shape[0], dtype=torch.bool,
+                                        device=page.device)
         if jt in (SEMI, ANTI) and (self.f.filter_fn is not None or not src.exact_keys):
             self._outputs.append(self._semi_expanded(page, probe_keys, probe_mask))
         elif jt in (SEMI, ANTI) or (src.unique and src.exact_keys):
             cfg, aux = self._stage(src)
             if self._stage_eligible(src):
                 self._outputs.append(apply_probe_stage(page, aux, cfg))
-            else:  # a packed multi-key build
+            else:  # a packed multi-key build, or a FULL join
                 row = self._match_rows(src, probe_keys, probe_mask)
+                if jt == FULL:
+                    self._visited = _mark_rows(self._visited, row, page.mask)
                 self._outputs.append(emit_matches(page, row, probe_mask, aux, cfg))
         else:
             self._start_expansion(page, probe_keys, probe_mask)
@@ -718,7 +778,7 @@ class LookupJoinOperator(Operator):
         """Count the page's expanded rows (one host sync) and keep what its
         chunks need; ``get_output`` emits them one at a time."""
         src = self._source
-        left = self.f.join_type == LEFT
+        left = self.f.join_type in (LEFT, FULL)
         if left and not src.exact_keys:
             # a mixed-hash collision would mask a probe row's only match slots and
             # silently drop the row; LEFT semantics need exact combined keys
@@ -727,6 +787,11 @@ class LookupJoinOperator(Operator):
                 "verification with null-row fallback (single-key LEFT is exact)")
         lo, emit, match_counts, total = _range_kernel(
             src.sorted_key, src.combine_probe(probe_keys), probe_mask, page.mask, left)
+        if self.f.join_type == FULL:
+            # exact keys (checked above): every build row in a live probe
+            # row's [lo, lo + matches) range is a true match
+            self._visited = _mark_ranges(self._visited, src.sorted_row, lo, lo + match_counts,
+                                         probe_mask & page.mask)
         total = int(total)  # host sync: the page's output cardinality
         METRICS.count("join.expanded_rows", total)
         if total > 0:
@@ -740,7 +805,7 @@ class LookupJoinOperator(Operator):
                              src.sorted_row, src.key_arrays, src.payload,
                              src.payload_nulls, f.probe_output_channels,
                              f.build_output_channels, e.next_base, e.total,
-                             f.join_type == LEFT,
+                             f.join_type in (LEFT, FULL),
                              [src.payload_meta[i] for i in f.build_output_channels])
         e.next_base += e.page.capacity
         if e.next_base >= e.total:
@@ -817,8 +882,92 @@ class LookupJoinOperator(Operator):
         self.context.record_output(out, out.capacity)
         return out
 
+    def finish(self) -> None:
+        if self.f.join_type == FULL and not self._unmatched_emitted:
+            self._unmatched_emitted = True
+            self._emit_unmatched_build()
+        super().finish()
+
+    def _emit_unmatched_build(self) -> None:
+        """The FULL join's epilogue, once, after the last probe page: the
+        live build rows no probe row visited, then the NULL-key build rows,
+        with NULL probe columns, in pages of at most 2^16 rows. A probe that
+        saw no page emits every build row."""
+        lf = self.f.lookup_factory
+        if self._source is None:
+            if not lf.done():
+                return  # the build never finished: nothing to emit
+            self._source = lf.get()
+        src = self._source
+        rows = np.zeros(0, dtype=np.int64)
+        if src.build_count > 0:
+            # the sort put the live rows first, so sorted_row[:build_count]
+            # is the live rows' index set (the compacted pages are padded)
+            live = src.sorted_row[:src.build_count].cpu().numpy().astype(np.int64)
+            if self._visited is not None:
+                rows = live[~self._visited.cpu().numpy()[live]]
+            else:
+                rows = live
+        n_un, n_null = len(rows), src.null_key_count
+        total = n_un + n_null
+        if total == 0:
+            return
+        METRICS.count("join.unmatched_build_rows", total)
+        cap = min(max(1 << 10, 1 << (total - 1).bit_length()), 1 << 16)
+        cols = []
+        for bi in self.f.build_output_channels:
+            t, d = src.payload_meta[bi]
+            data = [src.payload[bi].cpu().numpy()[rows]]
+            bn = src.payload_nulls[bi] if bi < len(src.payload_nulls) else None
+            nul = [bn.cpu().numpy()[rows] if bn is not None else np.zeros(n_un, dtype=bool)]
+            if n_null:
+                data.append(src.null_key_payload[bi])
+                nk = src.null_key_nulls[bi]
+                nul.append(nk if nk is not None else np.zeros(n_null, dtype=bool))
+            cols.append((t, d, np.concatenate(data), np.concatenate(nul)))
+        dev = self._visited.device if self._visited is not None else src.sorted_row.device
+        for lo in range(0, total, cap):
+            hi = min(lo + cap, total)
+            blocks = [Block(t, torch.zeros(cap, dtype=torch_dtype(t), device=dev),
+                            torch.ones(cap, dtype=torch.bool, device=dev), d)
+                      for (t, d) in self.f.probe_output_meta]
+            for t, d, data, nul in cols:
+                seg = np.zeros(cap, dtype=np.dtype(t.np_dtype))
+                seg[:hi - lo] = data[lo:hi]
+                nseg = np.zeros(cap, dtype=bool)
+                nseg[:hi - lo] = nul[lo:hi]
+                blocks.append(Block(t, torch.from_numpy(seg).to(dev),
+                                    torch.from_numpy(nseg).to(dev) if nseg.any() else None, d))
+            mask = torch.from_numpy(np.arange(cap) < (hi - lo)).to(dev)
+            self._outputs.append(Page(tuple(blocks), mask))
+
     def is_finished(self) -> bool:
         return self._finishing and not self._outputs and self._expansion is None
+
+
+def _mark_rows(visited: torch.Tensor, row: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """OR the build rows this probe page matched into the visited set."""
+    n = visited.shape[0]
+    idx = torch.where((row >= 0) & mask, row, n).long()
+    ext = torch.cat([visited, visited.new_zeros(1)])
+    ext[idx] = True  # a dropped row writes the extra cell
+    return ext[:n]
+
+
+def _mark_ranges(visited: torch.Tensor, sorted_row: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor, probe_mask: torch.Tensor) -> torch.Tensor:
+    """OR every build row in a live probe row's sorted range [lo, hi) into
+    the visited set: coverage through a difference array, O(n) whatever the
+    matches."""
+    n = sorted_row.shape[0]
+    add = probe_mask.to(torch.int32)
+    delta = torch.zeros(n + 1, dtype=torch.int32, device=visited.device)
+    delta.index_add_(0, torch.where(probe_mask, lo, n).long(), add)
+    delta.index_add_(0, torch.where(probe_mask, hi, n).long(), -add)
+    covered = torch.cumsum(delta[:-1], 0) > 0
+    by_row = torch.zeros_like(visited)
+    by_row[sorted_row.long()] = covered  # sorted_row is a permutation of the rows
+    return visited | by_row
 
 
 class LookupJoinOperatorFactory(OperatorFactory):
@@ -849,6 +998,7 @@ class LookupJoinOperatorFactory(OperatorFactory):
         self.probe_output_channels = probe_output_channels
         self.build_output_channels = build_output_channels
         self.join_type = join_type
+        self.probe_output_meta = list(probe_output_meta)
         self.output_types = [t for (t, _) in probe_output_meta] + \
                             [t for (t, _) in build_output_meta]
 

@@ -110,3 +110,17 @@ def test_coalesce_stream_matches_reference(name):
     assert METRICS.counter_value("coalesce.pages_out") - before["coalesce.pages_out"] == len(got)
     if name == "pack":
         assert len(got) < len(pairs)
+
+
+def test_dictionary_remap_factory_defaults_to_cuda(monkeypatch):
+    """Like every entry point of the port, the remap factory's device
+    defaults to CUDA and raises where there is none: never a quiet CPU."""
+    from presto_tpu_torch.ops.coalesce import DictionaryRemapOperatorFactory
+    from presto_tpu_torch.types import VARCHAR
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    remap = np.arange(3, dtype=np.int32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DictionaryRemapOperatorFactory(0, [VARCHAR], [remap])
+    fac = DictionaryRemapOperatorFactory(0, [VARCHAR], [remap], device="cpu")
+    assert fac.remaps[0].device.type == "cpu"

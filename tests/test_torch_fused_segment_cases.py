@@ -94,15 +94,18 @@ def test_join_build_pipelines_never_fuse():
 
 
 def test_full_join_probe_is_a_barrier():
-    """A FULL probe never fuses. The port does not run FULL joins: it
-    refuses the query fused and unfused alike, naming the join."""
+    """A FULL probe never fuses: no segment holds it, and the fused plan's
+    rows equal the unfused plan's (the reference's own case)."""
     fac = thj.LookupJoinOperatorFactory(0, thj.LookupSourceFactory(), [0], [0],
                                         [(tt.BIGINT, None)], [0], [(tt.BIGINT, None)],
                                         thj.FULL, unique_build=True)
     assert not mid_stage_fusible(fac)
-    for props in ({}, UNFUSED):
-        with pytest.raises(NotImplementedError, match="FULL joins are not ported"):
-            _runner(**props).execute(FULL_JOIN + " order by 1, 2 limit 50")
+    segs, _ = _segments(_runner(), FULL_JOIN)
+    for s in segs:
+        assert not any("LookupJoin" in n for n in s.member_names)
+    fused = _runner().execute(FULL_JOIN + " order by 1, 2 limit 50")
+    oracle = _runner(**UNFUSED).execute(FULL_JOIN + " order by 1, 2 limit 50")
+    assert fused.rows and fused.rows == oracle.rows
 
 
 def test_order_by_is_a_barrier():

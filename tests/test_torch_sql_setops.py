@@ -18,10 +18,15 @@ buffers once every branch has finished. Held against the reference at
 ``python tests/test_torch_sql_setops.py`` runs the sweep of the
 reference's own SQL strings (``sweep``) and prints one line per string and
 the totals: equal, differ, refuse (the port raises NotImplementedError) or
-fail in the reference.
+fail in the reference. Since FULL joins, windows and the sketch aggregates
+were ported it prints 43 equal, 0 differ, 0 refuse and 11 reference
+failures (9 read the ``memory`` catalog's ``na``/``nb``, one has a ``?``
+parameter, one is ``EXCEPT ALL``); ``test_sweep_refuses_nothing`` runs
+every string through the port alone and fails on any refusal.
 """
 import ast
 import os
+import re
 import threading
 
 import numpy as np
@@ -262,7 +267,7 @@ def test_dictionary_remap_matches_reference_page_for_page():
                              jnp.asarray(mask)))
     want = ref_op.get_output()
     op = DictionaryRemapOperatorFactory(0, [VARCHAR, BIGINT], [remap, None],
-                                        target_dicts=[tgt, None]).create_operator()
+                                        target_dicts=[tgt, None], device="cpu").create_operator()
     op.add_input(Page((Block(VARCHAR, torch.from_numpy(codes), torch.from_numpy(nulls),
                              Dictionary(list("dbeac"))),
                        Block(BIGINT, torch.from_numpy(keys), None, None)),
@@ -281,7 +286,8 @@ def test_dictionary_remap_rebinds_a_dictionary_less_block():
     """A grouping set's NULL branch carries no dictionary: the block is
     rebound to the union dictionary, its codes untouched."""
     tgt = Dictionary(["x", "y"])
-    op = DictionaryRemapOperatorFactory(0, [VARCHAR], [None], target_dicts=[tgt]) \
+    op = DictionaryRemapOperatorFactory(0, [VARCHAR], [None], target_dicts=[tgt],
+                                        device="cpu") \
         .create_operator()
     data = torch.zeros(4, dtype=torch.int32)
     op.add_input(Page((Block(VARCHAR, data, torch.ones(4, dtype=torch.bool), None),),
@@ -366,6 +372,30 @@ def sweep():
             except AssertionError as e:
                 results.append((sql, "differ", str(e)[:200]))
     return results
+
+
+# the sweep strings that fail in the reference itself at tpch.tiny (and so
+# in the port): the memory catalog's tables, a ``?`` parameter, EXCEPT ALL
+SWEEP_REFERENCE_FAILURES = re.compile(r"\bfrom na\b|= \?|except all")
+
+
+def test_sweep_refuses_nothing():
+    """Every sweep string runs through the port on the CPU without a
+    NotImplementedError: 43 run and the 11 that fail in the reference fail
+    in the port's front end. The rows are held against the reference by
+    ``sweep`` and by each operator's own test file."""
+    ran, failed, refused = [], [], []
+    for sql in sweep_strings():
+        try:
+            LocalQueryRunner(Session(catalog="tpch", schema="tiny"), device="cpu").execute(sql)
+            ran.append(sql)
+        except NotImplementedError as e:
+            refused.append((sql, str(e)))
+        except Exception:  # noqa: BLE001 - a front-end error, checked below
+            failed.append(sql)
+    assert refused == []
+    assert len(ran) == 43 and len(failed) == 11
+    assert all(SWEEP_REFERENCE_FAILURES.search(sql.lower()) for sql in failed)
 
 
 if __name__ == "__main__":
