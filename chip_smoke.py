@@ -120,10 +120,30 @@ Phases, each of which must pass:
    ``STAT_REL_TOL``) and the CPU run's; nothing may fall back. The insert
    is held against its plain version at the per-day grouping's shape.
    Prints one ``WINDOW``/``FULLJOIN``/``AGG`` line per query;
-15. print the kernels line (JSON, with each kernel's warm-run launches per
+15. writes at ``tpch.sf1`` (``run_write_phase``), in one runner: CTAS of
+   ``lineitem`` (6,001,215 rows on 4 scaled writer drivers), ``orders`` and
+   ``customer`` into ``memory`` (cold, then dropped and written warm),
+   their host pages, bytes and pinning, and a warm scan of the stored
+   ``lineitem`` against unpinned copies of its pages; Q3 over the written
+   tables (sorted builds) and mixed (the stored ``lineitem`` probing
+   ``tpch``'s tables: join builds, probe launches, no fallback), both
+   equal to the numpy Q3, with the probe held bit-identical to its plain
+   version at the first stored page's shape; a CTAS of Q3 read back in
+   order; INSERT SELECT of the 1998 lines (count against numpy); INSERT
+   VALUES of a NULL and a new shipping mode into a narrow table (the
+   dictionary grows out of order; min/max and the new value's count before
+   and after; the full ``lineitem`` refuses a VALUES row as the reference
+   does); a blackhole CTAS; ``array_agg`` with ``cardinality`` per
+   customer, ``histogram`` per flag and status, ``map_agg`` per region
+   (multisets against numpy); one query of every new scalar function over
+   ``lineitem`` (numpy: DECIMAL exact, DOUBLE sums to 1e-9); DROP of
+   every table. Prints ``WRITE`` lines (walls, rows per second, writer
+   drivers, pages, host bytes);
+16. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
-   ``SQL P14 agg per day``), the card line, and last the result line.
+   ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``), the card
+   line, and last the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -1057,13 +1077,14 @@ class KernelCapture:
     """Records, while on, the inputs of the largest join-build insert (one
     key component), of the first grouping insert (more components) and of
     the first probe of a page with rows, as the query path gives them to
-    the wrappers."""
+    the wrappers, and the first probe of each table (``by_table``)."""
 
     def __enter__(self):
         from presto_tpu_torch.ops import pallas_hash as ph
 
         self.ph, self.insert, self.probe = ph, ph.insert_table, ph.probe_table
         self.build = self.grouping = self.probe_args = None
+        self.by_table = {}  # the first probe of each table, by its rows tensor
         cap = self
 
         def insert(comps, mask, slots, *rest, **kw):
@@ -1075,8 +1096,11 @@ class KernelCapture:
             return cap.insert(comps, mask, slots, *rest, **kw)
 
         def probe(slot_keys, slot_rows, keys, mask, trips):
-            if cap.probe_args is None and keys.shape[0]:
-                cap.probe_args = (slot_keys, slot_rows, keys, mask, trips)
+            if keys.shape[0]:
+                args = (slot_keys, slot_rows, keys, mask, trips)
+                if cap.probe_args is None:
+                    cap.probe_args = args
+                cap.by_table.setdefault(id(slot_rows), args)
             return cap.probe(slot_keys, slot_rows, keys, mask, trips)
 
         # the wrappers count their launches in the module-level function's
@@ -2117,6 +2141,411 @@ def run_p14_phase(device, schema: str = "sf1") -> dict:
     return out
 
 
+WRITE_TABLES = ("lineitem", "orders", "customer")
+# a shipping mode no generated row has: it sorts inside the dictionary, so
+# the table's dictionary grows out of order
+NEW_SHIPMODE = "BOAT"
+# the new built-ins over lineitem (phase 15), with their numpy oracles in
+# oracle_functions: DECIMAL results exact, DOUBLE sums to FUNC_REL_TOL
+FUNCTIONS_SQL = (
+    "select count(*), sum(floor(l_extendedprice)), sum(ceil(l_tax)), "
+    "sum(ceiling(l_extendedprice / 7)), sum(round(l_extendedprice)), "
+    "sum(round(l_extendedprice, 1)), sum(truncate(l_extendedprice)), "
+    "sum(abs(l_extendedprice - 50000)), sum(sign(l_discount - 0.05)), "
+    "sum(greatest(l_quantity, 25)), sum(least(l_tax, l_discount)), "
+    "sum(sqrt(l_quantity)), sum(ln(l_extendedprice)), sum(log10(l_extendedprice)), "
+    "sum(exp(l_discount)), sum(log2(l_quantity)), sum(cbrt(l_extendedprice)), "
+    "sum(power(l_discount, 2)), sum(quarter(l_shipdate)), sum(week(l_shipdate)), "
+    "sum(day_of_week(l_shipdate)), sum(dow(l_commitdate)), sum(day_of_year(l_shipdate)), "
+    "sum(doy(l_receiptdate)), sum(length(l_shipmode)), "
+    "count_if(upper(l_shipmode) = 'MAIL'), count_if(lower(l_shipinstruct) = 'none') "
+    "from lineitem")
+# a DOUBLE sum over 6 M rows adds in an order that changes with the drivers
+FUNC_REL_TOL = 1e-9
+
+
+def _host_bytes(pages) -> int:
+    """Bytes the stored pages hold in host RAM (data, NULL flags, masks)."""
+    total = 0
+    for p in pages:
+        total += p.mask.numel() * p.mask.element_size()
+        for b in p.blocks:
+            total += b.data.numel() * b.data.element_size()
+            if b.nulls is not None:
+                total += b.nulls.numel() * b.nulls.element_size()
+    return total
+
+
+def _table_pages(runner, table: str):
+    """The host pages ``memory.default.<table>`` holds."""
+    from presto_tpu_torch.spi.connector import SchemaTableName
+
+    mem = runner.catalogs.get("memory").metadata()
+    return mem.table_data(mem.get_table_handle(SchemaTableName("default", table))).pages
+
+
+def _table_dictionary(runner, table: str, column: str):
+    """The dictionary of ``memory.default.<table>``'s ``column``."""
+    from presto_tpu_torch.spi.connector import SchemaTableName
+
+    mem = runner.catalogs.get("memory").metadata()
+    handle = mem.get_table_handle(SchemaTableName("default", table))
+    return mem.get_table_metadata(handle).column(column).dictionary
+
+
+def oracle_functions(schema: str):
+    """FUNCTIONS_SQL in numpy over the port's generator: DECIMAL columns are
+    scaled int64 (scale 2), so floor/ceil/round/truncate are integer
+    arithmetic, exact; date parts through the distinct dates' Python
+    ``datetime`` values."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    sf = SCHEMAS[schema]
+    li = g.lineitem_for_orders(0, g.table_row_count("orders", sf), sf,
+                               ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                                "l_shipdate", "l_commitdate", "l_receiptdate", "l_shipmode",
+                                "l_shipinstruct"])
+    q, e, d, t = (li[c].astype(np.int64) for c in ("l_quantity", "l_extendedprice",
+                                                    "l_discount", "l_tax"))
+
+    def dec(units):  # a DECIMAL(.., 2) sum of scaled integers
+        return Decimal(int(units.sum())) / 100
+
+    def floor_div(a, m):
+        return np.where(a >= 0, a // m, -((-a + m - 1) // m))
+
+    def ceil_div(a, m):
+        return np.where(a >= 0, (a + m - 1) // m, -((-a) // m))
+
+    def round_half_away(a, m):
+        return np.sign(a) * ((np.abs(a) + m // 2) // m)
+
+    # ceiling(l_extendedprice / 7): DECIMAL / BIGINT divides as DOUBLE
+    ext7 = np.ceil((e / 100.0) / 7.0)
+    epoch = datetime.date(1970, 1, 1)
+
+    def parts(days):
+        uniq, inv = np.unique(days, return_inverse=True)
+        ds = [epoch + datetime.timedelta(days=int(x)) for x in uniq]
+        quarter = np.asarray([(x.month - 1) // 3 + 1 for x in ds])[inv]
+        week = np.asarray([x.isocalendar()[1] for x in ds])[inv]
+        dow = np.asarray([x.isoweekday() for x in ds])[inv]
+        doy = np.asarray([x.timetuple().tm_yday for x in ds])[inv]
+        return quarter, week, dow, doy
+
+    sq, sw, sdow, sdoy = parts(li["l_shipdate"])
+    _, _, cdow, _ = parts(li["l_commitdate"])
+    _, _, _, rdoy = parts(li["l_receiptdate"])
+    modes = np.asarray(g.DICT_SHIP_MODE.values, dtype=object)[li["l_shipmode"]]
+    instr = np.asarray(g.DICT_SHIP_INSTRUCT.values, dtype=object)[li["l_shipinstruct"]]
+    lengths = np.asarray([len(m) for m in g.DICT_SHIP_MODE.values])[li["l_shipmode"]]
+    return [
+        len(q),
+        dec(floor_div(e, 100) * 100), dec(ceil_div(t, 100) * 100), float(ext7.sum()),
+        dec(round_half_away(e, 100) * 100), dec(round_half_away(e, 10) * 10),
+        dec(np.sign(e) * (np.abs(e) // 100) * 100), dec(np.abs(e - 5000000)),
+        int(np.sign(d - 5).sum()), dec(np.maximum(q, 2500)), dec(np.minimum(t, d)),
+        float(np.sqrt(q / 100.0).sum()), float(np.log(e / 100.0).sum()),
+        float(np.log10(e / 100.0).sum()), float(np.exp(d / 100.0).sum()),
+        float(np.log2(q / 100.0).sum()), float(np.cbrt(e / 100.0).sum()),
+        float(((d / 100.0) ** 2).sum()), int(sq.sum()), int(sw.sum()), int(sdow.sum()),
+        int(cdow.sum()), int(sdoy.sum()), int(rdoy.sum()), int(lengths.sum()),
+        int((modes == "MAIL").sum()), int((instr == "NONE").sum()),
+    ]
+
+
+def _check_function_row(got, want) -> None:
+    import math
+
+    if len(got) != len(want):
+        raise AssertionError(f"FUNCTIONS: {len(got)} columns, want {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if isinstance(b, float):
+            ok = isinstance(a, float) and math.isclose(a, b, rel_tol=FUNC_REL_TOL, abs_tol=0.0)
+        else:
+            ok = type(a) is type(b) and a == b
+        if not ok:
+            raise AssertionError(f"FUNCTIONS column {i}: {a!r} != {b!r}")
+
+
+def oracle_collect(schema: str) -> dict:
+    """Phase 15's collect groupings in numpy: each customer's order keys,
+    the shipping-mode counts per (returnflag, linestatus), and each
+    region's {nation name: key}."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    sf = SCHEMAS[schema]
+    o = _table("orders", sf, ["o_orderkey", "o_custkey"])
+    order = np.lexsort((o["o_orderkey"], o["o_custkey"]))
+    ck, ok = o["o_custkey"][order], o["o_orderkey"][order]
+    starts = np.flatnonzero(np.r_[True, ck[1:] != ck[:-1]])
+    bounds = np.r_[starts, len(ck)]
+    arrays = {int(ck[a]): ok[a:b].tolist() for a, b in zip(bounds[:-1], bounds[1:])}
+    li = g.lineitem_for_orders(0, g.table_row_count("orders", sf), sf,
+                               ["l_returnflag", "l_linestatus", "l_shipmode"])
+    hist = {}
+    keys = np.stack([li["l_returnflag"], li["l_linestatus"], li["l_shipmode"]], 1)
+    uniq, counts = np.unique(keys, axis=0, return_counts=True)
+    for (f, st, m), c in zip(uniq.tolist(), counts.tolist()):
+        k = (g.DICT_RETURNFLAG.values[f], g.DICT_LINESTATUS.values[st])
+        hist.setdefault(k, {})[g.DICT_SHIP_MODE.values[m]] = c
+    n = _table("nation", sf, ["n_nationkey", "n_name", "n_regionkey"])
+    maps = {}
+    for k, nm, r in zip(n["n_nationkey"].tolist(), n["n_name"].tolist(),
+                        n["n_regionkey"].tolist()):
+        maps.setdefault(r, {})[g.DICT_NATION_NAME.values[nm]] = k
+    return {"arrays": arrays, "hist": hist, "maps": maps}
+
+
+def run_write_phase(device, schema: str = "sf1") -> dict:
+    """Phase 15: writes at TPC-H ``schema`` with ``hash_kernels="pallas"``
+    under the session defaults, in one runner (its ``memory`` catalog):
+    CTAS of ``lineitem``, ``orders`` and ``customer`` on the scaled writers,
+    Q3 over the written tables and mixed with ``tpch`` (the kernels' path:
+    the probe held bit-identical at the first shape a stored page gave it),
+    a CTAS of Q3, INSERT SELECT, INSERT VALUES that grows a table's
+    dictionary out of order, a blackhole CTAS, the collecting aggregates,
+    the new built-ins, and DROP. Each step runs cold and warm (the warm
+    step's launch counters set to 0 just before it); every result against
+    a numpy count or oracle. Returns the records."""
+    import torch
+
+    from presto_tpu_torch.block import Block, Page
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    runner = sql_runner(device, "pallas", schema)
+    out = {}
+
+    def timed_run(sql):
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        sync()
+        return res, time.perf_counter() - t0
+
+    def warm(label, sql, setup=None):
+        """A cold run, then ``setup`` and the warm run, counters zeroed."""
+        res, cold_s = timed_run(sql)
+        if setup is not None:
+            setup()
+        before = {k: METRICS.counter_value(k) for k in COUNTERS}
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        res, warm_s = timed_run(sql)
+        launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
+        if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+            raise AssertionError(f"WRITE {label}: a fallback: {delta}")
+        out[label] = {"rows": res.rows, "launches": launches, "delta": delta,
+                      "cold_s": cold_s, "warm_s": warm_s}
+        return res
+
+    # 1. CTAS of three tables on the scaled writers (warm: drop, write again)
+    sf = SCHEMAS[schema]
+    ship = g.lineitem_for_orders(0, g.table_row_count("orders", sf), sf,
+                                 ["l_shipdate", "l_shipmode"])
+    n_li = len(ship["l_shipdate"])
+    RESIDENT_CACHE.clear()
+    for t in WRITE_TABLES:
+        src = f"select * from tpch.{schema}.{t}"
+        n_want = n_li if t == "lineitem" else g.table_row_count(t, sf)
+        writers = runner._scaled_writer_count(runner.plan_sql(src))
+        res = warm(f"ctas {t}", f"create table memory.default.{t} as {src}",
+                   setup=lambda t=t: runner.execute(f"drop table memory.default.{t}"))
+        if res.rows != [[n_want]]:
+            raise AssertionError(f"WRITE ctas {t}: {res.rows} rows, want {n_want}")
+        pages = _table_pages(runner, t)
+        pinned = all(p.mask.is_pinned() for p in pages) if on_card else None
+        rec = out[f"ctas {t}"]
+        log(f"WRITE ctas {t} {schema}: {n_want} rows; writer drivers {writers}; memory "
+            f"pages {len(pages)}, host bytes {_host_bytes(pages)} (pinned {pinned}); cold wall "
+            f"{rec['cold_s']:.4f}s ({n_want / rec['cold_s']:.0f} rows/s), warm wall "
+            f"{rec['warm_s']:.4f}s ({n_want / rec['warm_s']:.0f} rows/s)")
+    if schema == "sf1" and runner._scaled_writer_count(
+            runner.plan_sql(f"select * from tpch.{schema}.lineitem")) != 4:
+        raise AssertionError("WRITE: lineitem did not take 4 scaled writers")
+
+    # the upload of the stored pages: pinned (as stored) against unpinned copies
+    scan_sql = "select count(*), sum(l_quantity) from memory.default.lineitem"
+    pinned_res, pinned_s = timed_run(scan_sql)
+    pinned_res, pinned_s = timed_run(scan_sql)
+    li_pages = _table_pages(runner, "lineitem")
+    stored = list(li_pages)
+    li_pages[:] = [Page(tuple(Block(b.type, b.data.clone(), None if b.nulls is None
+                                    else b.nulls.clone(), b.dictionary) for b in p.blocks),
+                        p.mask.clone()) for p in stored]
+    unpinned_res, unpinned_s = timed_run(scan_sql)
+    unpinned_res, unpinned_s = timed_run(scan_sql)
+    li_pages[:] = stored
+    if unpinned_res.rows != pinned_res.rows:
+        raise AssertionError("WRITE: unpinned pages read differently")
+    log(f"WRITE scan of memory lineitem {schema}: stored pinned {pinned_s:.4f}s, "
+        f"unpinned copies {unpinned_s:.4f}s (warm walls of {scan_sql!r})")
+
+    # 2. Q3 over the written tables (sorted builds: no unique column sets)
+    want_q3 = oracle_q3(schema)[0]
+    mem_q3 = QUERIES[3].replace("from customer, orders, lineitem",
+                                "from memory.default.customer, memory.default.orders, "
+                                "memory.default.lineitem")
+    res = warm("q3 memory", mem_q3)
+    if not same_rows(res.rows, want_q3):
+        raise AssertionError(f"WRITE q3 memory: rows differ from the oracle:\n{res.rows[:3]}")
+    # 3. the mixed query: the stored lineitem probes tpch's orders table
+    mixed = QUERIES[3].replace("from customer, orders, lineitem",
+                               f"from tpch.{schema}.customer, tpch.{schema}.orders, "
+                               "memory.default.lineitem")
+    capture = KernelCapture()
+    with capture:
+        timed_run(mixed)
+    res = warm("q3 mixed", mixed)
+    if not same_rows(res.rows, want_q3):
+        raise AssertionError(f"WRITE q3 mixed: rows differ from the oracle:\n{res.rows[:3]}")
+    rec = out["q3 mixed"]
+    if rec["delta"]["pallas.join_builds"] <= 0 or (on_card and rec["launches"]["probe"] <= 0):
+        raise AssertionError(f"WRITE q3 mixed: the kernels' path was not taken: {rec}")
+    if on_card and rec["launches"]["insert"] != rec["delta"]["pallas.join_builds"] + \
+            rec["delta"]["pallas.agg_pages"]:
+        raise AssertionError(f"WRITE q3 mixed: insert launches {rec['launches']}")
+    if not capture.by_table:
+        raise AssertionError("WRITE q3 mixed: no probe of a stored page was captured")
+    # the stored lineitem probes the larger (orders) table
+    args = max(capture.by_table.values(), key=lambda a: a[1].shape[0])
+    rec["probe"] = check_probe_at(device, "phase 15 mixed Q3 (a stored lineitem page)", *args)
+
+    # 4. CTAS of Q3 over tpch, read back in its order
+    res = warm("ctas q3", f"create table memory.default.q3 as {QUERIES[3]}",
+               setup=lambda: runner.execute("drop table memory.default.q3"))
+    back = runner.execute("select * from memory.default.q3 order by revenue desc, o_orderdate")
+    if res.rows != [[len(want_q3)]] or not same_rows(back.rows, want_q3):
+        raise AssertionError(f"WRITE ctas q3: {res.rows}, read back {back.rows[:3]}")
+
+    # 5. INSERT SELECT: the count returned and the table's new count(*)
+    n_ins = int((ship["l_shipdate"] >= civil_day(1998, 1, 1)).sum())
+    res, ins_s = timed_run(f"insert into memory.default.lineitem select * from "
+                           f"tpch.{schema}.lineitem where l_shipdate >= date '1998-01-01'")
+    count = runner.execute("select count(*) from memory.default.lineitem").rows
+    if res.rows != [[n_ins]] or count != [[n_li + n_ins]]:
+        raise AssertionError(f"WRITE insert: {res.rows} and {count}, want {n_ins}, "
+                             f"{n_li + n_ins}")
+    log(f"WRITE insert select {schema}: {n_ins} rows in {ins_s:.4f}s "
+        f"({n_ins / ins_s:.0f} rows/s); memory lineitem {len(_table_pages(runner, 'lineitem'))} "
+        f"pages, {n_li + n_ins} rows")
+
+    # 6. INSERT VALUES with a NULL and a new shipping mode into a narrow
+    # table (VALUES literals are BIGINT and DECIMAL(p, s): the full
+    # lineitem's INTEGER and DECIMAL(12,2) columns refuse them, as in the
+    # reference)
+    try:
+        runner.execute("insert into memory.default.lineitem values (1, 2, 3, 4, 5.00, 6.00, "
+                       "0.05, 0.01, 'R', 'F', date '1998-12-01', date '1998-12-02', "
+                       "date '1998-12-03', 'NONE', 'BOAT', null)")
+        raise AssertionError("WRITE: a VALUES row of lineitem was not refused")
+    except ValueError as e:
+        if str(e) != "INSERT type mismatch on l_linenumber: bigint vs integer":
+            raise
+    runner.execute("create table memory.default.modes as "
+                   "select l_orderkey, l_shipmode, l_comment from memory.default.lineitem")
+    probe_sql = (f"select min(l_shipmode), max(l_shipmode), count(l_shipmode), count(*), "
+                 f"count_if(l_shipmode = '{NEW_SHIPMODE}') from memory.default.modes")
+    n_modes = n_li + n_ins
+    mode_names = np.asarray(g.DICT_SHIP_MODE.values, dtype=object)
+    lo_mode, hi_mode = min(mode_names[np.unique(ship["l_shipmode"])]), \
+        max(mode_names[np.unique(ship["l_shipmode"])])
+    before_rows = runner.execute(probe_sql).rows
+    if before_rows != [[lo_mode, hi_mode, n_modes, n_modes, 0]]:
+        raise AssertionError(f"WRITE values before: {before_rows}")
+    res, val_s = timed_run(f"insert into memory.default.modes values "
+                           f"(0, '{NEW_SHIPMODE}', null), (0, null, null)")
+    after_rows = runner.execute(probe_sql).rows
+    hit = runner.execute(f"select l_orderkey, l_comment from memory.default.modes "
+                         f"where l_shipmode = '{NEW_SHIPMODE}'").rows
+    d = _table_dictionary(runner, "modes", "l_shipmode")
+    if res.rows != [[2]] or after_rows != [[lo_mode, hi_mode, n_modes + 1, n_modes + 2, 1]] \
+            or hit != [[0, None]] or d.is_sorted():
+        raise AssertionError(f"WRITE values after: {res.rows} {after_rows} {hit} "
+                             f"sorted={d.is_sorted()}")
+    log(f"WRITE insert values {schema}: 2 rows in {val_s:.4f}s; l_shipmode dictionary "
+        f"{len(d)} entries, sorted {d.is_sorted()}; min/max {after_rows[0][:2]}, "
+        f"'{NEW_SHIPMODE}' rows {after_rows[0][4]}")
+
+    # 7. blackhole
+    res, bh_s = timed_run(f"create table blackhole.default.lineitem as "
+                          f"select * from tpch.{schema}.lineitem")
+    if res.rows != [[n_li]]:
+        raise AssertionError(f"WRITE blackhole: {res.rows}, want {n_li}")
+    log(f"WRITE blackhole ctas lineitem {schema}: {n_li} rows in {bh_s:.4f}s "
+        f"({n_li / bh_s:.0f} rows/s)")
+
+    # 8. the collecting aggregates, as multisets against numpy
+    oc = oracle_collect(schema)
+    res = warm("collect array_agg", "select o_custkey, array_agg(o_orderkey), "
+               "cardinality(array_agg(o_orderkey)) from orders group by 1")
+    got = {r[0]: r for r in res.rows}
+    if len(got) != len(oc["arrays"]) or any(
+            sorted(got[k][1]) != v or got[k][2] != len(v) for k, v in oc["arrays"].items()):
+        raise AssertionError("WRITE collect array_agg: groups differ from numpy")
+    res = warm("collect histogram", "select l_returnflag, l_linestatus, histogram(l_shipmode), "
+               "count(*) from lineitem group by 1, 2")
+    got = {(r[0], r[1]): (r[2], r[3]) for r in res.rows}
+    if got != {k: (v, sum(v.values())) for k, v in oc["hist"].items()}:
+        raise AssertionError(f"WRITE collect histogram: {got} != {oc['hist']}")
+    res = warm("collect map_agg", "select n_regionkey, map_agg(n_name, n_nationkey) "
+               "from nation group by 1")
+    if {r[0]: r[1] for r in res.rows} != oc["maps"]:
+        raise AssertionError(f"WRITE collect map_agg: {res.rows}")
+
+    # 9. the new built-ins
+    res = warm("functions", FUNCTIONS_SQL)
+    _check_function_row(res.rows[0], oracle_functions(schema))
+
+    # 10. DROP every table
+    for t in WRITE_TABLES + ("q3", "modes"):
+        runner.execute(f"drop table memory.default.{t}")
+    runner.execute("drop table blackhole.default.lineitem")
+    left = runner.execute("show tables from memory.default").rows
+    if left:
+        raise AssertionError(f"WRITE: tables left after DROP: {left}")
+    for label in ("q3 memory", "q3 mixed", "ctas q3", "collect array_agg",
+                  "collect histogram", "collect map_agg", "functions"):
+        rec = out[label]
+        log(f"WRITE {label} {schema}: {len(rec['rows'])} rows equal to the numpy oracle; "
+            f"cold wall {rec['cold_s']:.4f}s, warm wall {rec['warm_s']:.4f}s; launches "
+            f"{rec['launches']}; join builds {int(rec['delta']['pallas.join_builds'])}, "
+            f"grouped pages {int(rec['delta']['pallas.agg_pages'])}")
+    return out
+
+
+def check_probe_at(device, label: str, slot_keys, slot_rows, keys, mask, trips,
+                   reps: int = 20, plain_reps: int = 3) -> dict:
+    """The probe against its plain version, bit for bit, at one captured
+    shape, with its times and its bound; returns them."""
+    from presto_tpu_torch.ops import pallas_hash as ph
+
+    args = (slot_keys, slot_rows, keys, mask, trips)
+    got = ph.probe_table(*args)
+    err = _max_abs_err([(got, ph.probe_table_reference(*args))])
+    if err != 0:
+        raise AssertionError(f"{label} probe differs from its plain version: {err}")
+    nbytes = probe_bytes(*args)
+    out = {"ms": time_ms(lambda: ph.probe_table(*args), reps, device),
+           "device_ms": device_ms(ph.probe_table, args, reps),
+           "plain_ms": time_ms(lambda: ph.probe_table_reference(*args), plain_reps, device),
+           "bound_ms": nbytes / HBM_RATE * 1e3, "max_abs_err": err}
+    log(f"KERNEL probe at the {label} shape: slots={slot_rows.shape[0]} n={keys.shape[0]} "
+        f"live={int(mask.sum())} trips={trips}: bit-identical, {int((got >= 0).sum())} hits; "
+        f"kernel {out['ms']:.4f} ms (device {out['device_ms']:.4f} ms), plain "
+        f"{out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ({nbytes} bytes)")
+    return out
+
+
 def check_stage_failure(device) -> None:
     """A scan stage that raises on a pool thread surfaces in the consumer
     (``ScanPipeline._fail`` puts the error on the output queue) and stays
@@ -2208,6 +2637,7 @@ def main() -> int:
         check_ds_cpu_rows(ds_records)
         setop_records = run_setops_phase(device)
         p14_records = run_p14_phase(device)
+        write_records = run_write_phase(device)
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -2225,7 +2655,9 @@ def main() -> int:
                     **{f"SQL SETOP {label}": rec["launches"][k]
                        for label, rec in setop_records.items()},
                     **{f"SQL P14 {label}": rec["launches"][k]
-                       for label, rec in p14_records.items()}}}
+                       for label, rec in p14_records.items()},
+                    **{f"SQL WRITE {label}": rec["launches"][k]
+                       for label, rec in write_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -83,6 +83,28 @@ class Dictionary:
         out[~mask] = None
         return out
 
+    def extend(self, values: Sequence) -> List[int]:
+        """Codes for ``values``, appending the entries this dictionary lacks
+        (INSERT re-encoding into a table's private dictionary). Existing
+        codes never change; the reverse index stays valid, and the ranks
+        and ``is_sorted`` caches are re-derived at the new length."""
+        pos = self.index()
+        out = []
+        new_vals = None
+        for v in values:
+            code = pos.get(v)
+            if code is None:
+                if new_vals is None:
+                    new_vals = list(self.values)
+                code = len(new_vals)
+                new_vals.append(v)
+                pos[v] = code
+            out.append(code)
+        if new_vals is not None:
+            self.values = _object_array(new_vals)
+            self._index = pos
+        return out
+
     def sort_keys(self) -> np.ndarray:
         """Rank of each code in lexicographic order, for ORDER BY on varchar."""
         if self._ranks is None or len(self._ranks) != len(self.values):
@@ -130,6 +152,43 @@ class Dictionary:
         return f"Dictionary({len(self.values)} entries)"
 
 
+def _object_array(values: Sequence) -> np.ndarray:
+    """A 1-D object array of ``values`` (tuples stay elements, never a
+    second dimension)."""
+    arr = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        arr[i] = v
+    return arr
+
+
+class ArrayValues(Dictionary):
+    """Host store of ragged ARRAY/MAP values behind int32 handles (the
+    reference's ``block.ArrayValues``): the collecting aggregates install
+    each group's values here at the output boundary, and the column holds
+    the handles, as a varchar column holds dictionary codes. ``mode``
+    picks the decoding: "array" gives lists, "map" dicts. Entries are
+    tuples (a map's of (key, value) pairs), so equal values share a
+    handle through the inherited index."""
+
+    def __init__(self, mode: str = "array"):
+        super().__init__([])
+        self.mode = mode
+
+    def lookup(self, codes: np.ndarray) -> np.ndarray:
+        out = np.empty(len(codes), dtype=object)
+        for i, c in enumerate(np.asarray(codes, dtype=np.int64)):
+            if c < 0:
+                out[i] = None
+            elif self.mode == "map":
+                out[i] = dict(self.values[c])
+            else:
+                out[i] = list(self.values[c])
+        return out
+
+    def __repr__(self):
+        return f"ArrayValues({len(self.values)} {self.mode} entries)"
+
+
 @dataclasses.dataclass
 class Block:
     """One column: dense tensor + optional null mask + optional dictionary."""
@@ -169,7 +228,9 @@ class Page:
 
     def to_pylists(self) -> List[list]:
         """Rows of decoded Python values (host side). Live rows are gathered
-        where the page lies, so only they cross to the host."""
+        where the page lies, so only they cross to the host. A dictionary
+        column decodes through its dictionary: strings, or the lists and
+        dicts of an ``ArrayValues`` handle column."""
         idx = torch.nonzero(self.mask).squeeze(1)
         cols = []
         for b in self.blocks:

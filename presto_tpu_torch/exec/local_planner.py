@@ -149,6 +149,8 @@ class LocalExecutionPlan:
     # the segment compiler's decisions: one entry per run of page-local
     # operators it considered, fused or not, with the reason
     segment_decisions: List[dict] = dataclasses.field(default_factory=list)
+    # the output columns' dictionaries (a CTAS copies them for its table)
+    output_dicts: List[Optional[Dictionary]] = dataclasses.field(default_factory=list)
 
     def create_drivers(self) -> List[Driver]:
         """``parallel_drivers`` drivers per pipeline (one unless the head
@@ -204,7 +206,7 @@ class LocalExecutionPlanner:
                 if isinstance(fac, TableScanOperatorFactory) and fac.scan_options is None:
                     fac.scan_options = self.scan_options
         return LocalExecutionPlan(self.pipelines, sink, root.column_names,
-                                  [s.type for s in chain.symbols], decisions)
+                                  [s.type for s in chain.symbols], decisions, list(chain.dicts))
 
     # --------------------------------------------------- driver parallelism
 

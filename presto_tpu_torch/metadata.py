@@ -63,6 +63,10 @@ class Session:
         # in-flight bytes per scan (staged and uploaded-unconsumed);
         # 0 = scan_pipeline.DEFAULT_PREFETCH_BYTES
         "scan_prefetch_bytes": 0,
+        # scaled writers: INSERT/CTAS fan out over K writer drivers (one
+        # sink each) when the source is at least K times this many rows
+        "scaled_writers": True,
+        "writer_min_rows_per_driver": 1 << 20,
     }
 
     def get(self, name: str, default=None):
@@ -71,6 +75,12 @@ class Session:
         if name in self.DEFAULTS:
             return self.DEFAULTS[name]
         return default
+
+    def with_properties(self, **kw) -> "Session":
+        """A copy with ``kw`` over this session's properties."""
+        props = dict(self.properties)
+        props.update(kw)
+        return dataclasses.replace(self, properties=props)
 
     def check_supported(self) -> None:
         """Raise NotImplementedError naming the first property the port

@@ -17,8 +17,11 @@ a struct of arrays indexed by group id.
   (HyperLogLog, m = 2048) and ``approx_percentile`` (a 769-bucket log
   histogram, the fraction a literal parameter).
 
-The collecting aggregates (``array_agg``, ``map_agg``, ``histogram``) and
-plugin aggregates are not ported and raise naming themselves.
+- the collecting aggregates ``array_agg``, ``map_agg`` and ``histogram``:
+  one "collect" state column of int32 handles into an ``ArrayValues``
+  store, filled by ``ops/collect_agg.CollectAggregationBuilder``.
+
+Plugin aggregates are not ported and raise naming themselves.
 """
 from __future__ import annotations
 
@@ -69,8 +72,8 @@ class AggregateFunction:
     splittable: bool = True
     # cache identity (utils/kernel_cache.agg_call_key), set by resolve_aggregate
     fingerprint: tuple = ()
-    # string-producing aggregates carry their output dictionary here; none
-    # of the ported ones produces strings
+    # the output block's dictionary: the ArrayValues store of a collecting
+    # aggregate
     output_dict: object = None
     # which argument indices' NULLs exclude the row; None = all of them.
     # min_by/max_by skip only NULL ordering values: a NULL payload can win
@@ -188,8 +191,21 @@ def _resolve_aggregate(name: str, arg_types: Sequence[Type], distinct: bool,
     if name in ("min_by", "max_by"):
         return _min_max_by(name, arg_types)
     if name in ("array_agg", "map_agg", "histogram"):
-        raise NotImplementedError(
-            f"aggregate {name} is not ported yet (ops/collect_agg.py, ARRAY/MAP blocks)")
+        # the collecting aggregates (ops/collect_agg.py): the state column is
+        # the int32 handle into the ArrayValues store made here, which the
+        # output block carries as its dictionary
+        from ..block import ArrayValues
+        from ..types import ArrayType, MapType
+        if name == "array_agg":
+            out_t, store = ArrayType(arg_types[0]), ArrayValues("array")
+        elif name == "map_agg":
+            out_t, store = MapType(arg_types[0], arg_types[1]), ArrayValues("map")
+        else:
+            out_t, store = MapType(arg_types[0], BIGINT), ArrayValues("map")
+        return AggregateFunction(
+            name, out_t, [StateColumn(np.dtype(np.int32), "collect", -1)],
+            None,  # the collect builder takes the rows themselves
+            lambda s: (s[0], s[0] < 0), [], splittable=False, output_dict=store)
     if name in ("stddev", "stddev_samp", "stddev_pop", "variance", "var_samp", "var_pop"):
         return _variance(name, arg_types[0])
     if name in ("bool_or", "bool_and"):

@@ -29,6 +29,7 @@ Anything else raises ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -445,7 +446,169 @@ class ExpressionCompiler:
             return fn, None
         if name in ("substr", "substring"):
             return self._compile_substr(expr)
+        if name == "cardinality":
+            return self._compile_cardinality(expr), None
+        if name in _NUMERIC:
+            return self._compile_math(expr), None
+        if name in ("greatest", "least"):
+            fns = [self._compile(a)[0] for a in expr.args]
+            pick = torch.maximum if name == "greatest" else torch.minimum
+            dtype = _value_dtype(expr.type)
+
+            def fn(datas, nulls):
+                d, n = fns[0](datas, nulls)
+                d = d.to(dtype)
+                for g in fns[1:]:
+                    d2, n2 = g(datas, nulls)
+                    d = pick(d, d2.to(dtype))
+                    n = _combine_nulls(n, n2)  # NULL if any argument is
+                return d, n
+            return fn, None
+        if name in _DATE_PARTS:
+            return self._compile_date_part(expr), None
+        if name in ("length", "upper", "lower"):
+            return self._compile_string_function(expr)
         raise NotImplementedError(f"function {name} is not ported yet")
+
+    def _compile_cardinality(self, expr: Call):
+        """cardinality of an ARRAY/MAP handle column: each entry's length,
+        gathered from the store's contents when the expression is compiled
+        (the page processor recompiles when the store's size changes); a
+        NULL handle (-1) is NULL."""
+        f, d = self._compile(expr.args[0])
+        if d is None or not hasattr(d, "values"):
+            raise NotImplementedError("cardinality() needs an array/map handle column")
+        lengths = _DeviceTable(np.asarray([len(v) for v in d.values] + [0], dtype=np.int64))
+
+        def fn(datas, nulls):
+            data, n = f(datas, nulls)
+            codes = data.to(torch.int64)
+            out = lengths.on(codes.device)[codes.clamp(0, len(lengths) - 1)]
+            neg = codes < 0
+            return out, neg if n is None else (n | neg)
+        return fn
+
+    def _compile_math(self, expr: Call):
+        """The numeric built-ins, with the reference's formulas: DECIMAL
+        round/floor/ceil/truncate work exactly on the scaled integers, and
+        round rounds half away from zero. DOUBLE functions agree with the
+        reference's XLA to within an ulp or two (XLA's transcendental
+        functions are its own, not libm's); log2 is its log(x) * (1/ln 2)."""
+        name = expr.name
+        f = self._compile(expr.args[0])[0]
+        at = expr.args[0].type
+        if name == "round" and isinstance(at, DecimalType):
+            def unary(d, _m=10 ** at.scale):
+                return _round_scaled(d, _m)
+        elif name in ("floor", "ceil", "ceiling") and isinstance(at, DecimalType):
+            m = 10 ** at.scale
+
+            def unary(d, _m=m, _floor=name == "floor"):
+                a = torch.abs(d)
+                if _floor:
+                    q = torch.where(d >= 0, a // _m, -((a + _m - 1) // _m))
+                else:
+                    q = torch.where(d >= 0, (a + _m - 1) // _m, -(a // _m))
+                return (q * _m).to(torch.int64)
+        elif name == "truncate" and isinstance(at, DecimalType):
+            m = 10 ** at.scale
+
+            def unary(d, _m=m):  # toward zero on the scaled integers
+                return (torch.sign(d) * (torch.abs(d) // _m) * _m).to(torch.int64)
+        elif name == "round":
+            def unary(d):  # half away from zero, not half to even
+                return torch.sign(d) * torch.floor(torch.abs(d) + 0.5)
+        elif name == "round2":
+            dig = expr.args[1]
+            if not isinstance(dig, Constant):
+                raise NotImplementedError("round() digits must be a literal")
+            digits = int(dig.value)
+            if is_integral(at) or isinstance(at, DecimalType):
+                shift = (at.scale if isinstance(at, DecimalType) else 0) - digits
+                if shift <= 0:
+                    return f  # already finer than the requested digits
+                def unary(d, _m=10 ** shift):
+                    return _round_scaled(d, _m)
+            else:
+                mul = 10.0 ** digits
+
+                def unary(d, _mul=mul):
+                    return torch.sign(d) * torch.floor(torch.abs(d) * _mul + 0.5) / _mul
+        elif name == "sign":
+            if is_floating(at):
+                def unary(d):  # sign(double) is double; NaN stays NaN
+                    return torch.where(torch.isnan(d), d, torch.sign(d))
+            else:
+                def unary(d):
+                    return torch.sign(d).to(torch.int64)
+        elif name == "power":
+            g = self._compile(expr.args[1])[0]
+
+            def fn(datas, nulls):
+                a, na = f(datas, nulls)
+                b, nb = g(datas, nulls)
+                return torch.pow(a, b), _combine_nulls(na, nb)
+            return fn
+        else:
+            unary = _hash64 if name == "hash_code" else _MATH[name]
+
+        def fn(datas, nulls):
+            d, n = f(datas, nulls)
+            return unary(d), n
+        return fn
+
+    def _compile_date_part(self, expr: Call):
+        """quarter, ISO week, day_of_week (1 = Monday) and day_of_year of a
+        DATE, with the reference's civil-date arithmetic."""
+        f = self._compile(expr.args[0])[0]
+        part = expr.name
+
+        def fn(datas, nulls):
+            d, n = f(datas, nulls)
+            days = d.to(torch.int32)
+            d64 = days.to(torch.int64)
+            if part == "quarter":
+                _, m, _ = _civil_from_days(days)
+                out = (m - 1) // 3 + 1
+            elif part in ("day_of_week", "dow"):
+                out = (d64 + 3) % 7 + 1
+            else:
+                y, _, _ = _civil_from_days(days)
+                doy = d64 - _days_from_civil_vec(y, 1, 1) + 1
+                if part in ("day_of_year", "doy"):
+                    out = doy
+                else:  # ISO 8601 week of the year
+                    w = (doy - ((d64 + 3) % 7 + 1) + 10) // 7
+                    y64 = y.to(torch.int64)
+                    out = torch.where(w < 1, _weeks_in(y64 - 1),
+                                      torch.where(w > _weeks_in(y64), 1, w))
+            return out.to(torch.int64), n
+        return fn
+
+    def _compile_string_function(self, expr: Call):
+        """length, upper and lower over a dictionary column, on the host
+        dictionary: length gathers per-code lengths; upper/lower re-encode
+        into a deduplicated dictionary of the transformed values, since two
+        values may map to one ('abc' and 'ABC')."""
+        name = expr.name
+        f, d = self._compile(expr.args[0])
+        if d is None or not hasattr(d, "values"):
+            raise NotImplementedError(f"{name}() needs a materialized dictionary column")
+        hi = max(len(d.values) - 1, 0)
+        if name == "length":
+            table = _DeviceTable(np.asarray([len(v) for v in d.values], dtype=np.int64))
+            new_dict = None
+        else:
+            xform = str.upper if name == "upper" else str.lower
+            transformed = [xform(v) for v in d.values]
+            new_dict = Dictionary(sorted(set(transformed)))
+            pos = new_dict.index()
+            table = _DeviceTable(np.asarray([pos[v] for v in transformed], dtype=np.int32))
+
+        def fn(datas, nulls):
+            c, n = f(datas, nulls)
+            return table.on(c.device)[c.to(torch.int64).clamp(0, hi)], n
+        return fn, new_dict
 
     def _compile_substr(self, expr: Call):
         """substr over a dictionary column with literal bounds: the
@@ -848,6 +1011,81 @@ def _logic_nulls(is_and: bool, ad, an, bd, bn):
         return (ann & (bnn | bd)) | (bnn & (ann | ad))
     # null OR false = null; null OR true = true
     return (ann & (bnn | ~bd)) | (bnn & (ann | ~ad))
+
+
+def _log2(d: torch.Tensor) -> torch.Tensor:
+    return torch.log(d) * (1.0 / math.log(2.0))
+
+
+def _cbrt(d: torch.Tensor) -> torch.Tensor:
+    return torch.sign(d) * torch.abs(d) ** (1.0 / 3.0)
+
+
+# the unary DOUBLE functions (the analyzer casts their argument to DOUBLE),
+# floor/ceil/truncate of a DOUBLE (of an integral argument the analyzer
+# passes the argument through) and abs of any number; _compile_math
+# handles the rest of _NUMERIC and the DECIMAL arguments
+_MATH = {"sqrt": torch.sqrt, "ln": torch.log, "log10": torch.log10, "exp": torch.exp,
+         "log2": _log2, "cbrt": _cbrt, "floor": torch.floor, "ceil": torch.ceil,
+         "ceiling": torch.ceil, "truncate": torch.trunc, "abs": torch.abs}
+_NUMERIC = tuple(_MATH) + ("round", "round2", "power", "sign", "hash_code")
+_DATE_PARTS = ("quarter", "week", "day_of_week", "dow", "day_of_year", "doy")
+
+_SPLITMIX_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+_SPLITMIX_M1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_SPLITMIX_M2 = 0x94D049BB133111EB - (1 << 64)
+
+
+def _round_scaled(d: torch.Tensor, m: int) -> torch.Tensor:
+    """Scaled integers rounded to a multiple of ``m``, half away from zero."""
+    return (torch.sign(d) * ((torch.abs(d) + m // 2) // m) * m).to(torch.int64)
+
+
+def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical >> of the uint64 bit pattern held in int64."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _hash64(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``hash_code`` (splitmix64), on int64 bits with
+    wrapping adds and multiplies: bit-identical to the uint64 original."""
+    x = x.to(torch.int64) + _SPLITMIX_GOLDEN
+    x = (x ^ _shr(x, 30)) * _SPLITMIX_M1
+    x = (x ^ _shr(x, 27)) * _SPLITMIX_M2
+    return x ^ _shr(x, 31)
+
+
+class _DeviceTable:
+    """A host lookup table, copied to each device it is gathered on once."""
+
+    def __init__(self, arr: np.ndarray):
+        self._host = torch.from_numpy(arr)
+        self._on = {}
+
+    def __len__(self):
+        return int(self._host.shape[0])
+
+    def on(self, device) -> torch.Tensor:
+        if device not in self._on:
+            self._on[device] = self._host.to(device)
+        return self._on[device]
+
+
+def _days_from_civil_vec(y: torch.Tensor, m: int, d: int) -> torch.Tensor:
+    """Vectorized inverse of ``_civil_from_days`` for a fixed month and day."""
+    y = y.to(torch.int64) - (1 if m <= 2 else 0)
+    era = torch.where(y >= 0, y, y - 399) // 400
+    yoe = y - era * 400
+    doy = (153 * (m + (-3 if m > 2 else 9)) + 2) // 5 + d - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return era * 146097 + doe - 719468
+
+
+def _weeks_in(y: torch.Tensor) -> torch.Tensor:
+    """ISO weeks (52 or 53) of int64 years ``y``."""
+    p = (y + y // 4 - y // 100 + y // 400) % 7
+    pm = ((y - 1) + (y - 1) // 4 - (y - 1) // 100 + (y - 1) // 400) % 7
+    return 52 + ((p == 4) | (pm == 3)).to(torch.int64)
 
 
 def _civil_from_days(days: torch.Tensor):

@@ -65,8 +65,13 @@ def mid_stage_fusible(f) -> bool:
 
 
 def terminal_stage_fusible(f) -> bool:
-    """Plan time: can ``f`` end a segment with a per-page contribution?"""
-    return isinstance(f, (HashAggregationOperatorFactory, TopNOperatorFactory))
+    """Plan time: can ``f`` end a segment with a per-page contribution? A
+    collecting aggregation cannot: it keeps raw rows, no per-page partial."""
+    if isinstance(f, HashAggregationOperatorFactory):
+        from .collect_agg import COLLECT_NAMES
+
+        return not any(c.function.name in COLLECT_NAMES for c in f.calls)
+    return isinstance(f, TopNOperatorFactory)
 
 
 class FusedSegmentOperatorFactory(OperatorFactory):

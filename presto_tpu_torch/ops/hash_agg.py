@@ -1,7 +1,8 @@
 """Aggregation of the PyTorch port, SINGLE step: three builders.
 
 Counterpart of ``presto_tpu/ops/hash_agg.py``; ``make_builder`` picks the
-builder as the reference does:
+builder as the reference does (a GROUP BY with a collecting aggregate takes
+``ops/collect_agg.CollectAggregationBuilder`` instead):
 
 1. GLOBAL (no GROUP BY, Q6): scalar states.
 2. DIRECT (every key a small dictionary or boolean domain, Q1): a dense
@@ -777,7 +778,13 @@ DIRECT_DOMAIN_LIMIT = 1 << 16
 def make_builder(key_types, key_domains, calls, max_groups: int = 1 << 20,
                  device="cuda", hash_grouping: str = "off"):
     """The reference's strategy pick: GLOBAL without keys, DIRECT when every
-    key has a known small domain, GROUPED otherwise."""
+    key has a known small domain, GROUPED otherwise; COLLECT whenever a
+    call is a collecting aggregate (``ops/collect_agg.py``)."""
+    from .collect_agg import COLLECT_NAMES, CollectAggregationBuilder
+
+    if any(c.function.name in COLLECT_NAMES for c in calls):
+        # the collectors keep every row; one sorted pass at finish
+        return CollectAggregationBuilder(key_types, calls, device)
     if not key_types:
         return GlobalAggregationBuilder(calls, device)
     # vector (sketch) states make the dense table D x width: the direct

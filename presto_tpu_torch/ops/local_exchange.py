@@ -12,9 +12,13 @@ BLOCKED until the consumer drains it (the task executor parks it), and a
 put into an empty buffer always succeeds. No call here waits: blocking is
 the executor's business, through ``is_blocked``. A producer driver that is
 closed before it finished (its query failed) poisons the buffer, so the
-consumer raises instead of reading a truncated stream. The reference's
-byte-bounded and dealt modes (its scaled writers and mesh exchange) are not
-ported.
+consumer raises instead of reading a truncated stream.
+
+With ``deal_slots`` the buffer DEALS pages round-robin to that many consumer
+slots instead of letting consumers take from one shared list: the scaled
+writers' exchange, where every writer driver must get a share however fast
+the producer runs (``presto_tpu/ops/local_exchange.py`` ``deal_slots``).
+The reference's byte-bounded mode (its mesh exchange) is not ported.
 """
 from __future__ import annotations
 
@@ -29,23 +33,37 @@ from .operator import Operator, OperatorContext, OperatorFactory, timed
 class LocalExchangeBuffer:
     """Shared page queue with producer completion tracking."""
 
-    def __init__(self, n_producers: int, max_pages: int = 0):
+    def __init__(self, n_producers: int, max_pages: int = 0, deal_slots: int = 0):
         self._pages: List[Page] = []
         self._lock = threading.Lock()
         self._open_producers = n_producers
         self.max_pages = max_pages
         self._poison: Optional[BaseException] = None
+        # deal_slots > 0: page i goes to slot i mod deal_slots
+        self.deal_slots = deal_slots
+        self._dealt: List[List[Page]] = [[] for _ in range(deal_slots)]
+        self._deal_next = 0
+
+    def _queue(self, slot: Optional[int]) -> List[Page]:
+        return self._dealt[slot] if slot is not None else self._pages
+
+    def _buffered(self) -> int:
+        return len(self._pages) + sum(len(d) for d in self._dealt)
 
     def put(self, page: Page) -> None:
         with self._lock:
-            self._pages.append(page)
+            if self.deal_slots:
+                self._dealt[self._deal_next].append(page)
+                self._deal_next = (self._deal_next + 1) % self.deal_slots
+            else:
+                self._pages.append(page)
 
     def has_room(self) -> bool:
         if self.max_pages <= 0:
             return True
         with self._lock:
-            return not self._pages or len(self._pages) < self.max_pages \
-                or self._poison is not None
+            n = self._buffered()
+            return n == 0 or n < self.max_pages or self._poison is not None
 
     def poison(self, exc: BaseException) -> None:
         """Fail every later poll: a producer failed or was abandoned."""
@@ -57,21 +75,23 @@ class LocalExchangeBuffer:
         with self._lock:
             self._open_producers -= 1
 
-    def poll(self) -> Optional[Page]:
+    def poll(self, slot: Optional[int] = None) -> Optional[Page]:
+        """The next page of ``slot`` (dealt mode) or of the shared list."""
         with self._lock:
             if self._poison is not None:
                 raise RuntimeError("local exchange buffer poisoned") from self._poison
-            return self._pages.pop(0) if self._pages else None
+            pages = self._queue(slot)
+            return pages.pop(0) if pages else None
 
-    def is_done(self) -> bool:
+    def is_done(self, slot: Optional[int] = None) -> bool:
         with self._lock:
             if self._poison is not None:
                 return False  # poll must run, and raise
-            return not self._pages and self._open_producers <= 0
+            return not self._queue(slot) and self._open_producers <= 0
 
-    def has_output(self) -> bool:
+    def has_output(self, slot: Optional[int] = None) -> bool:
         with self._lock:
-            return self._poison is not None or bool(self._pages) \
+            return self._poison is not None or bool(self._queue(slot)) \
                 or self._open_producers <= 0
 
 
@@ -128,10 +148,12 @@ class LocalExchangeSource(Operator):
     while producers are still running and no page is ready."""
 
     def __init__(self, context: OperatorContext, buffer: LocalExchangeBuffer,
-                 types: List[Type]):
+                 types: List[Type], slot: Optional[int] = None):
         super().__init__(context)
         self.buffer = buffer
         self._types = types
+        self._slot = slot  # dealt-mode consumer slot; None = the shared list
+        self._ready = lambda: buffer.has_output(slot)
 
     @property
     def output_types(self) -> List[Type]:
@@ -144,37 +166,51 @@ class LocalExchangeSource(Operator):
         raise RuntimeError("local exchange source takes no input")
 
     def is_blocked(self):
-        if self.buffer.has_output():
+        if self.buffer.has_output(self._slot):
             return None
-        return self.buffer.has_output
+        return self._ready
 
     @timed("get_output_ns")
     def get_output(self) -> Optional[Page]:
-        page = self.buffer.poll()
+        page = self.buffer.poll(self._slot)
         if page is not None:
             self.context.record_output(page, page.capacity)
         return page
 
     def is_finished(self) -> bool:
-        return self._finishing or self.buffer.is_done()
+        return self._finishing or self.buffer.is_done(self._slot)
 
 
 class LocalExchangeFactory:
     """One per pipeline cut: the buffer its sink and source factories
     share. ``max_pages`` > 0 bounds it (the planner passes 2n + 2 for n
-    producers, so fast producers cannot pile up device pages)."""
+    producers, so fast producers cannot pile up device pages);
+    ``deal_slots`` > 0 deals pages round-robin to that many consumers, each
+    created source taking the next slot."""
 
-    def __init__(self, n_producers: int, max_pages: int = 0):
+    def __init__(self, n_producers: int, max_pages: int = 0, deal_slots: int = 0):
         self.n_producers = n_producers
         self.max_pages = max_pages
+        self.deal_slots = deal_slots
         self._buffer: Optional[LocalExchangeBuffer] = None
+        self._next_slot = 0
         self._lock = threading.Lock()
 
     def buffer(self) -> LocalExchangeBuffer:
         with self._lock:
             if self._buffer is None:
-                self._buffer = LocalExchangeBuffer(self.n_producers, self.max_pages)
+                self._buffer = LocalExchangeBuffer(self.n_producers, self.max_pages,
+                                                   self.deal_slots)
             return self._buffer
+
+    def next_slot(self) -> Optional[int]:
+        """Dealt mode: the consumer slots in creation order; else None."""
+        if not self.deal_slots:
+            return None
+        with self._lock:
+            slot = self._next_slot
+            self._next_slot = (slot + 1) % self.deal_slots
+            return slot
 
 
 class LocalExchangeSinkFactory(OperatorFactory):
@@ -196,4 +232,5 @@ class LocalExchangeSourceFactory(OperatorFactory):
         self.types = types
 
     def create_operator(self) -> Operator:
-        return LocalExchangeSource(self.context(), self.exchange.buffer(), self.types)
+        return LocalExchangeSource(self.context(), self.exchange.buffer(), self.types,
+                                   self.exchange.next_slot())

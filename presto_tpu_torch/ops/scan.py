@@ -17,7 +17,9 @@ Counterpart of ``presto_tpu/ops/scan.py`` ``TableScanOperator``:
   scan path may change a page's tensors in place, or a replay would read
   the change.
 - Narrow wire dtypes are widened to the declared types on the device
-  (``_widen_page``), then the scan's own filter/project runs.
+  (``_widen_page``), then the scan's own filter/project runs, compiled
+  once against the table's column dictionaries: its output blocks carry
+  those, whatever dictionary objects the stored pages hold.
 - A scan given a ``ready`` poll (a UNION's replay of its branches'
   buffers) reports itself blocked through ``is_blocked()`` until the poll
   is true, so the task executor parks its driver instead of spinning.
@@ -193,7 +195,11 @@ class TableScanOperator(Operator):
         self.context.record_input(page, page.capacity)
         page = _widen_page(page)
         if self.processor is not None:
-            page = self.processor(page)
+            # the plan-time layout, as the reference's scan kernel: every
+            # page leaves the scan bound to the table's own dictionaries
+            # (a memory table's CTAS pages carry their source's, whose codes
+            # the table's copy shares)
+            page = self.processor._process(page)
         self.context.record_output(page, page.capacity)
         return page
 

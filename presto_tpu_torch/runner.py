@@ -1,24 +1,37 @@
 """LocalQueryRunner of the PyTorch port: parse -> plan -> optimize -> execute.
 
 Counterpart of ``presto_tpu/runner.py`` ``LocalQueryRunner`` for queries,
-EXPLAIN and SHOW TABLES / SCHEMAS / COLUMNS, in-process, on an explicit
-device: ``LocalQueryRunner(session, catalogs, device="cuda")`` raises
-without CUDA unless it is given ``device="cpu"``. Its default catalog
-registers ``tpch`` and ``tpcds``, as the reference's does; the reference's
-``memory`` and ``blackhole`` catalogs are not ported. The drivers run on a
-threaded ``TaskExecutor`` of ``task_concurrency`` runner threads; when a
-driver fails, every driver is closed (stopping its scan pipeline's stages
-and releasing its pool client) before the error propagates. Tracing,
-access control, writes, EXPLAIN ANALYZE, the memory context and grouped
+EXPLAIN, SHOW TABLES / SCHEMAS / COLUMNS and the writes, in-process, on an
+explicit device: ``LocalQueryRunner(session, catalogs, device="cuda")``
+raises without CUDA unless it is given ``device="cpu"``. Its default
+catalogs are ``tpch``, ``tpcds``, ``memory`` and ``blackhole``, as the
+reference's are. The drivers run on a threaded ``TaskExecutor`` of
+``task_concurrency`` runner threads; when a driver fails, every driver is
+closed (stopping its scan pipeline's stages and releasing its pool client)
+before the error propagates.
+
+CREATE TABLE AS, INSERT (SELECT or VALUES) and DROP TABLE run through
+``_execute_write``: the source query's result sink becomes a table writer
+(``ops/writer.py``) feeding the catalog's page sinks, on K scaled writer
+drivers behind a dealing local exchange when the source is large
+(``_scaled_writer_count``), and the runner commits the sinks' fragments.
+A failing CTAS closes the drivers, aborts the sinks and drops the table.
+
+Tracing, access control, EXPLAIN ANALYZE, the memory context and grouped
 execution are not ported; a statement that needs one raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional
 
+import numpy as np
+
 from . import resolve_device
+from .connectors.blackhole import BlackholeConnector
+from .connectors.memory import MemoryConnector
 from .connectors.tpcds.connector import TpcdsConnector
 from .connectors.tpch.connector import TpchConnector
 from .exec.local_planner import LocalExecutionPlanner
@@ -29,6 +42,30 @@ from .sql.parser import SqlParser
 from .sql.planner.optimizer import optimize
 from .sql.planner.plan import OutputNode, plan_to_text
 from .sql.planner.planner import LogicalPlanner
+from .types import BIGINT
+
+
+def _virtual_remap(source_dict, target_dict):
+    """-> callable(codes, live) -> int32 codes in ``target_dict``'s space,
+    decoding a virtual source dictionary per page and extending the target
+    with values it lacks. Only live rows decode: a masked or NULL row's
+    stale code must never enter the dictionary. One lock, as writer
+    drivers run concurrently."""
+    lock = threading.Lock()
+
+    def remap(codes, live):
+        codes = np.asarray(codes, dtype=np.int64)
+        out = np.zeros(len(codes), dtype=np.int32)
+        sel = np.flatnonzero(np.asarray(live))
+        if len(sel) == 0:
+            return out
+        uniq, inverse = np.unique(codes[sel], return_inverse=True)
+        strings = [str(v) for v in source_dict.lookup(uniq)]
+        with lock:
+            mapped = np.asarray(target_dict.extend(strings), dtype=np.int32)
+        out[sel] = mapped[inverse]
+        return out
+    return remap
 
 
 @dataclasses.dataclass
@@ -91,6 +128,8 @@ class LocalQueryRunner:
             catalogs = CatalogManager()
             catalogs.register("tpch", TpchConnector("tpch"))
             catalogs.register("tpcds", TpcdsConnector("tpcds"))
+            catalogs.register("memory", MemoryConnector("memory"))
+            catalogs.register("blackhole", BlackholeConnector("blackhole"))
         self.catalogs = catalogs
         self.metadata = MetadataManager(catalogs)
         self.session = session or Session(catalog="tpch", schema="tiny")
@@ -142,6 +181,8 @@ class LocalQueryRunner:
             meta = self.metadata.get_table_metadata(handle)
             return QueryResult([[c.name, c.type.name] for c in meta.columns],
                                ["Column", "Type"])
+        if isinstance(stmt, (t.CreateTableAsSelect, t.Insert, t.DropTable)):
+            return self._execute_write(stmt)
         if not isinstance(stmt, t.Query):
             raise NotImplementedError(
                 f"{type(stmt).__name__} statements are not ported to presto_tpu_torch")
@@ -149,14 +190,7 @@ class LocalQueryRunner:
         plan = self.plan_statement(stmt)
         exec_plan = LocalExecutionPlanner(self.metadata, self.session, self.device).plan(plan)
         drivers = exec_plan.create_drivers()
-        try:
-            TaskExecutor(int(self.session.get("task_concurrency"))).execute(drivers)
-        except BaseException:
-            # abandoned drivers tear down (their scan stages stop and their
-            # pool clients are released) before the error propagates
-            for d in drivers:
-                d.close()
-            raise
+        self._run_drivers(drivers)
         stats = {}
         scan = _scan_pipeline_stats(drivers)
         if scan is not None:
@@ -170,3 +204,177 @@ class LocalQueryRunner:
             drivers=[getattr(chain[0], "parallel_drivers", 1) for chain in exec_plan.pipelines],
             resident_pages=sum(getattr(op, "resident_hits", 0)
                                for d in drivers for op in d.operators))
+
+    def _run_drivers(self, drivers) -> None:
+        try:
+            TaskExecutor(int(self.session.get("task_concurrency"))).execute(drivers)
+        except BaseException:
+            # abandoned drivers tear down (their scan stages stop and their
+            # pool clients are released) before the error propagates
+            for d in drivers:
+                d.close()
+            raise
+
+    def _execute_write(self, stmt) -> QueryResult:
+        """CTAS / INSERT / DROP (the reference's ``_execute_write``): plan
+        the source query, swap its result sink for table writers feeding the
+        connector's page sinks, run, and commit the written fragments. The
+        error messages are the reference's, word for word."""
+        from .block import Dictionary
+        from .ops.writer import TableWriterOperatorFactory
+        from .spi.connector import ColumnMetadata, SchemaTableName, TableMetadata
+        from .types import UNKNOWN, ArrayType, MapType
+        from .utils.testing import PageConsumerFactory
+
+        qname = self.metadata.resolve_table_name(
+            self.session, tuple(p.lower() for p in stmt.name))
+        conn = self.metadata.connector(qname.catalog)
+        meta = conn.metadata()
+        name = SchemaTableName(qname.schema, qname.table)
+        handle = meta.get_table_handle(name)
+
+        if isinstance(stmt, t.DropTable):
+            if handle is None:
+                if stmt.exists_ok:
+                    return QueryResult([[0]], ["rows"], [BIGINT])
+                raise ValueError(f"table {qname} does not exist")
+            meta.drop_table(handle)
+            return QueryResult([[0]], ["rows"], [BIGINT])
+
+        # the source plan first: its output schema defines or checks the
+        # target columns
+        self.session.check_supported()
+        plan = self.plan_statement(stmt.query)
+        exec_plan = LocalExecutionPlanner(self.metadata, self.session, self.device).plan(plan)
+        for n, tt in zip(exec_plan.output_names, exec_plan.output_types):
+            if isinstance(tt, (ArrayType, MapType)):
+                # handles index a store that lives as long as the query
+                raise ValueError(
+                    f"column {n}: {tt.name} values cannot be persisted "
+                    f"(array_agg/map_agg outputs are query-scoped)")
+
+        created = False
+        remaps: List[Optional[object]] = []
+        casts: List[Optional[object]] = []
+        if isinstance(stmt, t.CreateTableAsSelect):
+            if handle is not None:
+                if stmt.not_exists:
+                    return QueryResult([[0]], ["rows"], [BIGINT])
+                raise ValueError(f"table {qname} already exists")
+            if len(set(exec_plan.output_names)) != len(exec_plan.output_names):
+                raise ValueError(
+                    f"CTAS output has duplicate column names: {exec_plan.output_names}")
+            # materialized dictionaries are COPIED so the table owns them: a
+            # later INSERT extends the table's, never a source connector's
+            cols = tuple(
+                ColumnMetadata(n, tt, dictionary=(
+                    Dictionary(list(d.values)) if d is not None and hasattr(d, "values")
+                    else d))
+                for n, tt, d in zip(exec_plan.output_names, exec_plan.output_types,
+                                    exec_plan.output_dicts))
+            props = dict(stmt.properties)
+            if props:
+                meta.create_table(TableMetadata(name, cols), properties=props)
+            else:
+                meta.create_table(TableMetadata(name, cols))
+            handle = meta.get_table_handle(name)
+            created = True
+        else:  # INSERT
+            if handle is None:
+                raise ValueError(f"table {qname} does not exist")
+            tcols = list(meta.get_table_metadata(handle).columns)
+            if stmt.columns and list(stmt.columns) != [c.name for c in tcols]:
+                raise ValueError("INSERT column list must match the table "
+                                 "schema (partial inserts not supported)")
+            if len(tcols) != len(exec_plan.output_types):
+                raise ValueError(
+                    f"INSERT has {len(exec_plan.output_types)} columns, "
+                    f"table {qname} has {len(tcols)}")
+            for c, st, sd in zip(tcols, exec_plan.output_types, exec_plan.output_dicts):
+                if st is UNKNOWN or st.name == "unknown":
+                    # a typeless NULL column takes the table column's type
+                    # at write time, its NULL flags riding along
+                    casts.append(c.type)
+                    remaps.append(None)
+                    continue
+                casts.append(None)
+                if c.type.name != st.name:
+                    raise ValueError(
+                        f"INSERT type mismatch on {c.name}: {st.name} vs {c.type.name}")
+                if c.dictionary is None or sd is c.dictionary:
+                    remaps.append(None)
+                    continue
+                # re-encode the source codes into the table's private
+                # dictionary, extending it with values it has not seen
+                if sd is None or not hasattr(c.dictionary, "values"):
+                    raise ValueError(
+                        f"INSERT into dictionary column {c.name} requires a "
+                        "materialized target dictionary")
+                if not hasattr(sd, "values"):
+                    remaps.append(_virtual_remap(sd, c.dictionary))
+                    continue
+                remaps.append(np.asarray(c.dictionary.extend([str(v) for v in sd.values]),
+                                         dtype=np.int32))
+
+        sink_provider = conn.page_sink_provider()
+        if sink_provider is None:
+            raise ValueError(f"catalog {qname.catalog} is not writable")
+        insert_handle = meta.begin_insert(handle)
+        is_insert = isinstance(stmt, t.Insert)
+        if is_insert and any(r is not None for r in remaps):
+            # INSERT pages carry the table's dictionaries; CTAS pages keep
+            # their source dictionaries (the table's copies match them)
+            column_dicts = [c.dictionary for c in meta.get_table_metadata(handle).columns]
+            writer_fac = TableWriterOperatorFactory(9000, sink_provider, insert_handle,
+                                                    remaps=remaps, column_dicts=column_dicts,
+                                                    casts=casts)
+        elif is_insert and any(c is not None for c in casts):
+            writer_fac = TableWriterOperatorFactory(9000, sink_provider, insert_handle,
+                                                    casts=casts)
+        else:
+            writer_fac = TableWriterOperatorFactory(9000, sink_provider, insert_handle)
+        count_sink = PageConsumerFactory(9001, [BIGINT])
+        n_writers = self._scaled_writer_count(plan)
+        if n_writers > 1:
+            from .ops.local_exchange import (LocalExchangeFactory, LocalExchangeSinkFactory,
+                                             LocalExchangeSourceFactory)
+
+            # pages are DEALT round-robin, so every writer gets a share
+            # however fast the source bursts pages into the buffer
+            lx = LocalExchangeFactory(n_producers=1, max_pages=2 * n_writers + 2,
+                                      deal_slots=n_writers)
+            exec_plan.pipelines[-1] = exec_plan.pipelines[-1][:-1] + \
+                [LocalExchangeSinkFactory(9002, lx, [])]
+            for _ in range(n_writers):
+                exec_plan.pipelines.append(
+                    [LocalExchangeSourceFactory(9003, lx, []), writer_fac, count_sink])
+        else:
+            exec_plan.pipelines[-1] = exec_plan.pipelines[-1][:-1] + [writer_fac, count_sink]
+        drivers = exec_plan.create_drivers()
+        try:
+            self._run_drivers(drivers)
+        except BaseException:
+            for s in writer_fac.sinks:
+                s.abort()
+            if created:  # CTAS is atomic: roll the metadata back
+                meta.drop_table(handle)
+            raise
+        fragments = [p for s in writer_fac.sinks for p in s.finish()]
+        meta.finish_insert(insert_handle, fragments)
+        total = sum(r[0] for r in count_sink.rows())
+        return QueryResult([[total]], ["rows"], [BIGINT])
+
+    def _scaled_writer_count(self, plan: OutputNode) -> int:
+        """K writer drivers when the source is large enough that each of K
+        sinks stays above ``writer_min_rows_per_driver`` rows, at most
+        ``task_concurrency``."""
+        if not self.session.get("scaled_writers"):
+            return 1
+        try:
+            from .sql.planner.optimizer import estimate_rows
+            est = estimate_rows(plan.source, self.metadata)
+        except Exception:  # noqa: BLE001 - no estimate: one writer
+            return 1
+        per_driver = int(self.session.get("writer_min_rows_per_driver"))
+        cap = int(self.session.get("task_concurrency"))
+        return max(1, min(cap, int(est // max(per_driver, 1))))

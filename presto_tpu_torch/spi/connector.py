@@ -1,8 +1,12 @@
-"""Connector SPI of the PyTorch port, as much as the TPC-H connector uses.
+"""Connector SPI of the PyTorch port: reads, and the write path.
 
 Counterpart of ``presto_tpu/spi/connector.py``. A page source yields host
-pages (Blocks over CPU tensors that view numpy arrays) of a fixed capacity,
-the tail page padded and masked; the table scan copies them to the device.
+pages (Blocks over CPU tensors) of a fixed capacity, the tail page padded
+and masked; the table scan copies them to the device. A writable catalog's
+``page_sink_provider()`` hands the table writer one ``ConnectorPageSink``
+per writer driver, and its metadata commits the sinks' fragments
+(``create_table``, ``begin_insert``, ``finish_insert``, ``drop_table``);
+a read-only catalog returns None there.
 """
 from __future__ import annotations
 
@@ -179,6 +183,21 @@ class ConcatPageSource(ConnectorPageSource):
             raise err
 
 
+class ConnectorPageSink(abc.ABC):
+    """The write path of INSERT and CTAS: one per writer driver."""
+
+    @abc.abstractmethod
+    def append_page(self, page: Page) -> None:
+        ...
+
+    def finish(self) -> Any:
+        """The written fragments the metadata commit takes."""
+        return None
+
+    def abort(self) -> None:
+        pass
+
+
 @dataclasses.dataclass
 class Constraint:
     """Pushed-down predicate summary (per-column domains)."""
@@ -220,6 +239,22 @@ class ConnectorMetadata(abc.ABC):
         let the planner prove a join build unique."""
         return []
 
+    # the write path (optional)
+    def begin_insert(self, table: TableHandle):
+        raise NotImplementedError(f"{type(self).__name__} does not support inserts")
+
+    def finish_insert(self, handle, fragments) -> None:
+        pass
+
+    def create_table(self, metadata: TableMetadata,
+                     properties: Optional[Dict[str, Any]] = None) -> None:
+        """``properties`` are the CTAS ``WITH (...)`` table properties; a
+        connector that defines none rejects any."""
+        raise NotImplementedError(f"{type(self).__name__} does not support CREATE TABLE")
+
+    def drop_table(self, table: TableHandle) -> None:
+        raise NotImplementedError(f"{type(self).__name__} does not support DROP TABLE")
+
 
 class ConnectorSplitManager(abc.ABC):
     @abc.abstractmethod
@@ -233,6 +268,12 @@ class ConnectorPageSourceProvider(abc.ABC):
     def create_page_source(self, split: Split, columns: Sequence[ColumnHandle],
                            page_capacity: int,
                            constraint: Constraint = Constraint.all()) -> ConnectorPageSource:
+        ...
+
+
+class ConnectorPageSinkProvider(abc.ABC):
+    @abc.abstractmethod
+    def create_page_sink(self, insert_handle) -> ConnectorPageSink:
         ...
 
 
@@ -250,3 +291,7 @@ class Connector(abc.ABC):
     @abc.abstractmethod
     def page_source_provider(self) -> ConnectorPageSourceProvider:
         ...
+
+    def page_sink_provider(self) -> Optional[ConnectorPageSinkProvider]:
+        """None: the catalog is read-only."""
+        return None

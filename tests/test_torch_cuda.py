@@ -370,3 +370,61 @@ def test_set_operations_on_the_card_equal_the_cpu_run(cuda, name):
     into their buffers on the card and the replay scan reads them back."""
     card, _ = _card_against_cpu(cuda, "tpch", CARD_SETOPS[name])
     assert card.rows
+
+
+CARD_WRITES = [
+    "create table memory.default.cw_o as select o_orderkey, o_custkey, o_orderdate, "
+    "o_orderpriority, o_totalprice from orders where o_totalprice > 100000",
+    "insert into memory.default.cw_o select o_orderkey, o_custkey, o_orderdate, "
+    "o_orderpriority, o_totalprice from orders where o_totalprice <= 100000 "
+    "and o_orderkey < 20000",
+    "insert into memory.default.cw_o values (1, null, date '1999-01-01', 'ZNEW', 1.50)",
+    "select o_orderpriority, count(*), sum(o_totalprice), max(o_orderdate) "
+    "from memory.default.cw_o group by 1 order by 1",
+    "select c_name, o_totalprice from memory.default.cw_o join customer "
+    "on o_custkey = c_custkey order by o_totalprice desc, c_name limit 20",
+    "select count(*) from memory.default.cw_o where o_orderpriority = 'ZNEW'",
+]
+
+
+def test_writes_on_the_card_equal_the_cpu_run(cuda):
+    """CTAS of a filtered scan, INSERT SELECT and INSERT VALUES (a NULL and
+    a new dictionary value), then reads that group and join the written
+    table, at ``tpch.tiny``: the card's sinks copy its pages to pinned host
+    RAM and its scans upload them back; every result equals the CPU run's."""
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.runner import LocalQueryRunner
+
+    runs = {}
+    for dev in ("cpu", cuda):
+        r = LocalQueryRunner(Session(catalog="tpch", schema="tiny",
+                                     properties={"hash_kernels": "pallas"}), device=dev)
+        runs[str(dev)] = [r.execute(sql).rows for sql in CARD_WRITES]
+        mem = r.catalogs.get("memory").metadata()
+        pages = mem.table_data(mem.get_table_handle(mem.list_tables("default")[0])).pages
+        assert all(p.mask.device.type == "cpu" for p in pages)
+        if str(dev) != "cpu":
+            assert all(p.mask.is_pinned() for p in pages)
+    cpu, card = runs["cpu"], runs[str(cuda)]
+    for c, g in zip(cpu, card):
+        assert sorted(map(repr, g)) == sorted(map(repr, c))
+    assert card[-1] == [[1]]
+
+
+def test_collect_grouping_on_the_card_equals_the_cpu_run(cuda):
+    """array_agg with cardinality and histogram beside count(*), grouped:
+    arrays compared as multisets."""
+    from collections import Counter
+
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.runner import LocalQueryRunner
+
+    sql = ("select o_custkey, array_agg(o_orderkey), cardinality(array_agg(o_orderkey)), "
+           "histogram(o_orderstatus), count(*) from orders group by o_custkey")
+    runs = {}
+    for dev in ("cpu", cuda):
+        rows = LocalQueryRunner(Session(catalog="tpch", schema="tiny"),
+                                device=dev).execute(sql).rows
+        runs[str(dev)] = sorted((r[0], tuple(sorted(Counter(r[1]).items())), r[2], r[3], r[4])
+                                for r in rows)
+    assert runs[str(cuda)] == runs["cpu"] and len(runs["cpu"]) == 1000

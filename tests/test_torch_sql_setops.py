@@ -16,13 +16,15 @@ buffers once every branch has finished. Held against the reference at
 - ``EXCEPT ALL`` raising as the reference does.
 
 ``python tests/test_torch_sql_setops.py`` runs the sweep of the
-reference's own SQL strings (``sweep``) and prints one line per string and
-the totals: equal, differ, refuse (the port raises NotImplementedError) or
-fail in the reference. Since FULL joins, windows and the sketch aggregates
-were ported it prints 43 equal, 0 differ, 0 refuse and 11 reference
-failures (9 read the ``memory`` catalog's ``na``/``nb``, one has a ``?``
-parameter, one is ``EXCEPT ALL``); ``test_sweep_refuses_nothing`` runs
-every string through the port alone and fails on any refusal.
+reference's own SQL strings (``sweep``: the strings of seven test files,
+through one reference runner and one port runner whose ``memory`` catalogs
+hold the ``na``/``nb``/``ca`` tables those files seed) and prints one line
+per string and the totals: equal, differ, refuse (the port raises
+NotImplementedError) or fail in the reference. Arrays compare as
+multisets. Since the writes and the collecting aggregates were ported it
+prints 97 equal, 0 differ, 0 refuse and 2 reference failures (a ``?``
+parameter and ``EXCEPT ALL``); ``test_sweep_refuses_nothing`` runs every
+string through the port alone and fails on any refusal.
 """
 import ast
 import os
@@ -326,7 +328,8 @@ def test_except_all_raises_as_in_the_reference():
 # ------------------------------------------------------------------ sweep
 
 SWEEP_FILES = ("test_sql_e2e.py", "test_sql_breadth.py", "test_null_semantics.py",
-               "test_tpch_queries.py")
+               "test_tpch_queries.py", "test_functions.py", "test_collect_agg.py",
+               "test_unnest.py")
 
 
 def sweep_strings():
@@ -345,20 +348,62 @@ def sweep_strings():
     return out
 
 
+def seed_sweep_tables(runner):
+    """The tables the swept files seed through the ``memory`` catalog:
+    ``tests/test_null_semantics.py``'s ``na``/``nb`` and
+    ``tests/test_collect_agg.py``'s ``ca``, by CTAS of an empty two-BIGINT
+    table and INSERT VALUES that may carry NULLs, as those files do."""
+    runner.execute("create table memory.default.sweep_seed as "
+                   "select o_orderkey as k, o_custkey as v from tpch.tiny.orders limit 0")
+    rows = {"na": [(1, 10), (2, None), (3, 10), (4, None), (5, 20), (6, None), (7, None)],
+            "nb": [(1, 10), (2, None), (3, 30)],
+            "ca": [(1, 10), (1, None), (2, None), (2, None)]}
+    for name, vals in rows.items():
+        runner.execute(f"create table memory.default.{name} as "
+                       "select * from memory.default.sweep_seed")
+        for k, v in vals:
+            runner.execute(f"insert into memory.default.{name} values "
+                           f"({k}, {'null' if v is None else v})")
+    return runner
+
+
+def sweep_runners():
+    """One seeded reference runner and one seeded port runner (default
+    sessions at ``tpch.tiny``)."""
+    return (seed_sweep_tables(RefRunner(RefSession(catalog="tpch", schema="tiny"))),
+            seed_sweep_tables(LocalQueryRunner(Session(catalog="tpch", schema="tiny"),
+                                               device="cpu")))
+
+
+def sweep_sql(sql: str) -> str:
+    """``tests/test_null_semantics.py`` names its tables ``na``/``nb`` and
+    qualifies them when it runs them (its ``check``); the sweep does too."""
+    if re.search(r"\bfrom na\b", sql.lower()):
+        return re.sub(r"\bn([ab])\b", r"memory.default.n\1", sql)
+    return sql
+
+
+def canon_rows(rows):
+    """Rows with every array as a multiset: element order inside an array is
+    engine-defined."""
+    return [[("array", sorted(map(repr, v))) if isinstance(v, list) else v for v in r]
+            for r in rows]
+
+
 def sweep():
     """(string, outcome, detail) per string: ``equal``, ``differ``,
     ``refuse`` (the port raises NotImplementedError) or ``reference fails``
-    (the reference raises at tpch.tiny). Default sessions."""
+    (the reference raises at tpch.tiny). Default sessions, seeded runners."""
+    ref, port = sweep_runners()
     results = []
     for sql in sweep_strings():
         try:
-            want = RefRunner(RefSession(catalog="tpch", schema="tiny")).execute(sql).rows
+            want = canon_rows(ref.execute(sweep_sql(sql)).rows)
         except Exception as e:  # noqa: BLE001 - recorded as the outcome
             results.append((sql, "reference fails", f"{type(e).__name__}: {e}"))
             continue
         try:
-            got = LocalQueryRunner(Session(catalog="tpch", schema="tiny"),
-                                   device="cpu").execute(sql).rows
+            got = canon_rows(port.execute(sweep_sql(sql)).rows)
         except NotImplementedError as e:
             results.append((sql, "refuse", str(e)))
             continue
@@ -374,27 +419,30 @@ def sweep():
     return results
 
 
+# every sweep string but the two below runs (and equals the reference)
+SWEEP_RAN = 97
 # the sweep strings that fail in the reference itself at tpch.tiny (and so
-# in the port): the memory catalog's tables, a ``?`` parameter, EXCEPT ALL
-SWEEP_REFERENCE_FAILURES = re.compile(r"\bfrom na\b|= \?|except all")
+# in the port): a ``?`` parameter, EXCEPT ALL
+SWEEP_REFERENCE_FAILURES = re.compile(r"= \?|except all")
 
 
 def test_sweep_refuses_nothing():
-    """Every sweep string runs through the port on the CPU without a
-    NotImplementedError: 43 run and the 11 that fail in the reference fail
-    in the port's front end. The rows are held against the reference by
-    ``sweep`` and by each operator's own test file."""
+    """Every sweep string runs through the seeded port runner on the CPU
+    without a NotImplementedError: SWEEP_RAN run and the 2 that fail in the
+    reference fail in the port's front end. The rows are held against the
+    reference by ``sweep`` and by each operator's own test file."""
+    port = sweep_runners()[1]
     ran, failed, refused = [], [], []
     for sql in sweep_strings():
         try:
-            LocalQueryRunner(Session(catalog="tpch", schema="tiny"), device="cpu").execute(sql)
+            port.execute(sweep_sql(sql))
             ran.append(sql)
         except NotImplementedError as e:
             refused.append((sql, str(e)))
         except Exception:  # noqa: BLE001 - a front-end error, checked below
             failed.append(sql)
     assert refused == []
-    assert len(ran) == 43 and len(failed) == 11
+    assert len(ran) == SWEEP_RAN and len(failed) == 2
     assert all(SWEEP_REFERENCE_FAILURES.search(sql.lower()) for sql in failed)
 
 
