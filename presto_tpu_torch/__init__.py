@@ -22,3 +22,8 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+# the plugin function libraries register themselves on import, as the
+# reference's do on ``import presto_tpu``
+from . import functions  # noqa: E402,F401

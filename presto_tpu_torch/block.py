@@ -31,6 +31,7 @@ _NP_TO_TORCH = {
     np.dtype(np.int64): torch.int64,
     np.dtype(np.float32): torch.float32,
     np.dtype(np.float64): torch.float64,
+    np.dtype(np.complex128): torch.complex128,  # GEOMETRY points (x + iy)
 }
 
 
@@ -222,6 +223,25 @@ class Page:
 
     def select_channels(self, channels: Sequence[int]) -> "Page":
         return Page(tuple(self.blocks[c] for c in channels), self.mask)
+
+    def accounted_bytes(self) -> int:
+        """The page's bytes as the memory accounting counts them: the mask,
+        each block's data and null flags, from capacity and dtype alone (no
+        device read)."""
+        rows = self.capacity
+        total = rows
+        for b in self.blocks:
+            total += rows * b.data.element_size()
+            if b.nulls is not None:
+                total += rows
+        return total
+
+    def to_host(self) -> "Page":
+        """The page copied to host RAM (a revocation's move)."""
+        def host(t):
+            return None if t is None else t.cpu()
+        return Page(tuple(Block(b.type, host(b.data), host(b.nulls), b.dictionary)
+                          for b in self.blocks), host(self.mask))
 
     def with_mask(self, mask: torch.Tensor) -> "Page":
         return Page(self.blocks, mask)

@@ -4,7 +4,9 @@ Counterpart of ``presto_tpu/exec/driver.py``: for each adjacent operator
 pair, pull a page from the upstream operator and push it into the next one;
 propagate finish; honour blocking; yield after a time quantum
 (``DriverYieldSignal``) so the threaded task executor can time-slice
-drivers. A page hand-off passes tensor handles, so
+drivers. A driver that parks charges the wait to the operator that blocked
+it (``OperatorStats.blocked_ns``, EXPLAIN ANALYZE's ``Blk ms``) when it
+next runs. A page hand-off passes tensor handles, so
 the host loop runs ahead while the device works and syncs only where an
 operator must read a value (a finished build's stats, a fold's group count).
 """
@@ -49,6 +51,10 @@ class Driver:
         self.operators = operators
         self.yield_signal = DriverYieldSignal()
         self._closed = False
+        # blocked-time attribution: the operator that parked the driver and
+        # when; the next process() charges the wait to it
+        self._blocked_op: Optional[Operator] = None
+        self._blocked_since_ns: Optional[int] = None
 
     def is_finished(self) -> bool:
         return self._closed or self.operators[-1].is_finished()
@@ -57,11 +63,21 @@ class Driver:
         for op in self.operators:
             b = op.is_blocked()
             if b is not None and not b():
+                self._blocked_op = op
                 return b
         return None
 
+    def _note_blocked(self) -> ProcessState:
+        self._blocked_since_ns = time.perf_counter_ns()
+        return ProcessState.BLOCKED
+
     def process(self, quantum_ns: int = 200_000_000) -> ProcessState:
         """Run until blocked, finished, or past the quantum."""
+        if self._blocked_since_ns is not None:
+            waited = time.perf_counter_ns() - self._blocked_since_ns
+            self._blocked_since_ns = None
+            if self._blocked_op is not None:
+                self._blocked_op.context.stats.blocked_ns += waited
         self.yield_signal.arm(quantum_ns)
         try:
             while True:
@@ -71,14 +87,14 @@ class Driver:
                     self._close_operators()
                     return ProcessState.FINISHED
                 if self.blocked_on() is not None:
-                    return ProcessState.BLOCKED
+                    return self._note_blocked()
                 progressed = self._process_once()
                 if self.is_finished():
                     self._close_operators()
                     return ProcessState.FINISHED
                 if not progressed:
                     if self.blocked_on() is not None:
-                        return ProcessState.BLOCKED
+                        return self._note_blocked()
                     # no operator moved and none is blocked: drain the finishes
                     self._propagate_finish()
                 elif self.yield_signal.should_yield():

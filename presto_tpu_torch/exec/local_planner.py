@@ -192,6 +192,14 @@ class LocalExecutionPlanner:
         self._ids = itertools.count()
         self.pipelines: List[List[object]] = []
 
+    def attach_memory(self, memory, revoke_check=None) -> None:
+        """Wire the query's MemoryTrackingContext and its pressure probe into
+        every factory this planner plans: operators then account their
+        bytes into the query's pool and revoke under pressure. The port has
+        no disk tier, so there is no spill manager to pass."""
+        self._memory_ctx = memory
+        self._revoke_check = revoke_check
+
     def plan(self, root: OutputNode) -> LocalExecutionPlan:
         chain = self.visit(root.source)
         # final projection into the user's column order
@@ -200,9 +208,14 @@ class LocalExecutionPlanner:
                 chain, [(s, symbol_ref(s.name, s.type)) for s in root.symbols])
         sink = PageConsumerFactory(next(self._ids), [s.type for s in chain.symbols])
         self._add_pipeline(chain.factories + [sink])
+        # fusion first: a fused factory forwards the memory to its terminal
         decisions = self._fuse_pipelines()
+        mem = getattr(self, "_memory_ctx", None)
         for pipeline in self.pipelines:
             for fac in pipeline:
+                if mem is not None:
+                    fac.memory_ctx = mem
+                    fac.revoke_check = self._revoke_check
                 if isinstance(fac, TableScanOperatorFactory) and fac.scan_options is None:
                     fac.scan_options = self.scan_options
         return LocalExecutionPlan(self.pipelines, sink, root.column_names,

@@ -35,6 +35,13 @@ class Session:
         # None = the device's default (default_page_capacity)
         "page_capacity": None,
         "max_groups": 1 << 20,
+        # memory accounting (advisory, over torch's allocator): the
+        # process-wide pool's size, the per-query user-memory limit, and the
+        # fraction of either past which operators revoke their device state
+        # to host RAM (the port's ladder stops there: no disk rung yet)
+        "memory_pool_bytes": 8 << 30,
+        "query_max_memory_bytes": 4 << 30,
+        "revoke_target_fraction": 0.9,
         # join build/probe and grouping strategy: sorted | pallas | auto
         # (pallas = the open-addressing table on the hand-written kernels
         # wherever it is correct; auto = pallas joins on CUDA only, hash

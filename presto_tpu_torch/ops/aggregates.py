@@ -21,7 +21,9 @@ a struct of arrays indexed by group id.
   one "collect" state column of int32 handles into an ``ArrayValues``
   store, filled by ``ops/collect_agg.CollectAggregationBuilder``.
 
-Plugin aggregates are not ported and raise naming themselves.
+Plugin aggregates (``regr_*``, ``learn_*`` of ``presto_tpu_torch.functions.ml``)
+resolve through ``register_aggregate``; a name that no built-in and no
+registered resolver knows raises ``NotImplementedError`` naming itself.
 """
 from __future__ import annotations
 
@@ -248,7 +250,21 @@ def _resolve_aggregate(name: str, arg_types: Sequence[Type], distinct: bool,
         return _approx_distinct()
     if name == "approx_percentile":
         return _approx_percentile(arg_types[0], params)
+    ext = EXTERNAL_AGGREGATES.get(name)
+    if ext is not None:
+        return ext(arg_types, distinct, params)
     raise NotImplementedError(f"aggregate {name} is not ported yet")
+
+
+# pluggable aggregates: ``(arg_types, distinct, params) -> AggregateFunction``
+# resolvers, registered by the function libraries beside
+# sql/analyzer.register_aggregate_name, which routes the name through
+# aggregation planning
+EXTERNAL_AGGREGATES: dict = {}
+
+
+def register_aggregate(name: str, resolver) -> None:
+    EXTERNAL_AGGREGATES[name.lower()] = resolver
 
 
 def _scalar(dtype: np.dtype, value):

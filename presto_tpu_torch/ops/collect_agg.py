@@ -17,8 +17,8 @@ decoded on the host and installed in the call's ``ArrayValues`` store (one
 - Element order inside an array is the sorted order, which is
   engine-defined, as the reference's.
 
-The reference's spill of the kept pages to host RAM belongs to memory
-revocation, which the port does not have yet.
+Under memory pressure the kept pages move to host RAM (``spill``) and come
+back to the device when the result is built, as in the reference.
 """
 from __future__ import annotations
 
@@ -30,9 +30,11 @@ import torch
 from ..block import _NP_TO_TORCH, Block, Page, torch_dtype
 from ..types import (BOOLEAN, BigintType, BooleanType, DoubleType, IntegerType, RealType,
                      SmallintType, Type, is_floating)
+from ..utils.metrics import METRICS
 from .aggregates import AggregateCall
 from .hash_agg import (_call_contributions, _host, _null_safe_keys, _reduce_all,
                        _state_widths, _where_valid)
+from .scan_pipeline import upload_page
 from .sorting import lexsort_fast
 
 #: the aggregate names the collect builder implements
@@ -120,6 +122,8 @@ class CollectAggregationBuilder:
         self._device = torch.device(device)
         self._key_channels = ()
         self._pages: List[Page] = []
+        self._host_pages: List[Page] = []  # revoked to host RAM
+        self._bytes = 0
 
     def set_channels(self, key_channels) -> "CollectAggregationBuilder":
         self._key_channels = tuple(key_channels)
@@ -127,10 +131,24 @@ class CollectAggregationBuilder:
 
     def add_page(self, page: Page) -> None:
         self._pages.append(page)
+        self._bytes += sum(b.data.numel() * b.data.element_size() for b in page.blocks)
+
+    def memory_bytes(self) -> int:
+        """The kept pages' data bytes on the device."""
+        return self._bytes
+
+    def spill(self) -> None:
+        """Revocation: the kept pages move to host RAM."""
+        METRICS.count("memory.revoked_bytes", self._bytes)
+        self._host_pages.extend(p.to_host() for p in self._pages)
+        self._pages = []
+        self._bytes = 0
 
     def _concat_page(self) -> Optional[Page]:
-        """Every kept page as one page of a power-of-two capacity."""
-        pages, self._pages = self._pages, []
+        """Every kept page as one page of a power-of-two capacity, revoked
+        pages re-admitted to the device first."""
+        pages = [upload_page(p, self._device) for p in self._host_pages] + self._pages
+        self._host_pages, self._pages = [], []
         if not pages:
             return None
         total = sum(p.capacity for p in pages)

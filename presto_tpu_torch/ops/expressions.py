@@ -217,6 +217,18 @@ _CMP_OPS = {"equal": torch.eq, "not_equal": torch.ne, "less_than": torch.lt,
 _ARITH = {"add", "subtract", "multiply", "divide", "modulus", "negate"}
 
 
+# pluggable scalar-function compilers, keyed by Call name: each maps
+# ``(compiler, call_expr) -> (closure, output_dictionary)``. They pair with
+# sql/analyzer.py's EXTERNAL_FUNCTIONS typers; the libraries of
+# ``presto_tpu_torch.functions`` register both on import. Looked up after
+# every built-in, as the reference does.
+EXTERNAL_COMPILERS: Dict[str, Callable] = {}
+
+
+def register_compiler(name: str, fn) -> None:
+    EXTERNAL_COMPILERS[name.lower()] = fn
+
+
 class ExpressionCompiler:
     """Compiles a RowExpression against a static InputLayout."""
 
@@ -468,7 +480,14 @@ class ExpressionCompiler:
             return self._compile_date_part(expr), None
         if name in ("length", "upper", "lower"):
             return self._compile_string_function(expr)
+        plugin = EXTERNAL_COMPILERS.get(name)
+        if plugin is not None:
+            return plugin(self, expr)
         raise NotImplementedError(f"function {name} is not ported yet")
+
+    def _dictionary_of(self, expr: RowExpression) -> Optional[Dictionary]:
+        """The dictionary ``expr`` produces (None for a non-string value)."""
+        return self._compile(expr)[1]
 
     def _compile_cardinality(self, expr: Call):
         """cardinality of an ARRAY/MAP handle column: each entry's length,

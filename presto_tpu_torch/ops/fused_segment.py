@@ -26,6 +26,9 @@ the run with one ``FusedSegmentOperatorFactory``.
 - A grouped terminal computes the sort partial, as in the reference: a
   fused grouping does not use the insert kernel, whatever strategy the
   builder picked for its own pages.
+- The factory forwards the query's memory to its terminal: after each
+  absorbed page the terminal's builder accounts its bytes, and spills to
+  host RAM when the pool is over its revoke target.
 
 Per segment, ``describe()`` gives the operators, dispatches, compiles and
 the probe-kernel launches made inside the segment (the port's own
@@ -93,6 +96,11 @@ class FusedSegmentOperatorFactory(OperatorFactory):
         self.probe_launches = 0  # probe-kernel launches inside the segment
 
     def create_operator(self) -> "FusedSegmentOperator":
+        tf = self.terminal_factory
+        if tf is not None:
+            # the terminal's builder is the segment's only revocable state
+            tf.memory_ctx = self.memory_ctx
+            tf.revoke_check = self.revoke_check
         return FusedSegmentOperator(self.context(), self)
 
     def note_pages(self, n: int, probe_launches: int) -> None:
@@ -164,11 +172,15 @@ class _AggTerminal:
         b = self.builder
         if self.mode != "grouped":
             b.absorb_state(result)
-            return True
-        if b.defer_raw() and out_groups == 0:
+            ok = True
+        elif b.defer_raw() and out_groups == 0:
             b.absorb_raw(result, capacity)
-            return True
-        return b.absorb_partial(result, capacity, out_groups)
+            ok = True
+        else:
+            ok = b.absorb_partial(result, capacity, out_groups)
+        if getattr(b, "memory_bytes", None) is not None:
+            self.op.context.update_revocable(b.memory_bytes(), self.op.start_memory_revoke)
+        return ok
 
 
 class _TopNTerminal:

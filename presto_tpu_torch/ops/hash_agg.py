@@ -36,9 +36,14 @@ grouping keeps at most ``WIDE_STATE_MAX_GROUPS`` groups on the device,
 spilling the rest as above; it never takes the insert. An AMIN/AMAX column
 and the ACARRY columns after it (min_by/max_by) reduce jointly in every
 builder and in the host merge: the extreme ordering key, then the payload
-of the first row holding it, an earlier partial winning a tie. The
-PARTIAL/FINAL steps, the disk rung and memory revocation are not ported
-yet.
+of the first row holding it, an earlier partial winning a tie.
+
+Under memory pressure the grouped builder accounts its device bytes
+(``memory_bytes``, from row counts and dtypes) and, when the operator is
+asked to revoke, moves every pending partial and its table to host RAM
+(``spill``), where ``finish`` merges them with the rest, as a fold above
+``max_groups`` does. The PARTIAL/FINAL steps and the disk rung are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -583,6 +588,33 @@ class GroupedAggregationBuilder:
             i += 1
         return [k[starts] for k in keys], out_states
 
+    def memory_bytes(self) -> int:
+        """Device-resident bytes: pending partials and the compact table, as
+        rows times the key and state widths plus the valid flag."""
+        per_row = sum(np.dtype(t.np_dtype).itemsize for t in self.key_types) + \
+            sum(np.dtype(col.dtype).itemsize * col.width
+                for c in self.calls for col in c.function.state) + 1
+        rows = self._pending_rows
+        if self._acc is not None:
+            rows += int(self._acc[2].shape[0])
+        return rows * per_row
+
+    def spill(self) -> None:
+        """Revocation: every pending partial and the table move to host RAM,
+        merged exactly at ``finish``."""
+        parts = list(self._pending)
+        self._pending = []
+        self._pending_rows = 0
+        if self._acc is not None:
+            parts.append(self._acc)
+            self._acc = None
+            self._table_size = None
+        for p in parts:
+            host = (tuple(_host(k) for k in p[0]), tuple(_host(st) for st in p[1]), _host(p[2]))
+            METRICS.count("memory.revoked_bytes",
+                          sum(a.nbytes for a in host[0] + host[1]) + host[2].nbytes)
+            self._spilled.append(host)
+
     def _merge_spilled(self):
         """The spilled parts and the current table merged on the host: the
         merged table may exceed what the device table holds, so it stays
@@ -819,6 +851,18 @@ class HashAggregationOperator(Operator):
     def add_input(self, page: Page) -> None:
         self.context.record_input(page, page.capacity)
         self.builder.add_page(page)
+        if getattr(self.builder, "memory_bytes", None) is not None:
+            self.context.update_revocable(self.revocable_bytes(), self.start_memory_revoke)
+
+    def revocable_bytes(self) -> int:
+        b = getattr(self.builder, "memory_bytes", None)
+        return b() if b is not None else 0
+
+    def start_memory_revoke(self) -> None:
+        spill = getattr(self.builder, "spill", None)
+        if spill is not None:
+            spill()
+            self.context.revocable_memory.set_bytes(self.revocable_bytes())
 
     @timed("get_output_ns")
     def get_output(self) -> Optional[Page]:
@@ -838,6 +882,7 @@ class HashAggregationOperator(Operator):
 
     def _build_result(self) -> None:
         keys, states, valid = self.builder.finish()
+        self.context.revocable_memory.set_bytes(0)  # the builder's state is consumed
         # a spilled result stays on the host: each output page is sliced
         # there and copied to the device on its own, never the whole table
         dev = self.builder._device

@@ -38,8 +38,12 @@ and then the NULL-key rows with NULL probe columns
 (``_emit_unmatched_build``). Such a probe runs on one driver.
 
 A build row's id is its position in the concatenation of the compacted
-build pages, as in the reference. The dense strategy (and the probe
-stage's DENSE branch) and spill are not ported yet; INNER/LEFT join filters
+build pages, as in the reference. Under memory pressure a build moves its
+device pages to host RAM (``start_memory_revoke``, the first rung of the
+reference's ladder) and re-admits them to the build's device before the
+table is built, so the insert kernel always sees card tensors. The dense
+strategy (and the probe stage's DENSE branch) and the disk rung are not
+ported yet; INNER/LEFT join filters
 are never planned (the optimizer moves a one-sided residual into a filter
 and refuses a two-sided one on an outer join).
 """
@@ -57,6 +61,7 @@ from ..block import Block, Dictionary, Page, _compact, torch_dtype
 from ..types import Type
 from ..utils.metrics import METRICS
 from .operator import Operator, OperatorContext, OperatorFactory, timed
+from .scan_pipeline import upload_page
 
 INNER, LEFT, FULL, SEMI, ANTI = "inner", "left", "full", "semi", "anti"
 
@@ -260,10 +265,12 @@ class JoinBuildOperator(Operator):
         super().__init__(context)
         self.f = factory
         self._pages: List[Page] = []
+        self._host_pages: List[Page] = []  # revoked to host RAM
         self._saw_null_key = None  # device bool, read once at the build
         # FULL joins: the payload of NULL-key build rows, kept aside (they
         # match nothing but come out unmatched); masked here, not synced
         self._null_key_pages: List[Page] = []
+        self._null_keys_on_host = 0  # how many of them a revocation moved
 
     @property
     def output_types(self) -> List[Type]:
@@ -287,6 +294,22 @@ class JoinBuildOperator(Operator):
                     nk = nk | page.blocks[c].nulls
             sel = page.select_channels(self.f.payload_channels)
             self._null_key_pages.append(sel.with_mask(nk & page.mask))
+        self.context.update_revocable(self.revocable_bytes(), self.start_memory_revoke)
+
+    def revocable_bytes(self) -> int:
+        """The device-resident pages' bytes, from capacities and dtypes."""
+        return sum(p.accounted_bytes() for p in
+                   self._pages + self._null_key_pages[self._null_keys_on_host:])
+
+    def start_memory_revoke(self) -> None:
+        """The host-RAM rung: every device page moves to host RAM."""
+        moved = [p.to_host() for p in self._pages]
+        METRICS.count("memory.revoked_bytes", sum(p.accounted_bytes() for p in moved))
+        self._host_pages.extend(moved)
+        self._pages = []
+        self._null_key_pages = [p.to_host() for p in self._null_key_pages]
+        self._null_keys_on_host = len(self._null_key_pages)
+        self.context.revocable_memory.set_bytes(self.revocable_bytes())
 
     def get_output(self) -> Optional[Page]:
         return None
@@ -296,9 +319,16 @@ class JoinBuildOperator(Operator):
             return
         super().finish()
         self.f._builder_done(self)
+        self.context.revocable_memory.set_bytes(0)
 
     def _build(self) -> LookupSource:
         kc = len(self.f.key_channels)
+        if self._host_pages:
+            # re-admit revoked pages to the build's device: on the card the
+            # kernels must never see host tensors
+            dev = self.f.device
+            self._pages = [upload_page(p, dev) for p in self._host_pages] + self._pages
+            self._host_pages = []
         if not self._pages:
             dev = self.f.device
             return LookupSource(
@@ -330,14 +360,15 @@ class JoinBuildOperator(Operator):
         """A FULL build's NULL-key rows into the source, as host columns."""
         if not self._null_key_pages:
             return
-        pages = self._null_key_pages
-        keep = torch.cat([p.mask for p in pages]).cpu().numpy()
+        # on the host: a revocation may have moved some of them already
+        pages = [p.to_host() for p in self._null_key_pages]
+        keep = torch.cat([p.mask for p in pages]).numpy()
         cols, nils = [], []
         for i in range(len(self.f.payload_channels)):
-            cols.append(torch.cat([p.blocks[i].data for p in pages]).cpu().numpy()[keep])
+            cols.append(torch.cat([p.blocks[i].data for p in pages]).numpy()[keep])
             if any(p.blocks[i].nulls is not None for p in pages):
                 nils.append(torch.cat([p.blocks[i].null_mask() for p in pages])
-                            .cpu().numpy()[keep])
+                            .numpy()[keep])
             else:
                 nils.append(None)
         src.null_key_payload = tuple(cols)
@@ -430,11 +461,13 @@ class JoinBuildOperatorFactory(OperatorFactory):
                 if o is op:
                     continue
                 op._pages.extend(o._pages)
+                # a revoked sibling's rows are in its host pages
+                op._host_pages.extend(o._host_pages)
                 op._null_key_pages.extend(o._null_key_pages)
                 if o._saw_null_key is not None:
                     op._saw_null_key = o._saw_null_key if op._saw_null_key is None \
                         else (op._saw_null_key | o._saw_null_key)
-                o._pages, o._null_key_pages = [], []
+                o._pages, o._host_pages, o._null_key_pages = [], [], []
             source = op._build()
             op._pages, op._null_key_pages = [], []  # consumed into the lookup source
             self.lookup_factory.set(source)

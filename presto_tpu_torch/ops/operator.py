@@ -1,9 +1,14 @@
 """Physical operator protocol and operator context of the PyTorch port.
 
 Counterpart of ``presto_tpu/ops/operator.py``: the same
-needs_input/add_input/get_output/is_blocked/finish protocol, with per-operator
-stats (wall time, rows and pages in and out). Operators hold device tensors.
-Memory pools, revocation and tracing are not ported yet.
+needs_input/add_input/get_output/is_blocked/finish protocol, with
+per-operator stats (wall time, rows and pages in and out, time spent
+blocked, peak accounted memory) that EXPLAIN ANALYZE prints. Operators hold
+device tensors. When the planner wires the query's memory, each operator
+context forks the query's user and revocable contexts: an accumulating
+operator accounts its device bytes with ``update_revocable``, which revokes
+them on the operator's own thread when the pressure probe fires. Tracing is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import time
 from typing import Callable, List, Optional
 
 from ..block import Page
+from ..memory import AggregatedMemoryContext, MemoryTrackingContext
 from ..types import Type
 
 
@@ -21,17 +27,62 @@ class OperatorStats:
     operator_id: int = 0
     name: str = ""
     add_input_calls: int = 0
+    get_output_calls: int = 0
     input_rows: int = 0
     input_pages: int = 0
     output_rows: int = 0
     output_pages: int = 0
     add_input_ns: int = 0
     get_output_ns: int = 0
+    finish_ns: int = 0
+    # time this operator held its driver blocked (a build wait, a full
+    # exchange), charged by the Driver when the parked driver runs again
+    blocked_ns: int = 0
+    peak_memory_bytes: int = 0
+
+    def total_ns(self) -> int:
+        return self.add_input_ns + self.get_output_ns + self.finish_ns
+
+    def to_dict(self) -> dict:
+        """JSON-safe form: what EXPLAIN ANALYZE and live progress roll up."""
+        return {"operator_id": self.operator_id, "name": self.name,
+                "input_rows": self.input_rows, "output_rows": self.output_rows,
+                "total_ns": self.total_ns(), "blocked_ns": self.blocked_ns,
+                "peak_memory_bytes": self.peak_memory_bytes,
+                "input_pages": self.input_pages, "output_pages": self.output_pages}
 
 
 class OperatorContext:
-    def __init__(self, operator_id: int, name: str):
+    def __init__(self, operator_id: int, name: str,
+                 memory: Optional[MemoryTrackingContext] = None,
+                 revoke_check: Optional[Callable[[], bool]] = None):
         self.stats = OperatorStats(operator_id, name)
+        self.memory = memory or MemoryTrackingContext(
+            AggregatedMemoryContext(), AggregatedMemoryContext(), AggregatedMemoryContext())
+        # the pressure probe: operators revoke their own state, on their own
+        # thread, when it fires (no other thread touches operator state)
+        self._revoke_check = revoke_check
+        self.user_memory = self.memory.user.new_local_memory_context(name)
+        self.revocable_memory = self.memory.revocable.new_local_memory_context(name)
+
+    def should_revoke(self) -> bool:
+        return self._revoke_check is not None and self._revoke_check()
+
+    def update_revocable(self, used: int, on_revoke: Callable[[], None]) -> None:
+        """Account the operator's revocable device bytes (computed from
+        shapes and dtypes, never read from the device); revoke them when
+        the pool is over its target."""
+        self.revocable_memory.set_bytes(used)
+        self.stats.peak_memory_bytes = max(self.stats.peak_memory_bytes, used)
+        if used and self.should_revoke():
+            from ..utils import events
+            events.emit("memory.spill", severity=events.WARN,
+                        operator=self.stats.name, revocable_bytes=used)
+            on_revoke()
+
+    def release_memory(self) -> None:
+        self.user_memory.close()
+        self.revocable_memory.close()
 
     def record_input(self, page: Page, rows: int) -> None:
         self.stats.add_input_calls += 1
@@ -80,6 +131,16 @@ class Operator(abc.ABC):
         return None
 
     def close(self) -> None:
+        # a retired operator's reservations go, so the pool's pressure
+        # falls as operators finish
+        self.context.release_memory()
+
+    # revocation protocol: the bytes an operator could give back, and the
+    # call that gives them back
+    def revocable_bytes(self) -> int:
+        return 0
+
+    def start_memory_revoke(self) -> None:
         pass
 
 
@@ -89,13 +150,18 @@ class OperatorFactory(abc.ABC):
     def __init__(self, operator_id: int, name: str):
         self.operator_id = operator_id
         self.name = name
+        # wired by the local planner when the query has a memory context
+        self.memory_ctx: Optional[MemoryTrackingContext] = None
+        self.revoke_check: Optional[Callable[[], bool]] = None
 
     @abc.abstractmethod
     def create_operator(self) -> Operator:
         ...
 
     def context(self) -> OperatorContext:
-        return OperatorContext(self.operator_id, self.name)
+        mem = self.memory_ctx.fork() if self.memory_ctx is not None else None
+        return OperatorContext(self.operator_id, self.name, memory=mem,
+                               revoke_check=self.revoke_check)
 
 
 def timed(stats_field: str):

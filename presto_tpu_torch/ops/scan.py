@@ -160,7 +160,9 @@ class TableScanOperator(Operator):
                     reader_threads=opts.get("reader_threads"),
                     target_rows=opts.get("target_rows"),
                     prefetch_bytes=opts.get("prefetch_bytes"),
-                    pool_key=opts.get("pool_key"))
+                    pool_key=opts.get("pool_key"),
+                    # prefetched bytes are the query's user memory
+                    memory=self.context.memory.user.new_local_memory_context("scan_prefetch"))
             page = self._pipeline.next()
         else:
             if self._iter is None:

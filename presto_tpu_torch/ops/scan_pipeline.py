@@ -35,9 +35,12 @@ fairness slot; without one they run on dedicated threads. A stage that
 raises puts ``(_ERR, exc)`` on the output queue (``_fail``), and the
 consumer's ``next()`` raises it. ``stats()`` gives each stage's busy and
 stall seconds and the counts, which the runner rolls into
-``QueryResult.stats["scan_pipeline"]``. The reference's memory accounting,
-trace spans, metric counters and ``rebatch`` switch are not ported: the
-port re-batches wherever a source has split readers and a target size.
+``QueryResult.stats["scan_pipeline"]``. When the scan gives it a memory
+context, the staged and uploaded-unconsumed bytes are the query's user
+memory (``_account``): over ``query_max_memory_bytes`` the stage fails and
+the consumer raises the limit's exception. The reference's trace spans,
+metric counters and ``rebatch`` switch are not ported: the port re-batches
+wherever a source has split readers and a target size.
 """
 from __future__ import annotations
 
@@ -208,8 +211,10 @@ class ScanPipeline:
 
     def __init__(self, source, device, *, reader_threads: Optional[int] = None,
                  target_rows: Optional[int] = None,
-                 prefetch_bytes: Optional[int] = None, pool_key: Optional[str] = None):
+                 prefetch_bytes: Optional[int] = None, pool_key: Optional[str] = None,
+                 memory=None):
         self._device = torch.device(device)
+        self._memory = memory  # a LocalMemoryContext of the query's user memory
         self._target = int(target_rows) if target_rows else 0
         self._max_bytes = max(int(prefetch_bytes or DEFAULT_PREFETCH_BYTES), 1)
         # a source whose reads can block on outside progress would hold a
@@ -278,6 +283,7 @@ class ScanPipeline:
         with self._ocv:
             self._out_bytes -= nbytes
             self._ocv.notify_all()
+        self._account()
         return page
 
     def close(self, timeout_s: float = 2.0) -> None:
@@ -308,6 +314,8 @@ class ScanPipeline:
         if self._pool is not None:
             self._pool.release()
             self._pool = None
+        if self._memory is not None:
+            self._memory.close()  # the reservation goes with the prefetch
 
     def stats(self) -> dict:
         with self._stats_lock:
@@ -356,6 +364,14 @@ class ScanPipeline:
             with self._cv:
                 self._live_gens -= 1
                 self._cv.notify_all()
+
+    def _account(self) -> None:
+        """Publish the staged and uploaded-unconsumed bytes into the query's
+        user memory; over the query's limit this raises, and the stage's
+        guard hands the error to the consumer."""
+        if self._memory is not None:
+            with self._stats_lock:
+                self._memory.set_bytes(self._staged_bytes + self._out_bytes)
 
     def _add(self, key: str, value) -> None:
         with self._stats_lock:
@@ -409,6 +425,7 @@ class ScanPipeline:
                 self._cv.wait(STEP_WAIT_S)
             yield WAIT
         self._add("read_stall_s", (time.perf_counter_ns() - t0) / 1e9)
+        self._account()
         return True
 
     def _stage_take_gen(self, ri: int, seq: int):
@@ -429,6 +446,7 @@ class ScanPipeline:
                 self._cv.wait(STEP_WAIT_S)
             yield WAIT
         self._add("decode_stall_s", (time.perf_counter_ns() - t0) / 1e9)
+        self._account()
         return item
 
     def _decode_gen(self):
@@ -486,6 +504,7 @@ class ScanPipeline:
                 self._ocv.wait(STEP_WAIT_S)
             yield WAIT
         self._add("upload_stall_s", (time.perf_counter_ns() - t0) / 1e9)
+        self._account()
         self._upq.put((page, nbytes, rows))
         return True
 

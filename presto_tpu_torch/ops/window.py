@@ -24,7 +24,8 @@ among the sorted values, so one int64), a running ``cummax`` takes the
 segment's extreme, and the rank decodes back to the value.
 
 The kernel is plain torch ops on the page's device (the reference's is a
-jitted JAX function, not a Pallas kernel).
+jitted JAX function, not a Pallas kernel). Under memory pressure the
+buffered pages move to host RAM and come back to the device at ``finish``.
 """
 from __future__ import annotations
 
@@ -34,7 +35,9 @@ import torch
 
 from ..block import Block, Dictionary, Page, torch_dtype
 from ..types import Type
+from ..utils.metrics import METRICS
 from .operator import Operator, OperatorContext, OperatorFactory, timed
+from .scan_pipeline import upload_page
 from .sorting import lexsort_fast
 
 _I64_MAX = 2 ** 63 - 1
@@ -242,7 +245,9 @@ class WindowOperator(Operator):
     def __init__(self, context: OperatorContext, f: "WindowOperatorFactory"):
         super().__init__(context)
         self.f = f
-        self._pages: List[Page] = []
+        self._pages: List[Page] = []       # on the device
+        self._host_pages: List[Page] = []  # revoked to host RAM
+        self._device = None
         self._results: Optional[List[Page]] = None
 
     @property
@@ -252,14 +257,30 @@ class WindowOperator(Operator):
     @timed("add_input_ns")
     def add_input(self, page: Page) -> None:
         self.context.record_input(page, page.capacity)
+        self._device = page.device
         self._pages.append(page)
+        self.context.update_revocable(self.revocable_bytes(), self.start_memory_revoke)
+
+    # the buffered input takes part in revocation: offloaded to host RAM,
+    # re-admitted to the device when the window is computed
+    def revocable_bytes(self) -> int:
+        return sum(p.accounted_bytes() for p in self._pages)
+
+    def start_memory_revoke(self) -> None:
+        METRICS.count("memory.revoked_bytes", self.revocable_bytes())
+        self._host_pages.extend(p.to_host() for p in self._pages)
+        self._pages = []
+        self.context.revocable_memory.set_bytes(0)
 
     def finish(self) -> None:
         if self._finishing:
             return
         super().finish()
+        self._pages = [upload_page(p, self._device) for p in self._host_pages] + self._pages
+        self._host_pages = []
         self._results = self._compute()
         self._pages = []
+        self.context.revocable_memory.set_bytes(0)
 
     def _concat(self) -> Page:
         """Every buffered page as one page (dead rows included)."""

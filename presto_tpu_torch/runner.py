@@ -17,14 +17,22 @@ drivers behind a dealing local exchange when the source is large
 (``_scaled_writer_count``), and the runner commits the sinks' fragments.
 A failing CTAS closes the drivers, aborts the sinks and drops the table.
 
-Tracing, access control, EXPLAIN ANALYZE, the memory context and grouped
-execution are not ported; a statement that needs one raises
-``NotImplementedError``.
+Queries, writes and EXPLAIN ANALYZE run through one recipe, ``_run_plan``:
+the query's memory root on the process-wide pool (``_query_memory``:
+``memory_pool_bytes``, ``query_max_memory_bytes``,
+``revoke_target_fraction``) is attached to the planner, a live-progress
+provider reads the drivers while they run (``exec/progress.py``), and the
+query's reservations are cleared in a ``finally``. EXPLAIN ANALYZE prints
+the drivers' operator stats under the reference's header
+(``exec/explain.py``). Tracing, access control and grouped execution are
+not ported; a statement that needs one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -82,6 +90,22 @@ class QueryResult:
     # from the resident page cache
     drivers: Optional[List[int]] = None
     resident_pages: int = 0
+
+
+# query ids in the process-wide memory pool (itertools.count is atomic
+# under the interpreter lock, so concurrent queries never share one)
+_QUERY_MEM_SEQ = itertools.count(1)
+
+
+def _pool_steps(pool_key: Optional[str]) -> int:
+    """The steps this query's scans took on the shared scan pool (a plain
+    int read, for live progress)."""
+    if not pool_key:
+        return 0
+    from .exec.shared_pools import SCAN_POOL
+
+    client = SCAN_POOL._clients.get(pool_key)
+    return client.steps if client is not None else 0
 
 
 def _scan_pipeline_stats(drivers) -> Optional[dict]:
@@ -151,11 +175,12 @@ class LocalQueryRunner:
     def execute(self, sql: str) -> QueryResult:
         stmt = self.parser.parse(sql)
         if isinstance(stmt, t.Explain):
-            if stmt.analyze:
-                raise NotImplementedError("EXPLAIN ANALYZE is not ported to presto_tpu_torch")
             if not isinstance(stmt.statement, t.Query):
                 raise ValueError("EXPLAIN requires a query")
-            text = plan_to_text(self.plan_statement(stmt.statement))
+            if stmt.analyze:
+                text = self._explain_analyze(stmt.statement)
+            else:
+                text = plan_to_text(self.plan_statement(stmt.statement))
             return QueryResult([[line] for line in text.split("\n")], ["Query Plan"])
         if isinstance(stmt, t.ShowTables):
             catalog, schema = self.session.catalog, self.session.schema
@@ -188,9 +213,7 @@ class LocalQueryRunner:
                 f"{type(stmt).__name__} statements are not ported to presto_tpu_torch")
         self.session.check_supported()
         plan = self.plan_statement(stmt)
-        exec_plan = LocalExecutionPlanner(self.metadata, self.session, self.device).plan(plan)
-        drivers = exec_plan.create_drivers()
-        self._run_drivers(drivers)
+        exec_plan, drivers, _wall = self._run_plan(plan)
         stats = {}
         scan = _scan_pipeline_stats(drivers)
         if scan is not None:
@@ -205,15 +228,93 @@ class LocalQueryRunner:
             resident_pages=sum(getattr(op, "resident_hits", 0)
                                for d in drivers for op in d.operators))
 
+    def _run_plan(self, plan: OutputNode):
+        """The execution recipe of queries and EXPLAIN ANALYZE (the writes
+        attach the same memory): local planning with the query's memory
+        attached, a live-progress provider while the drivers run, and the
+        query's reservations cleared in the ``finally``.
+        -> (exec_plan, drivers, wall seconds of the run)."""
+        from .exec import progress
+        from .exec.explain import driver_stats
+
+        mem, over_target, release = self._query_memory()
+        unregister = lambda: None  # noqa: E731 - rebound once the drivers exist
+        try:
+            local = LocalExecutionPlanner(self.metadata, self.session, self.device)
+            local.attach_memory(mem, over_target)
+            exec_plan = local.plan(plan)
+            drivers = exec_plan.create_drivers()
+
+            def live() -> dict:
+                return {"operators": driver_stats(drivers),
+                        "memory_reserved_bytes": mem.total_bytes(),
+                        "pool_steps": _pool_steps(local.scan_options.get("pool_key"))}
+            unregister = progress.register(live)
+            t0 = time.perf_counter()
+            self._run_drivers(drivers)
+            return exec_plan, drivers, time.perf_counter() - t0
+        finally:
+            unregister()
+            release()
+
     def _run_drivers(self, drivers) -> None:
         try:
             TaskExecutor(int(self.session.get("task_concurrency"))).execute(drivers)
         except BaseException:
             # abandoned drivers tear down (their scan stages stop and their
-            # pool clients are released) before the error propagates
+            # pool clients are released) before the error propagates, and
+            # before the query's reservations are cleared
             for d in drivers:
                 d.close()
             raise
+
+    def _explain_analyze(self, stmt: t.Query) -> str:
+        """Run the query through ``_run_plan`` and render every driver's
+        operator stats (rows, wall, blocked, peak memory), the fused
+        segments, the scan stages and the plan, as the reference does."""
+        from .exec.explain import driver_stats, table
+
+        plan = self.plan_statement(stmt)
+        exec_plan, drivers, wall = self._run_plan(plan)
+        lines = [f"Query: {wall * 1000:.0f}ms wall, {len(drivers)} drivers, "
+                 f"{sum(len(d.operators) for d in drivers)} operators", ""]
+        lines += table(driver_stats(drivers), pipelines=True)
+        seg = _segment_stats(exec_plan)
+        if seg:
+            lines += ["", f"fused segments: {seg['count']} fused, "
+                          f"{seg['dispatches']} dispatches, {seg['compiles']} compiles"]
+            for sg in seg["segments"]:
+                lines.append(f"  pipeline {sg['pipeline']}: {'+'.join(sg['operators'])} "
+                             f"({sg['dispatches']} dispatches, {sg['compiles']} compiles)")
+        scan = _scan_pipeline_stats(drivers)
+        if scan:
+            lines += ["", "scan pipeline: " + ", ".join(f"{k}={scan[k]}" for k in sorted(scan))]
+        lines += ["", plan_to_text(plan)]
+        return "\n".join(lines)
+
+    def _query_memory(self):
+        """The query's memory root on the process-wide GENERAL pool ->
+        (memory, over_target, release). The probe fires when the pool, all
+        queries together, is over ``revoke_target_fraction`` of its size, or
+        when this query alone is over that fraction of its session's
+        ``memory_pool_bytes`` (the shared pool only grows, so a small
+        session budget still revokes); ``release`` clears this query's
+        reservations at its end."""
+        from .memory import QueryContextMemory, shared_general_pool
+
+        session_bytes = int(self.session.get("memory_pool_bytes"))
+        pool = shared_general_pool(session_bytes)
+        qid = f"query-{next(_QUERY_MEM_SEQ)}"
+        qmem = QueryContextMemory(qid, pool, int(self.session.get("query_max_memory_bytes")))
+        target = float(self.session.get("revoke_target_fraction"))
+
+        def over_target() -> bool:
+            return (pool.reserved_bytes() > pool.max_bytes * target
+                    or pool.query_bytes(qid) > session_bytes * target)
+
+        def release() -> None:
+            pool.clear_query(qid)
+        return qmem.memory, over_target, release
 
     def _execute_write(self, stmt) -> QueryResult:
         """CTAS / INSERT / DROP (the reference's ``_execute_write``): plan
@@ -245,124 +346,132 @@ class LocalQueryRunner:
         # target columns
         self.session.check_supported()
         plan = self.plan_statement(stmt.query)
-        exec_plan = LocalExecutionPlanner(self.metadata, self.session, self.device).plan(plan)
-        for n, tt in zip(exec_plan.output_names, exec_plan.output_types):
-            if isinstance(tt, (ArrayType, MapType)):
-                # handles index a store that lives as long as the query
-                raise ValueError(
-                    f"column {n}: {tt.name} values cannot be persisted "
-                    f"(array_agg/map_agg outputs are query-scoped)")
-
-        created = False
-        remaps: List[Optional[object]] = []
-        casts: List[Optional[object]] = []
-        if isinstance(stmt, t.CreateTableAsSelect):
-            if handle is not None:
-                if stmt.not_exists:
-                    return QueryResult([[0]], ["rows"], [BIGINT])
-                raise ValueError(f"table {qname} already exists")
-            if len(set(exec_plan.output_names)) != len(exec_plan.output_names):
-                raise ValueError(
-                    f"CTAS output has duplicate column names: {exec_plan.output_names}")
-            # materialized dictionaries are COPIED so the table owns them: a
-            # later INSERT extends the table's, never a source connector's
-            cols = tuple(
-                ColumnMetadata(n, tt, dictionary=(
-                    Dictionary(list(d.values)) if d is not None and hasattr(d, "values")
-                    else d))
-                for n, tt, d in zip(exec_plan.output_names, exec_plan.output_types,
-                                    exec_plan.output_dicts))
-            props = dict(stmt.properties)
-            if props:
-                meta.create_table(TableMetadata(name, cols), properties=props)
-            else:
-                meta.create_table(TableMetadata(name, cols))
-            handle = meta.get_table_handle(name)
-            created = True
-        else:  # INSERT
-            if handle is None:
-                raise ValueError(f"table {qname} does not exist")
-            tcols = list(meta.get_table_metadata(handle).columns)
-            if stmt.columns and list(stmt.columns) != [c.name for c in tcols]:
-                raise ValueError("INSERT column list must match the table "
-                                 "schema (partial inserts not supported)")
-            if len(tcols) != len(exec_plan.output_types):
-                raise ValueError(
-                    f"INSERT has {len(exec_plan.output_types)} columns, "
-                    f"table {qname} has {len(tcols)}")
-            for c, st, sd in zip(tcols, exec_plan.output_types, exec_plan.output_dicts):
-                if st is UNKNOWN or st.name == "unknown":
-                    # a typeless NULL column takes the table column's type
-                    # at write time, its NULL flags riding along
-                    casts.append(c.type)
-                    remaps.append(None)
-                    continue
-                casts.append(None)
-                if c.type.name != st.name:
-                    raise ValueError(
-                        f"INSERT type mismatch on {c.name}: {st.name} vs {c.type.name}")
-                if c.dictionary is None or sd is c.dictionary:
-                    remaps.append(None)
-                    continue
-                # re-encode the source codes into the table's private
-                # dictionary, extending it with values it has not seen
-                if sd is None or not hasattr(c.dictionary, "values"):
-                    raise ValueError(
-                        f"INSERT into dictionary column {c.name} requires a "
-                        "materialized target dictionary")
-                if not hasattr(sd, "values"):
-                    remaps.append(_virtual_remap(sd, c.dictionary))
-                    continue
-                remaps.append(np.asarray(c.dictionary.extend([str(v) for v in sd.values]),
-                                         dtype=np.int32))
-
-        sink_provider = conn.page_sink_provider()
-        if sink_provider is None:
-            raise ValueError(f"catalog {qname.catalog} is not writable")
-        insert_handle = meta.begin_insert(handle)
-        is_insert = isinstance(stmt, t.Insert)
-        if is_insert and any(r is not None for r in remaps):
-            # INSERT pages carry the table's dictionaries; CTAS pages keep
-            # their source dictionaries (the table's copies match them)
-            column_dicts = [c.dictionary for c in meta.get_table_metadata(handle).columns]
-            writer_fac = TableWriterOperatorFactory(9000, sink_provider, insert_handle,
-                                                    remaps=remaps, column_dicts=column_dicts,
-                                                    casts=casts)
-        elif is_insert and any(c is not None for c in casts):
-            writer_fac = TableWriterOperatorFactory(9000, sink_provider, insert_handle,
-                                                    casts=casts)
-        else:
-            writer_fac = TableWriterOperatorFactory(9000, sink_provider, insert_handle)
-        count_sink = PageConsumerFactory(9001, [BIGINT])
-        n_writers = self._scaled_writer_count(plan)
-        if n_writers > 1:
-            from .ops.local_exchange import (LocalExchangeFactory, LocalExchangeSinkFactory,
-                                             LocalExchangeSourceFactory)
-
-            # pages are DEALT round-robin, so every writer gets a share
-            # however fast the source bursts pages into the buffer
-            lx = LocalExchangeFactory(n_producers=1, max_pages=2 * n_writers + 2,
-                                      deal_slots=n_writers)
-            exec_plan.pipelines[-1] = exec_plan.pipelines[-1][:-1] + \
-                [LocalExchangeSinkFactory(9002, lx, [])]
-            for _ in range(n_writers):
-                exec_plan.pipelines.append(
-                    [LocalExchangeSourceFactory(9003, lx, []), writer_fac, count_sink])
-        else:
-            exec_plan.pipelines[-1] = exec_plan.pipelines[-1][:-1] + [writer_fac, count_sink]
-        drivers = exec_plan.create_drivers()
+        # the query's memory, as in _run_plan: attached before planning,
+        # its reservations cleared however the write ends
+        mem, over_target, mem_release = self._query_memory()
         try:
-            self._run_drivers(drivers)
-        except BaseException:
-            for s in writer_fac.sinks:
-                s.abort()
-            if created:  # CTAS is atomic: roll the metadata back
-                meta.drop_table(handle)
-            raise
-        fragments = [p for s in writer_fac.sinks for p in s.finish()]
-        meta.finish_insert(insert_handle, fragments)
-        total = sum(r[0] for r in count_sink.rows())
-        return QueryResult([[total]], ["rows"], [BIGINT])
+            local = LocalExecutionPlanner(self.metadata, self.session, self.device)
+            local.attach_memory(mem, over_target)
+            exec_plan = local.plan(plan)
+            for n, tt in zip(exec_plan.output_names, exec_plan.output_types):
+                if isinstance(tt, (ArrayType, MapType)):
+                    # handles index a store that lives as long as the query
+                    raise ValueError(
+                        f"column {n}: {tt.name} values cannot be persisted "
+                        f"(array_agg/map_agg outputs are query-scoped)")
+
+            created = False
+            remaps: List[Optional[object]] = []
+            casts: List[Optional[object]] = []
+            if isinstance(stmt, t.CreateTableAsSelect):
+                if handle is not None:
+                    if stmt.not_exists:
+                        return QueryResult([[0]], ["rows"], [BIGINT])
+                    raise ValueError(f"table {qname} already exists")
+                if len(set(exec_plan.output_names)) != len(exec_plan.output_names):
+                    raise ValueError(
+                        f"CTAS output has duplicate column names: {exec_plan.output_names}")
+                # materialized dictionaries are COPIED so the table owns them: a
+                # later INSERT extends the table's, never a source connector's
+                cols = tuple(
+                    ColumnMetadata(n, tt, dictionary=(
+                        Dictionary(list(d.values)) if d is not None and hasattr(d, "values")
+                        else d))
+                    for n, tt, d in zip(exec_plan.output_names, exec_plan.output_types,
+                                        exec_plan.output_dicts))
+                props = dict(stmt.properties)
+                if props:
+                    meta.create_table(TableMetadata(name, cols), properties=props)
+                else:
+                    meta.create_table(TableMetadata(name, cols))
+                handle = meta.get_table_handle(name)
+                created = True
+            else:  # INSERT
+                if handle is None:
+                    raise ValueError(f"table {qname} does not exist")
+                tcols = list(meta.get_table_metadata(handle).columns)
+                if stmt.columns and list(stmt.columns) != [c.name for c in tcols]:
+                    raise ValueError("INSERT column list must match the table "
+                                     "schema (partial inserts not supported)")
+                if len(tcols) != len(exec_plan.output_types):
+                    raise ValueError(
+                        f"INSERT has {len(exec_plan.output_types)} columns, "
+                        f"table {qname} has {len(tcols)}")
+                for c, st, sd in zip(tcols, exec_plan.output_types, exec_plan.output_dicts):
+                    if st is UNKNOWN or st.name == "unknown":
+                        # a typeless NULL column takes the table column's type
+                        # at write time, its NULL flags riding along
+                        casts.append(c.type)
+                        remaps.append(None)
+                        continue
+                    casts.append(None)
+                    if c.type.name != st.name:
+                        raise ValueError(
+                            f"INSERT type mismatch on {c.name}: {st.name} vs {c.type.name}")
+                    if c.dictionary is None or sd is c.dictionary:
+                        remaps.append(None)
+                        continue
+                    # re-encode the source codes into the table's private
+                    # dictionary, extending it with values it has not seen
+                    if sd is None or not hasattr(c.dictionary, "values"):
+                        raise ValueError(
+                            f"INSERT into dictionary column {c.name} requires a "
+                            "materialized target dictionary")
+                    if not hasattr(sd, "values"):
+                        remaps.append(_virtual_remap(sd, c.dictionary))
+                        continue
+                    remaps.append(np.asarray(c.dictionary.extend([str(v) for v in sd.values]),
+                                             dtype=np.int32))
+
+            sink_provider = conn.page_sink_provider()
+            if sink_provider is None:
+                raise ValueError(f"catalog {qname.catalog} is not writable")
+            insert_handle = meta.begin_insert(handle)
+            is_insert = isinstance(stmt, t.Insert)
+            if is_insert and any(r is not None for r in remaps):
+                # INSERT pages carry the table's dictionaries; CTAS pages keep
+                # their source dictionaries (the table's copies match them)
+                column_dicts = [c.dictionary for c in meta.get_table_metadata(handle).columns]
+                writer_fac = TableWriterOperatorFactory(9000, sink_provider, insert_handle,
+                                                        remaps=remaps, column_dicts=column_dicts,
+                                                        casts=casts)
+            elif is_insert and any(c is not None for c in casts):
+                writer_fac = TableWriterOperatorFactory(9000, sink_provider, insert_handle,
+                                                        casts=casts)
+            else:
+                writer_fac = TableWriterOperatorFactory(9000, sink_provider, insert_handle)
+            count_sink = PageConsumerFactory(9001, [BIGINT])
+            n_writers = self._scaled_writer_count(plan)
+            if n_writers > 1:
+                from .ops.local_exchange import (LocalExchangeFactory, LocalExchangeSinkFactory,
+                                                 LocalExchangeSourceFactory)
+
+                # pages are DEALT round-robin, so every writer gets a share
+                # however fast the source bursts pages into the buffer
+                lx = LocalExchangeFactory(n_producers=1, max_pages=2 * n_writers + 2,
+                                          deal_slots=n_writers)
+                exec_plan.pipelines[-1] = exec_plan.pipelines[-1][:-1] + \
+                    [LocalExchangeSinkFactory(9002, lx, [])]
+                for _ in range(n_writers):
+                    exec_plan.pipelines.append(
+                        [LocalExchangeSourceFactory(9003, lx, []), writer_fac, count_sink])
+            else:
+                exec_plan.pipelines[-1] = exec_plan.pipelines[-1][:-1] + [writer_fac, count_sink]
+            drivers = exec_plan.create_drivers()
+            try:
+                self._run_drivers(drivers)
+            except BaseException:
+                for s in writer_fac.sinks:
+                    s.abort()
+                if created:  # CTAS is atomic: roll the metadata back
+                    meta.drop_table(handle)
+                raise
+            fragments = [p for s in writer_fac.sinks for p in s.finish()]
+            meta.finish_insert(insert_handle, fragments)
+            total = sum(r[0] for r in count_sink.rows())
+            return QueryResult([[total]], ["rows"], [BIGINT])
+        finally:
+            mem_release()
 
     def _scaled_writer_count(self, plan: OutputNode) -> int:
         """K writer drivers when the source is large enough that each of K

@@ -41,6 +41,15 @@ AGGREGATE_NAMES = {"count", "sum", "avg", "min", "max", "stddev", "stddev_samp",
 EXTERNAL_FUNCTIONS: Dict[str, "Callable"] = {}
 
 
+# every scalar function of the reference's plugin libraries
+# (presto_tpu/functions/): geospatial, teradata and ml
+PLUGIN_FUNCTIONS = frozenset({
+    "st_point", "st_geometryfromtext", "st_geometry_from_text", "st_x", "st_y",
+    "st_distance", "st_contains", "st_within", "st_area", "great_circle_distance",
+    "index", "strpos", "char2hexint", "reverse", "trim", "ltrim", "rtrim",
+    "char_length", "character_length", "regress", "classify"})
+
+
 def register_scalar_function(name: str, typer) -> None:
     EXTERNAL_FUNCTIONS[name.lower()] = typer  # prestocheck: ignore[unbounded-cache] - plugin registry: one entry per registered function, not per request
 
@@ -589,6 +598,12 @@ class ExpressionTranslator:
         typer = EXTERNAL_FUNCTIONS.get(name)
         if typer is not None:
             return typer(name, args)
+        if name in PLUGIN_FUNCTIONS:
+            # a function of the reference's plugin libraries whose port is
+            # not registered: the port's rule is to refuse, naming it
+            raise NotImplementedError(
+                f"function {name}: its library of presto_tpu_torch.functions "
+                f"is not registered")
         raise SemanticError(f"unknown function {name}")
 
     def _t_SubqueryExpression(self, e: t.SubqueryExpression) -> RowExpression:

@@ -428,3 +428,44 @@ def test_collect_grouping_on_the_card_equals_the_cpu_run(cuda):
         runs[str(dev)] = sorted((r[0], tuple(sorted(Counter(r[1]).items())), r[2], r[3], r[4])
                                 for r in rows)
     assert runs[str(cuda)] == runs["cpu"] and len(runs["cpu"]) == 1000
+
+
+def test_pressured_q3_launches_on_the_card(cuda):
+    """SQL Q3 at ``tiny`` with ``hash_kernels="pallas"`` under a one-byte
+    pool: every build page goes to host RAM and comes back before the
+    table is built, so the card's rows and counters equal the CPU run's and
+    each insert and probe ran as a CUDA launch (a build over host pages
+    would run the plain version and count none)."""
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.runner import LocalQueryRunner
+    from presto_tpu_torch.utils import events
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    names = ("pallas.join_builds", "pallas.join_fallbacks", "pallas.agg_pages",
+             "memory.revoked_bytes")
+    runs = {}
+    for dev in ("cpu", cuda):
+        session = Session(catalog="tpch", schema="tiny",
+                          properties={"hash_kernels": "pallas", "page_capacity": 1 << 12,
+                                      "driver_parallelism": 1, "memory_pool_bytes": 1})
+        before = {k: METRICS.counter_value(k) for k in names}
+        seq = events.JOURNAL.last_seq()
+        inserts, probes = ph.insert_table.launches, ph.probe_table.launches
+        rows = LocalQueryRunner(session, device=dev).execute(QUERIES[3]).rows
+        delta = {k: METRICS.counter_value(k) - before[k] for k in names}
+        spills = len(events.JOURNAL.events(since=seq, kind="memory.spill", limit=1 << 20))
+        runs[str(dev)] = (rows, delta, spills, ph.insert_table.launches - inserts,
+                          ph.probe_table.launches - probes)
+    cpu_rows, cpu_delta, cpu_spills, cpu_inserts, cpu_probes = runs["cpu"]
+    rows, delta, spills, inserts, probes = runs[str(cuda)]
+    assert rows == cpu_rows and len(rows) == 10
+    # the bytes moved differ: on the CPU the grouping shrinks its partials
+    # to the first page's group count (``_decide_strategy``), on the card not
+    counts = [k for k in names if k != "memory.revoked_bytes"]
+    assert {k: delta[k] for k in counts} == {k: cpu_delta[k] for k in counts}
+    assert spills == cpu_spills > 0
+    assert delta["pallas.join_builds"] == 2 and delta["pallas.join_fallbacks"] == 0
+    assert delta["memory.revoked_bytes"] > 0 and cpu_delta["memory.revoked_bytes"] > 0
+    assert cpu_inserts == cpu_probes == 0  # the CPU runs the plain versions
+    assert inserts == delta["pallas.join_builds"] + delta["pallas.agg_pages"] and probes > 0

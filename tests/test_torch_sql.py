@@ -162,7 +162,7 @@ def test_show_statements_match_reference(stmt):
     assert got.rows == want.rows and got.column_names == want.column_names
 
 
-@pytest.mark.parametrize("prop,value", [("memory_pool_bytes", 1 << 20),
+@pytest.mark.parametrize("prop,value", [("spill_to_disk", True),
                                         ("grouped_execution", True)])
 def test_unported_session_property_raises_naming_itself(prop, value):
     session = Session(catalog="tpch", schema="tiny", properties={prop: value})
