@@ -85,7 +85,8 @@ Phases, each of which must pass:
    against their plain versions, bit for bit, at the shapes the cold runs
    of Q15 (its one-row ``max`` build among them), Q17 (the build of its
    grouping's result, one page of 2^22 rows) and Q21 gave them. Then
-   the port's CPU run of each query but Q5 must give the card's rows;
+   each query runs at ``tiny`` on the card and in the port's CPU run, with
+   equal rows (``CPU_ROWS_SCHEMA``; these host checks once ran at SF1);
 12. all 22 TPC-DS queries of ``models/tpcds_sql.py`` (Q64 and Q72 among
    them) as SQL at ``tpcds.sf1`` with ``hash_kernels="pallas"`` under the
    full defaults: cold, warm (counters set to 0 just before it) and once
@@ -98,9 +99,10 @@ Phases, each of which must pass:
    their expansion chunks, expanded rows and peak device memory, get a
    profiler pass, and hold both kernels against their plain versions, bit
    for bit, at the shapes of their cold runs' largest build and first
-   probe page. Then the port's CPU run of each must give the card's rows
-   (Q50 gives none in both); Q64's and Q72's at ``tiny`` against a card run
-   at ``tiny`` (50-100 s each on the host at SF1);
+   probe page. Then each runs at ``tiny`` on the card and in the port's CPU
+   run, with equal rows; the ``PHASE`` line after it gives the host
+   checks' seconds and what running them at ``tiny`` saves against the
+   SF1 runs they replace;
 13. five set operations at ``tpch.sf1`` (UNION ALL of two date-disjoint
    ``lineitem`` selections grouped by ``l_returnflag``; customers EXCEPT
    order customers; an INTERSECT of early order customers with BUILDING
@@ -166,13 +168,40 @@ Phases, each of which must pass:
    ``l_shipmode``, ``regr_*``, ``learn_linear_regressor`` then
    ``regress``) against numpy (``oracle_plugins``: counts and strings
    exact, DOUBLE to ``PLUGIN_REL_TOL``). Prints ``EXPLAIN``, ``MEMORY`` and
-   ``PLUGIN`` lines;
-17. print the kernels line (JSON, with each kernel's warm-run launches per
+   ``PLUGIN`` lines. With the disk rung on by default, Q3's and Q18's
+   revoked bytes must reach disk (PCOL bytes written and read back) and the
+   window's must stay in host RAM; each ``MEMORY`` line names the rung;
+17. the flight recorder, the metrics histograms and the disk rung at
+   ``tpch.sf1`` (``run_flight_phase``), with ``hash_kernels="pallas"``: Q3
+   and Q9 with ``query_trace`` from cold scans (rows equal to plain runs;
+   the Chrome trace loads, the ``lifecycle`` spans ``query`` enclose
+   ``parse``, ``plan``, ``local_plan`` and ``execute``, and ``driver``,
+   ``operator``, ``segment``, ``scan`` and ``pool`` spans are there);
+   ``TRACE`` lines give the spans per category, the drops,
+   ``overlap_ratio(scan, driver)`` and each category's merged busy seconds
+   as a share of ``execute``; the warm walls of 7 turns of Q3 and Q9 under
+   the black box, with it off and with a full trace (the modes in turns;
+   printed, not gated); Q1
+   over a quarter of its accounted peak must fail with a forensic trace on
+   the exception and ``query.forensic_dumped`` journaled, and a successful
+   Q6 must write nothing; Q3 and Q18 under ``memory_pool_bytes=1``, cold
+   and warm with the disk rung, and warm with ``spill_to_disk=False``:
+   rows equal to the numpy Q3 and phase 11's Q18, ``query.spill.disk``
+   runs and every PCOL byte written read back, launches equal to the
+   unpressured run's (the runs came back to the card before the insert),
+   the native ``libpcol`` opened every run, no spill directory or ledger
+   byte left; an injected ``spill.write`` fault fails only its query, with
+   ``query.spill.failed`` and a forensic trace, and the next Q3 runs clean;
+   ``query.wall_s`` must count every statement of the phase that
+   completed. Prints ``TRACE``, ``FORENSIC``, ``SPILL``, ``FAULT`` and
+   ``HIST`` lines;
+18. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
    ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``, phase 16 as
-   ``SQL EXPLAIN q3``, ``SQL MEM q3 pressured`` and ``SQL PLUGIN geo``),
-   the card line, and last the result line.
+   ``SQL EXPLAIN q3``, ``SQL MEM q3 pressured`` and ``SQL PLUGIN geo``,
+   phase 17 as ``SQL TRACE q3``, counted on the cold traced run, and ``SQL
+   SPILL q18 disk``), the card line, and last the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -1525,21 +1554,27 @@ def run_default_path_phase(device, records: dict, schema: str = "sf1",
     return out
 
 
-def check_cpu_rows(records: dict, schema: str = "sf1") -> None:
-    """The port's own CPU run of each ported query but Q5 (its 6.9e9-row
-    expansion is for the card; its numpy oracle holds it) under the
-    defaults: rows equal to the card's."""
+# the card-against-host checks of phases 11 and 12 run at this schema: at SF1
+# their host runs took 90.2 s and 107.9 s on an NVIDIA H100 80GB HBM3 host
+# (PERF.md section 6); the card's SF1 rows stay held by the numpy oracles and
+# the oracle-property runs
+CPU_ROWS_SCHEMA = "tiny"
+SF1_HOST_SECONDS = 90.2 + 107.9
+
+
+def check_cpu_rows(device, schema: str = CPU_ROWS_SCHEMA) -> None:
+    """Every ported query under the defaults, on the card and in the port's
+    own CPU run, both at ``schema``: equal rows."""
     from presto_tpu_torch.models.tpch_sql import QUERIES
     from presto_tpu_torch.ops.scan import RESIDENT_CACHE
 
     for q in PORTED_QUERIES:
-        if q == 5:
-            continue
+        card = sql_runner(device, "pallas", schema).execute(QUERIES[q]).rows
         t0 = time.perf_counter()
         rows = sql_runner("cpu", "pallas", schema).execute(QUERIES[q]).rows
-        if not same_rows(records[q]["rows"], rows):
-            raise AssertionError(f"SQL Q{q}: the card's rows differ from the CPU run's:\n"
-                                 f"{records[q]['rows']}\n{rows}")
+        if not same_rows(card, rows):
+            raise AssertionError(f"SQL Q{q}: the card's rows differ from the CPU run's "
+                                 f"at {schema}:\n{card}\n{rows}")
         log(f"CPU SQL Q{q} {schema}: {len(rows)} rows equal to the card's "
             f"({time.perf_counter() - t0:.2f}s on the host)")
     RESIDENT_CACHE.clear()  # the host pages are no use to the card
@@ -1650,22 +1685,19 @@ def run_tpcds_phase(device, schema: str = "sf1") -> dict:
     return out
 
 
-def check_ds_cpu_rows(records: dict, schema: str = "sf1", device="cuda") -> None:
-    """The port's own CPU run of each TPC-DS query under the defaults: rows
-    equal to the card's. Q64's and Q72's CPU runs take 50-100 s each at SF1,
-    so theirs run at ``tiny``, against a card run at ``tiny``."""
+def check_ds_cpu_rows(device, schema: str = CPU_ROWS_SCHEMA) -> None:
+    """Every TPC-DS query under the defaults, on the card and in the port's
+    own CPU run, both at ``schema``: equal rows."""
     from presto_tpu_torch.models.tpcds_sql import QUERIES
 
     for q in sorted(QUERIES):
-        at = "tiny" if q in DS_DEEP else schema
-        card = records[q]["rows"] if at == schema else \
-            ds_runner(device, at).execute(QUERIES[q]).rows
+        card = ds_runner(device, schema).execute(QUERIES[q]).rows
         t0 = time.perf_counter()
-        rows = ds_runner("cpu", at).execute(QUERIES[q]).rows
+        rows = ds_runner("cpu", schema).execute(QUERIES[q]).rows
         if not same_rows(card, rows):
             raise AssertionError(f"SQL DS Q{q}: the card's rows differ from the CPU run's "
-                                 f"at {at}:\n{card}\n{rows}")
-        log(f"CPU SQL DS Q{q} {at}: {len(rows)} rows equal to the card's "
+                                 f"at {schema}:\n{card}\n{rows}")
+        log(f"CPU SQL DS Q{q} {schema}: {len(rows)} rows equal to the card's "
             f"({time.perf_counter() - t0:.2f}s on the host)")
 
 
@@ -2723,17 +2755,21 @@ def _explain_table(rows):
     return drivers, ops
 
 
+SPILL_COUNTERS = ("memory.revoked_bytes", "spill.bytes_written", "spill.bytes_read",
+                  "pcol.native_opens", "pcol.numpy_opens")
+
+
 def _warm(runner, sql, sync, spills_of=None):
     """One run with the launch counters and ``COUNTERS`` set to 0 just
-    before it: (result, wall, launches, counter deltas, bytes moved to host,
-    memory.spill events per operator)."""
+    before it: (result, wall, launches, counter deltas (with the bytes moved
+    to host and to disk), memory.spill events per operator)."""
     import collections
 
     from presto_tpu_torch.ops import pallas_hash as ph
     from presto_tpu_torch.utils import events
     from presto_tpu_torch.utils.metrics import METRICS
 
-    keys = COUNTERS + ("memory.revoked_bytes",)
+    keys = COUNTERS + SPILL_COUNTERS
     before = {k: METRICS.counter_value(k) for k in keys}
     seq = events.JOURNAL.last_seq()
     ph.insert_table.launches = 0
@@ -2754,8 +2790,10 @@ def run_memory_phase(device, records: dict, schema: str = "sf1") -> dict:
     """Phase 16 at TPC-H ``schema`` with ``hash_kernels="pallas"``:
     EXPLAIN ANALYZE of Q3, Q9 and Q18 under the defaults against a plain
     run's operator rows and drivers; Q3, Q18 and a window under a one-byte
-    pool (rows against the oracles and phase 11's card rows, Q3's kernel
-    launches against its unpressured run); a query over its memory limit;
+    pool with the disk rung on (rows against the oracles and phase 11's card
+    rows, Q3's kernel launches against its unpressured run; Q3's and Q18's
+    revoked bytes go on to disk, the window's stay in host RAM); a query
+    over its memory limit;
     the accounted peak beside the allocator's for Q3, Q9 and TPC-DS Q64;
     the plugin functions over ``lineitem`` against numpy. Returns the
     records whose launches the kernels line reports."""
@@ -2839,6 +2877,12 @@ def run_memory_phase(device, records: dict, schema: str = "sf1") -> dict:
         if not spills or not delta["memory.revoked_bytes"]:
             raise AssertionError(f"MEM {label}: nothing revoked under a one-byte pool "
                                  f"({spills}, {delta['memory.revoked_bytes']} bytes)")
+        to_disk = label != "window orders"  # a window keeps host RAM only
+        if bool(delta["spill.bytes_written"]) != to_disk or \
+                delta["spill.bytes_read"] != delta["spill.bytes_written"]:
+            raise AssertionError(f"MEM {label}: disk bytes written "
+                                 f"{delta['spill.bytes_written']}, read "
+                                 f"{delta['spill.bytes_read']}")
         if on_card and launches["insert"] != delta["pallas.join_builds"] + \
                 delta["pallas.agg_pages"]:
             raise AssertionError(f"MEM {label}: insert launches {launches} != builds + pages "
@@ -2848,7 +2892,10 @@ def run_memory_phase(device, records: dict, schema: str = "sf1") -> dict:
         log(f"MEMORY {label} {schema} under memory_pool_bytes=1: {len(res.rows)} rows equal "
             f"to the oracle; walls cold {cold_s:.4f}s, warm {warm_s:.4f}s against unpressured "
             f"cold {u[0]:.4f}s, warm {u[1]:.4f}s; bytes moved to host on the warm run "
-            f"{int(delta['memory.revoked_bytes'])}; memory.spill events {spills} (unpressured "
+            f"{int(delta['memory.revoked_bytes'])}, PCOL bytes written to disk "
+            f"{int(delta['spill.bytes_written'])} (last rung reached: "
+            f"{'disk' if delta['spill.bytes_written'] else 'host RAM'}); memory.spill events "
+            f"{spills} (unpressured "
             f"{base_spills}); launches {launches} (unpressured {base_launches}); join builds "
             f"{int(delta['pallas.join_builds'])}, grouped pages {int(delta['pallas.agg_pages'])}")
 
@@ -2905,6 +2952,292 @@ def run_memory_phase(device, records: dict, schema: str = "sf1") -> dict:
         out[f"SQL PLUGIN {label}"] = {"launches": launches}
         log(f"PLUGIN {label} {schema}: rows equal to the numpy oracle; wall {wall:.4f}s; "
             f"launches {launches}; first row {res.rows[0]}")
+    return out
+
+
+# phase 17: the flight recorder, the metrics histograms and the disk rung
+TRACE_QUERIES = (3, 9)
+TRACE_CATEGORIES = ("driver", "operator", "segment", "scan", "pool")
+LIFECYCLE_CHILDREN = ("parse", "plan", "local_plan", "execute")
+RECORDING_MODES = {"black box (default)": {}, "off": {"query_blackbox": False},
+                   "full trace": {"query_trace": True}}
+RECORDING_REPS = 7
+SPILL_QUERIES = (3, 18)
+
+
+def _lifecycle_nesting(doc) -> list:
+    """The lifecycle spans in start order, each with its innermost
+    enclosing lifecycle span's name."""
+    spans = sorted((e for e in doc["traceEvents"]
+                    if e.get("ph") == "X" and e.get("cat") == "lifecycle"),
+                   key=lambda e: (e["ts"], -e["dur"]))
+    out = []
+    for e in spans:
+        parents = [p for p in spans if p is not e and p["ts"] <= e["ts"]
+                   and p["ts"] + p["dur"] >= e["ts"] + e["dur"]]
+        parent = min(parents, key=lambda p: p["dur"]) if parents else None
+        out.append((e["name"], parent["name"] if parent else None))
+    return out
+
+
+def _check_lifecycle(label: str, doc, children=LIFECYCLE_CHILDREN) -> None:
+    nest = _lifecycle_nesting(doc)
+    want = [("query", None)] + [(c, "query") for c in children]
+    if [x for x in nest if x[0] in ("query",) + tuple(children)] != want:
+        raise AssertionError(f"{label}: lifecycle spans {nest}, want {want}")
+
+
+def _own_spill_dirs() -> list:
+    """Spill directories this process holds under the port's root."""
+    import glob
+
+    from presto_tpu_torch.exec.spill import spill_root
+
+    return [d for d in glob.glob(os.path.join(spill_root(""), "*"))
+            if os.path.basename(d).startswith(f"{os.getpid()}-")]
+
+
+def _hist_since(name: str, before: dict) -> dict:
+    """{count, p50, p95, p99} of the observations histogram ``name`` got
+    since the raw snapshot ``before``."""
+    from presto_tpu_torch.utils.metrics import METRICS, Histogram
+
+    now = METRICS.raw_snapshot(name)["histograms"].get(name)
+    if now is None:
+        return {}
+    prev = (before.get("histograms") or {}).get(name) or {"counts": [0] * 64, "n": 0,
+                                                          "total": 0.0}
+    diff = {"counts": [a - b for a, b in zip(now["counts"], prev["counts"])],
+            "n": now["n"] - prev["n"], "total": now["total"] - prev["total"]}
+    return Histogram.from_raw(diff).summary()
+
+
+def run_flight_phase(device, records: dict, schema: str = "sf1") -> dict:
+    """Phase 17 at TPC-H ``schema`` with ``hash_kernels="pallas"`` under the
+    defaults: Q3 and Q9 traced (``query_trace``) from cold scans, their
+    rows against plain runs and their Chrome traces checked and summed up;
+    the warm walls under the three recording modes; a forensic dump of a
+    query over its memory limit; Q3 and Q18 under a one-byte pool through
+    the disk rung (cold and warm) and once held at host RAM; an injected
+    ``spill.write`` fault; and the ``query.wall_s`` histogram over the
+    phase's statements. Returns the records whose launches the kernels line
+    reports."""
+    import collections
+    import shutil
+    import tempfile
+
+    import torch
+
+    from presto_tpu_torch.cluster import faults
+    from presto_tpu_torch.memory import ExceededMemoryLimitException, shared_general_pool
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.utils import events, trace
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-trace-")
+    walls_before = METRICS.raw_snapshot("query.wall_s")
+    completed = [0]  # statements of this phase that completed
+
+    def run(runner, sql):
+        res = runner.execute(sql)
+        sync()
+        completed[0] += 1
+        return res
+
+    try:
+        # 1. the full trace, from cold scans
+        for q in TRACE_QUERIES:
+            plain = run(sql_runner(device, "pallas", schema), QUERIES[q])
+            traced = sql_runner(device, "pallas", schema, query_trace=True, query_trace_dir=tmp)
+            RESIDENT_CACHE.clear()
+            ph.insert_table.launches = 0
+            ph.probe_table.launches = 0
+            t0 = time.perf_counter()
+            res = run(traced, QUERIES[q])
+            wall = time.perf_counter() - t0
+            launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+            if not same_rows(res.rows, plain.rows):
+                raise AssertionError(f"TRACE Q{q}: traced rows differ from the plain run's")
+            if not res.trace_path or not res.trace_path.startswith(tmp):
+                raise AssertionError(f"TRACE Q{q}: trace_path {res.trace_path}")
+            with open(res.trace_path) as f:
+                doc = json.load(f)
+            _check_lifecycle(f"TRACE Q{q}", doc)
+            cats = trace.span_categories(doc)
+            missing = [c for c in TRACE_CATEGORIES if not cats.get(c)]
+            if missing:
+                raise AssertionError(f"TRACE Q{q}: no {missing} spans ({cats})")
+            execute = [e for e in doc["traceEvents"]
+                       if e.get("ph") == "X" and e["cat"] == "lifecycle"
+                       and e["name"] == "execute"][0]
+            busy = {c: sum(hi - lo for lo, hi in trace._merged_intervals(doc, c)) / 1e6
+                    for c in sorted(cats) if c != "lifecycle"}
+            out[f"SQL TRACE q{q}"] = {"launches": launches}
+            log(f"TRACE Q{q} {schema} cold: {len(res.rows)} rows equal to the plain run's; "
+                f"wall {wall:.4f}s; {os.path.getsize(res.trace_path)} bytes of Chrome JSON; "
+                f"lifecycle {_lifecycle_nesting(doc)}; launches {launches}")
+            log(f"TRACE Q{q} spans by category {dict(sorted(cats.items()))}; dropped "
+                f"{doc['otherData']['dropped_events']}; overlap_ratio(scan, driver) "
+                f"{trace.overlap_ratio(doc, 'scan', 'driver'):.4f}")
+            log(f"TRACE Q{q} merged busy seconds as a share of execute "
+                f"({execute['dur'] / 1e6:.4f}s): " + ", ".join(
+                    f"{c} {busy[c]:.4f}s ({busy[c] / (execute['dur'] / 1e6):.3f})"
+                    for c in busy))
+
+        # 2. the cost of recording: warm walls under each mode, the modes
+        # taking turns so drift falls on all of them alike; no gate
+        for q in TRACE_QUERIES:
+            runners = {mode: sql_runner(device, "pallas", schema, query_trace_dir=tmp,
+                                        **props)
+                       for mode, props in RECORDING_MODES.items()}
+            for runner in runners.values():
+                run(runner, QUERIES[q])  # warm-up
+            walls = {mode: [] for mode in runners}
+            for _ in range(RECORDING_REPS):
+                for mode, runner in runners.items():
+                    t0 = time.perf_counter()
+                    run(runner, QUERIES[q])
+                    walls[mode].append(time.perf_counter() - t0)
+            log(f"TRACE cost Q{q} {schema}: warm walls over {RECORDING_REPS} turns, median "
+                f"[min, max]: " + ", ".join(
+                    f"{m} {np.median(w):.4f}s [{min(w):.4f}, {max(w):.4f}]"
+                    for m, w in walls.items()))
+
+        # 3. the forensic dump of a failed query, and none for a success
+        ok_dir = os.path.join(tmp, "success")
+        res = run(sql_runner(device, "pallas", schema, query_trace_dir=ok_dir), QUERIES[6])
+        if res.trace_path or (os.path.isdir(ok_dir) and os.listdir(ok_dir)):
+            raise AssertionError("FORENSIC: a successful query exported a trace")
+        RESIDENT_CACHE.clear()
+        with PoolPeak() as peak:
+            run(sql_runner(device, "pallas", schema), QUERIES[1])
+        limit = peak.peak // 4
+        RESIDENT_CACHE.clear()
+        seq = events.JOURNAL.last_seq()
+        try:
+            sql_runner(device, "pallas", schema, query_max_memory_bytes=limit,
+                       query_trace_dir=tmp).execute(QUERIES[1])
+            raise AssertionError(f"FORENSIC: Q1 ran under query_max_memory_bytes={limit}")
+        except ExceededMemoryLimitException as e:
+            path = getattr(e, "failure_trace_path", None)
+        if not path or not path.startswith(tmp):
+            raise AssertionError(f"FORENSIC: the exception carries {path}")
+        with open(path) as f:
+            doc = json.load(f)
+        _check_lifecycle("FORENSIC Q1", doc)
+        dumped = events.JOURNAL.events(since=seq, kind="query.forensic_dumped")
+        if not dumped or dumped[-1]["path"] != path or not doc["otherData"]["coarse"]:
+            raise AssertionError(f"FORENSIC: journal {dumped}, coarse "
+                                 f"{doc['otherData']['coarse']}")
+        log(f"FORENSIC Q1 {schema} under query_max_memory_bytes={limit}: "
+            f"{os.path.basename(path)} ({os.path.getsize(path)} bytes, coarse ring, "
+            f"spans {trace.span_categories(doc)}, dropped "
+            f"{doc['otherData']['dropped_events']}); query.forensic_dumped journaled; "
+            f"a successful Q6 wrote nothing")
+
+        # 4. the disk rung: a one-byte pool, disk on and off, against the
+        # unpressured run
+        rows_of = {3: oracle_q3(schema)[0], 18: records[18]["rows"]}
+        w_before = METRICS.raw_snapshot("spill.write_s")
+        for q in SPILL_QUERIES:
+            walls = {}
+            for mode, props in (("unpressured", {}), ("disk", PRESSURE),
+                                ("host", {**PRESSURE, "spill_to_disk": False})):
+                runner = sql_runner(device, "pallas", schema, **props)
+                cold_s = None
+                if mode != "host":  # host RAM only: one warm run
+                    RESIDENT_CACHE.clear()
+                    t0 = time.perf_counter()
+                    run(runner, QUERIES[q])
+                    cold_s = time.perf_counter() - t0
+                seq = events.JOURNAL.last_seq()
+                res, warm_s, launches, delta, spills = _warm(runner, QUERIES[q], sync)
+                completed[0] += 1
+                runs = collections.Counter(
+                    e["run_kind"] for e in events.JOURNAL.events(
+                        since=seq, kind="query.spill.disk", limit=1 << 20))
+                walls[mode] = (cold_s, warm_s, launches, delta, dict(runs))
+                if not same_rows(res.rows, rows_of[q]):
+                    raise AssertionError(f"SPILL Q{q} {mode}: rows differ from "
+                                         f"{'the numpy Q3' if q == 3 else 'phase 11'}")
+                if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+                    raise AssertionError(f"SPILL Q{q} {mode}: a fallback: {delta}")
+                if mode != "unpressured":
+                    out[f"SQL SPILL q{q} {mode}"] = {"launches": launches}
+            base = walls["unpressured"]
+            for mode in ("disk", "host"):
+                cold_s, warm_s, launches, delta, runs = walls[mode]
+                if on_card and launches != base[2]:
+                    raise AssertionError(f"SPILL Q{q} {mode}: launches {launches}, unpressured "
+                                         f"{base[2]}")
+                if not delta["memory.revoked_bytes"]:
+                    raise AssertionError(f"SPILL Q{q} {mode}: nothing revoked")
+            _, _, _, disk, runs = walls["disk"]
+            if not runs or not disk["spill.bytes_written"] or \
+                    disk["spill.bytes_read"] != disk["spill.bytes_written"]:
+                raise AssertionError(f"SPILL Q{q}: runs {runs}, written "
+                                     f"{disk['spill.bytes_written']}, read "
+                                     f"{disk['spill.bytes_read']}")
+            if on_card and (not disk["pcol.native_opens"] or disk["pcol.numpy_opens"]):
+                raise AssertionError(f"SPILL Q{q}: PCOL opens native "
+                                     f"{disk['pcol.native_opens']}, numpy "
+                                     f"{disk['pcol.numpy_opens']}")
+            if walls["host"][3]["spill.bytes_written"] or walls["host"][4]:
+                raise AssertionError(f"SPILL Q{q}: spill_to_disk=False wrote to disk")
+            left = _own_spill_dirs()
+            ledger = shared_general_pool().spill_by_query()
+            if left or ledger:
+                raise AssertionError(f"SPILL Q{q}: left {left}, spill ledger {ledger}")
+            log(f"SPILL Q{q} {schema} under memory_pool_bytes=1: rows equal; warm walls disk "
+                f"{walls['disk'][1]:.4f}s (cold {walls['disk'][0]:.4f}s), host RAM only "
+                f"{walls['host'][1]:.4f}s, unpressured {base[1]:.4f}s (cold {base[0]:.4f}s); "
+                f"warm disk run: {dict(runs)} PCOL runs, {int(disk['spill.bytes_written'])} "
+                f"bytes written and read back, {int(disk['memory.revoked_bytes'])} bytes "
+                f"moved to host, {int(disk['pcol.native_opens'])} native PCOL opens; "
+                f"launches {walls['disk'][2]} (host RAM only {walls['host'][2]}, unpressured "
+                f"{base[2]}); no spill directory or ledger byte left")
+        w = _hist_since("spill.write_s", w_before)
+        log(f"SPILL spill.write_s over the phase's runs: count {w.get('count')}, p50 "
+            f"{w.get('p50')}s, p95 {w.get('p95')}s, p99 {w.get('p99')}s")
+
+        # 5. an injected spill.write fault fails only its query
+        faults.install(faults.FaultInjector.from_spec("spill.write:error:times=1", seed=7))
+        seq = events.JOURNAL.last_seq()
+        try:
+            try:
+                sql_runner(device, "pallas", schema, query_trace_dir=tmp,
+                           **PRESSURE).execute(QUERIES[3])
+                raise AssertionError("FAULT: the injected spill.write fault did not fire")
+            except faults.InjectedFault as e:
+                path = getattr(e, "failure_trace_path", None)
+        finally:
+            faults.clear()
+        failed = events.JOURNAL.events(since=seq, kind="query.spill.failed")
+        if not path or not failed or failed[-1]["op"] != "write":
+            raise AssertionError(f"FAULT: forensic {path}, journal {failed}")
+        if _own_spill_dirs() or shared_general_pool().spill_by_query():
+            raise AssertionError("FAULT: the failed query left spill state behind")
+        res = run(sql_runner(device, "pallas", schema, **PRESSURE), QUERIES[3])
+        if not same_rows(res.rows, rows_of[3]):
+            raise AssertionError("FAULT: the next query's rows differ from the numpy Q3")
+        log(f"FAULT spill.write {schema}: Q3 under a one-byte pool failed with "
+            f"InjectedFault, query.spill.failed (op write) journaled, forensic "
+            f"{os.path.basename(path)} attached; the next Q3 ran clean")
+
+        # 6. the query-wall histogram over this phase's statements
+        h = _hist_since("query.wall_s", walls_before)
+        if h.get("count") != completed[0]:
+            raise AssertionError(f"HIST query.wall_s counted {h.get('count')} statements, the "
+                                 f"phase completed {completed[0]}")
+        log(f"HIST query.wall_s over phase 17: count {h['count']} (= the statements that "
+            f"completed), p50 {h['p50']}s, p95 {h['p95']}s, p99 {h['p99']}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -2998,10 +3331,12 @@ def main() -> int:
         f"cuda {torch.version.cuda}; {card}")
     clock = [time.perf_counter()]
 
-    def phase_done(name: str) -> None:
+    def phase_done(name: str) -> float:
         now = time.perf_counter()
-        log(f"PHASE {name}: {now - clock[0]:.1f}s")
+        spent = now - clock[0]
+        log(f"PHASE {name}: {spent:.1f}s")
         clock[0] = now
+        return spent
 
     try:
         build_kernels()
@@ -3030,12 +3365,15 @@ def main() -> int:
             check_path_kernels(device, capture, run=f"SQL Q{q} cold run",
                                need_grouping=False)
         phase_done("11 TPC-H on the card")
-        check_cpu_rows(records)
-        phase_done("11 TPC-H on the host")
+        check_cpu_rows(device)
+        host_s = phase_done("11 TPC-H on the host")
         ds_records = run_tpcds_phase(device)
         phase_done("12 TPC-DS on the card")
-        check_ds_cpu_rows(ds_records, device=device)
-        phase_done("12 TPC-DS on the host")
+        check_ds_cpu_rows(device)
+        host_s += time.perf_counter() - clock[0]
+        phase_done(f"12 TPC-DS on the host (11-12 on the host at {CPU_ROWS_SCHEMA}: "
+                   f"{host_s:.1f}s, {SF1_HOST_SECONDS - host_s:.1f}s saved against "
+                   f"{SF1_HOST_SECONDS:.1f}s at SF1)")
         setop_records = run_setops_phase(device)
         phase_done("13 set operations")
         p14_records = run_p14_phase(device)
@@ -3044,6 +3382,8 @@ def main() -> int:
         phase_done("15 writes")
         memory_records = run_memory_phase(device, records)
         phase_done("16 plugins, EXPLAIN ANALYZE, memory")
+        flight_records = run_flight_phase(device, records)
+        phase_done("17 flight recorder, histograms, disk spill")
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -3064,7 +3404,8 @@ def main() -> int:
                        for label, rec in p14_records.items()},
                     **{f"SQL WRITE {label}": rec["launches"][k]
                        for label, rec in write_records.items()},
-                    **{label: rec["launches"][k] for label, rec in memory_records.items()}}}
+                    **{label: rec["launches"][k] for label, rec in memory_records.items()},
+                    **{label: rec["launches"][k] for label, rec in flight_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -56,6 +56,17 @@ class Driver:
         self._blocked_op: Optional[Operator] = None
         self._blocked_since_ns: Optional[int] = None
 
+    @property
+    def trace_label(self) -> str:
+        """The label of this driver's ``driver`` spans: its first and last
+        operators' names."""
+        lbl = self.__dict__.get("_trace_label")
+        if lbl is None:
+            names = [op.context.stats.name for op in self.operators]
+            lbl = names[0] if len(names) == 1 else f"{names[0]}->{names[-1]}"
+            self.__dict__["_trace_label"] = lbl
+        return lbl
+
     def is_finished(self) -> bool:
         return self._closed or self.operators[-1].is_finished()
 

@@ -193,10 +193,11 @@ class LocalExecutionPlanner:
         self.pipelines: List[List[object]] = []
 
     def attach_memory(self, memory, revoke_check=None) -> None:
-        """Wire the query's MemoryTrackingContext and its pressure probe into
-        every factory this planner plans: operators then account their
-        bytes into the query's pool and revoke under pressure. The port has
-        no disk tier, so there is no spill manager to pass."""
+        """Wire the query's MemoryTrackingContext, its pressure probe and its
+        disk tier (the ``SpillManager`` the runner hung on ``memory.spill``)
+        into every factory this planner plans: operators then account their
+        bytes into the query's pool and revoke under pressure, down to disk
+        when the manager is there."""
         self._memory_ctx = memory
         self._revoke_check = revoke_check
 
@@ -216,6 +217,7 @@ class LocalExecutionPlanner:
                 if mem is not None:
                     fac.memory_ctx = mem
                     fac.revoke_check = self._revoke_check
+                    fac.spill_manager = getattr(mem, "spill", None)
                 if isinstance(fac, TableScanOperatorFactory) and fac.scan_options is None:
                     fac.scan_options = self.scan_options
         return LocalExecutionPlan(self.pipelines, sink, root.column_names,

@@ -19,8 +19,12 @@ queries cost O(pool) threads instead of O(N * stages).
   query shares one fairness slot, and the client goes away when its last
   owner releases it and its generators have drained.
 
-The reference's streaming-exchange pool, trace spans, lock-sanitizer hooks,
-step counters, size override and metric gauges are not ported.
+The submitting thread's flight recorder (``utils/trace.py``) rides with
+each generator, and a worker binds it around every step it takes for that
+generator, recording a ``pool`` span ``<pool>_step``; ``PoolClient.steps``
+counts the steps taken for a client (live progress reads it). The
+reference's streaming-exchange pool, lock-sanitizer hooks, size override
+and metric gauges are not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ import sys
 import threading
 from collections import OrderedDict, deque
 from typing import Iterator, List
+
+from ..utils import trace
 
 # what a stage generator yields; the pool treats every yield as a fairness
 # checkpoint, the names document the yield site's intent
@@ -50,12 +56,14 @@ class PoolClient:
         self.pool = pool
         self.key = key
         self.refs = 0
-        self.gens: deque = deque()   # runnable generators
+        self.gens: deque = deque()   # runnable (generator, trace recorder)
         self.live = 0                # submitted, not yet finished
+        self.steps = 0               # steps the pool took for this client
 
     def submit(self, gen: Iterator) -> None:
-        """Enqueue a stage generator."""
-        self.pool._submit(self, gen)
+        """Enqueue a stage generator, with the submitting thread's active
+        trace recorder, so the steps' spans land on the owning query."""
+        self.pool._submit(self, gen, trace.active())
 
     def release(self) -> None:
         self.pool._release(self)
@@ -88,9 +96,9 @@ class SharedWorkerPool:
                 t.start()
         return c
 
-    def _submit(self, client: PoolClient, gen: Iterator) -> None:
+    def _submit(self, client: PoolClient, gen: Iterator, recorder) -> None:
         with self._cv:
-            client.gens.append(gen)
+            client.gens.append((gen, recorder))
             client.live += 1
             self._cv.notify_all()
 
@@ -105,7 +113,8 @@ class SharedWorkerPool:
 
     def _next_work(self):
         """The next client (from the rotation cursor) with a runnable
-        generator, as (client, generator), or None after an idle wait."""
+        generator, as (client, generator, recorder), or None after an idle
+        wait."""
         with self._cv:
             keys = list(self._clients)
             n = len(keys)
@@ -113,7 +122,8 @@ class SharedWorkerPool:
                 c = self._clients[keys[(self._rr + i) % n]]
                 if c.gens:
                     self._rr = (self._rr + i + 1) % n
-                    return c, c.gens.popleft()
+                    gen, rec = c.gens.popleft()
+                    return c, gen, rec
             self._cv.wait(_IDLE_WAIT_S)
             return None
 
@@ -122,10 +132,15 @@ class SharedWorkerPool:
             work = self._next_work()
             if work is None:
                 continue
-            client, gen = work
+            client, gen, rec = work
             finished = False
             try:
-                next(gen)
+                if rec is not None:
+                    with trace.bound(rec):
+                        with trace.span(trace.POOL, f"{self.name}_step", query=client.key):
+                            next(gen)
+                else:
+                    next(gen)
             except StopIteration:
                 finished = True
             except Exception as e:  # noqa: BLE001 - the stages route their own
@@ -135,11 +150,12 @@ class SharedWorkerPool:
                 print(f"shared pool {self.name}: worker step failed: {e!r}",
                       file=sys.stderr)
             with self._cv:
+                client.steps += 1
                 if finished:
                     client.live -= 1
                     self._maybe_drop_locked(client)
                 else:
-                    client.gens.append(gen)
+                    client.gens.append((gen, rec))
                 self._cv.notify_all()
 
 

@@ -21,6 +21,11 @@ once every runner thread has left; the other drivers are not run further
 (the caller closes them). When every unfinished driver is parked, none is
 running and no callback clears, nothing can unblock them: the run stops
 with an error instead of waiting forever.
+
+The calling thread's flight recorder (``utils/trace.py``) is captured when
+the run is made and bound in every runner thread, which records one
+``driver`` span per quantum (``Driver.trace_label``, with the state the
+quantum ended in).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import threading
 import time
 from typing import List, Optional, Sequence
 
+from ..utils import trace
 from .driver import Driver, ProcessState
 
 _DEFAULT_QUANTUM_NS = 200_000_000
@@ -77,6 +83,9 @@ class _Run:
         self.running = 0                 # drivers a runner holds right now
         self.error: Optional[BaseException] = None
         self._seq = itertools.count()
+        # the submitting (query) thread's recorder rides with the run, so
+        # runner threads attribute their driver spans to the right query
+        self.recorder = trace.active()
         for d in drivers:
             heapq.heappush(self.ready, (0, next(self._seq), d))
 
@@ -115,6 +124,10 @@ class _Run:
                 self.cv.wait(timeout=_POLL_S)
 
     def runner_loop(self) -> None:
+        with trace.bound(self.recorder):
+            self._runner_loop()
+
+    def _runner_loop(self) -> None:
         while True:
             nxt = self._next_driver()
             if nxt is None:
@@ -132,6 +145,9 @@ class _Run:
                     self.cv.notify_all()
                 return
             spent = time.perf_counter_ns() - t0
+            if trace.active() is not None:
+                trace.record(trace.DRIVER, driver.trace_label, t0, spent,
+                             {"state": state.name})
             with self.cv:
                 self.running -= 1
                 if state == ProcessState.FINISHED:

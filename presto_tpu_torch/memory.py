@@ -6,10 +6,15 @@ aggregate into the query's user, revocable and system contexts, which
 reserve in a pool: the process-wide GENERAL pool (``shared_general_pool``),
 with one ledger per query. When the pool, or the query against its
 session's budget, is over the revoke target, an operator revokes its
-revocable state on its own thread: a join build moves its device pages to
-host RAM, a grouping spills its folds, a window offloads its pages. The
-ladder stops at host RAM: the reference's disk rung (PCOL runs,
-``exec/spill.py``) and its spill ledger are not ported yet.
+revocable state on its own thread, walking the reference's ladder: device
+-> host RAM -> disk. A join build moves its device pages to host RAM, a
+grouping spills its folds, a window offloads its pages; when the query has
+a disk tier (``spill_to_disk``, ``exec/spill.py``), the join build's host
+pages and the grouping's host partials go on to PCOL runs on disk. Disk
+bytes are charged to the pool's spill ledger (``reserve_spill``,
+``spill_bytes``, ``spill_by_query``, ``spilled_bytes``), which
+``reserved_bytes()`` leaves out: spilling to disk relieves the pressure
+instead of moving it to another ledger.
 ``QueryContextMemory`` raises ``ExceededMemoryLimitException`` when a
 query's user memory passes ``query_max_memory_bytes``, journaling
 ``query.memory_exceeded`` first. ``MemoryRevoker`` is the revoking
@@ -104,6 +109,9 @@ class MemoryPool:
         self.max_bytes = max_bytes
         self._reserved: Dict[str, int] = {}   # query id -> bytes
         self._revocable: Dict[str, int] = {}
+        # bytes each query holds in on-disk runs; not RAM, so outside
+        # reserved_bytes() and query_bytes()
+        self._spill: Dict[str, int] = {}
         self._lock = threading.Lock()
 
     def reserve(self, query_id: str, delta: int, revocable: bool = False) -> None:
@@ -113,6 +121,13 @@ class MemoryPool:
             if d[query_id] <= 0:
                 d.pop(query_id)
 
+    def reserve_spill(self, query_id: str, delta: int) -> None:
+        """Charge (or, with a negative delta, release) disk-spill bytes."""
+        with self._lock:
+            self._spill[query_id] = self._spill.get(query_id, 0) + delta
+            if self._spill[query_id] <= 0:
+                self._spill.pop(query_id)
+
     def clear_query(self, query_id: str) -> None:
         """Drop every reservation of one query: the end-of-query backstop,
         so a teardown that failed to release leaves no pressure behind for
@@ -120,6 +135,7 @@ class MemoryPool:
         with self._lock:
             self._reserved.pop(query_id, None)
             self._revocable.pop(query_id, None)
+            self._spill.pop(query_id, None)
 
     def by_query(self) -> Dict[str, int]:
         with self._lock:
@@ -128,9 +144,22 @@ class MemoryPool:
                 totals[q] = totals.get(q, 0) + b
             return totals
 
+    def spill_by_query(self) -> Dict[str, int]:
+        """{query id: bytes on disk}: the disk rung's ledger."""
+        with self._lock:
+            return dict(self._spill)
+
     def reserved_bytes(self) -> int:
         with self._lock:
             return sum(self._reserved.values()) + sum(self._revocable.values())
+
+    def spilled_bytes(self) -> int:
+        with self._lock:
+            return sum(self._spill.values())
+
+    def spill_bytes(self, query_id: str) -> int:
+        with self._lock:
+            return self._spill.get(query_id, 0)
 
     def query_bytes(self, query_id: str) -> int:
         with self._lock:

@@ -6,7 +6,8 @@ ordering, behind a catalog registry.
 
 The port's ``Session.DEFAULTS`` hold only the properties the port honours,
 each with the reference's default value: fused segments, page coalescing,
-the streaming scan pipeline and parallel drivers are on. A property outside
+the streaming scan pipeline, parallel drivers, the disk rung of the memory
+ladder and the black-box recorder are on. A property outside
 ``DEFAULTS`` raises ``NotImplementedError`` naming it when a query is
 planned (``Session.check_supported``): no property is ignored quietly.
 """
@@ -37,11 +38,27 @@ class Session:
         "max_groups": 1 << 20,
         # memory accounting (advisory, over torch's allocator): the
         # process-wide pool's size, the per-query user-memory limit, and the
-        # fraction of either past which operators revoke their device state
-        # to host RAM (the port's ladder stops there: no disk rung yet)
+        # fraction of either past which operators revoke their state: device
+        # -> host RAM -> disk
         "memory_pool_bytes": 8 << 30,
         "query_max_memory_bytes": 4 << 30,
         "revoke_target_fraction": 0.9,
+        # the disk rung (exec/spill.py, PCOL runs): spill_dir "" =
+        # <tempdir>/presto-tpu-torch-spill; spill_max_bytes 0 = no per-query
+        # bound on the bytes on disk
+        "spill_to_disk": True,
+        "spill_dir": "",
+        "spill_max_bytes": 0,
+        # the flight recorder (utils/trace.py): a full trace written to
+        # query_trace_dir ("" = the tempdir) when query_trace is on, with a
+        # ring of query_trace_max_events spans (0 = the default, 2^16);
+        # else the coarse black box of query_blackbox_max_events spans (0 =
+        # 2^13), written only when the query fails
+        "query_trace": False,
+        "query_trace_dir": "",
+        "query_trace_max_events": 0,
+        "query_blackbox": True,
+        "query_blackbox_max_events": 0,
         # join build/probe and grouping strategy: sorted | pallas | auto
         # (pallas = the open-addressing table on the hand-written kernels
         # wherever it is correct; auto = pallas joins on CUDA only, hash

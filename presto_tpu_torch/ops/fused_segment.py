@@ -26,16 +26,19 @@ the run with one ``FusedSegmentOperatorFactory``.
 - A grouped terminal computes the sort partial, as in the reference: a
   fused grouping does not use the insert kernel, whatever strategy the
   builder picked for its own pages.
-- The factory forwards the query's memory to its terminal: after each
-  absorbed page the terminal's builder accounts its bytes, and spills to
-  host RAM when the pool is over its revoke target.
+- The factory forwards the query's memory and disk tier to its terminal:
+  after each absorbed page the terminal's builder accounts its bytes, and
+  spills to host RAM (and on to disk) when the pool is over its revoke
+  target.
 
 Per segment, ``describe()`` gives the operators, dispatches, compiles and
 the probe-kernel launches made inside the segment (the port's own
 ``probe_launches``); the runner rolls them into
 ``QueryResult.stats["segments"]``, and ``segments.dispatches`` and
-``segments.compiles`` count them in ``utils/metrics``. The reference's
-dispatch-latency histogram and trace spans are not ported.
+``segments.compiles`` count them in ``utils/metrics``. Each dispatch's
+wall goes into the ``segments.page_dispatch_s`` histogram and, while a
+trace records, a ``segment`` span named after the segment; each
+composition is a ``segment`` instant ``compile <name>``.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from typing import List, Optional
 
 from ..block import Page
 from ..utils import kernel_cache as kc
+from ..utils import trace
 from ..utils.metrics import METRICS
 from . import pallas_hash
 from .filter_project import FilterProjectOperatorFactory
@@ -101,6 +105,7 @@ class FusedSegmentOperatorFactory(OperatorFactory):
             # the terminal's builder is the segment's only revocable state
             tf.memory_ctx = self.memory_ctx
             tf.revoke_check = self.revoke_check
+            tf.spill_manager = self.spill_manager
         return FusedSegmentOperator(self.context(), self)
 
     def note_pages(self, n: int, probe_launches: int) -> None:
@@ -113,6 +118,7 @@ class FusedSegmentOperatorFactory(OperatorFactory):
         with self._lock:
             self.compiles += 1
         METRICS.count("segments.compiles")
+        trace.instant(trace.SEGMENT, f"compile {self.name}")
 
     def describe(self) -> dict:
         with self._lock:
@@ -353,7 +359,11 @@ class FusedSegmentOperator(Operator):
         finally:
             self._probe_launches += \
                 pallas_hash.thread_launches(pallas_hash.probe_table) - launches
-            self.context.stats.add_input_ns += time.perf_counter_ns() - t0
+            dt = time.perf_counter_ns() - t0
+            self.context.stats.add_input_ns += dt
+            METRICS.histogram("segments.page_dispatch_s", dt / 1e9)
+            trace.record(trace.SEGMENT, self.f.name, t0, dt,
+                         {"rows": page.capacity} if trace.active() is not None else None)
 
     @timed("get_output_ns")
     def get_output(self) -> Optional[Page]:

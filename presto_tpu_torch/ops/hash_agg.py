@@ -42,8 +42,15 @@ Under memory pressure the grouped builder accounts its device bytes
 (``memory_bytes``, from row counts and dtypes) and, when the operator is
 asked to revoke, moves every pending partial and its table to host RAM
 (``spill``), where ``finish`` merges them with the rest, as a fold above
-``max_groups`` does. The PARTIAL/FINAL steps and the disk rung are not
-ported yet.
+``max_groups`` does. When the query has a disk tier (``attach_spill``), the
+same revocation goes on to disk (``spill_to_disk``): the host partials are
+merged, hash-partitioned on their keys (``_key_row_hash``) and written as
+sorted, partially reduced PCOL runs, one per partition; the partition count
+grows with the observed rows (``_adapt_disk_parts``). ``finish`` then
+merges partition by partition (``_merge_disk``), so the host holds one
+partition at a time. A sketch grouping (a vector state, under the wide cap)
+keeps its partials in host RAM, as in the reference. The PARTIAL/FINAL
+steps are not ported yet.
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ import numpy as np
 import torch
 
 from ..block import _NP_TO_TORCH, Block, Dictionary, Page, torch_dtype
+from ..exec.spill import storage_type_for
 from ..types import BOOLEAN, Type
 from ..utils import kernel_cache
 from ..utils.metrics import METRICS
@@ -320,6 +328,36 @@ def _pow2(n: int) -> int:
     return 1 << max(4, (n - 1).bit_length())
 
 
+def _pow2_count(n: int) -> int:
+    """The next power of two >= n (no floor): the disk partition count."""
+    return 1 << max(0, (n - 1).bit_length())
+
+
+# disk rung of the grouping: one partition's merge aims at this many bytes,
+# with at most this many partitions
+_DISK_PARTITION_TARGET_BYTES = 64 << 20
+_DISK_MAX_PARTITIONS = 256
+
+
+def _key_row_hash(keys) -> np.ndarray:
+    """Deterministic per-row uint64 hash over the interleaved key columns:
+    the disk partitioner, the reference's splitmix64 chain. Values are cast
+    (not bit-cast) to int64, so +0.0 and -0.0 hash equal; NULL keys are
+    already canonical (a zero value and the flag). Write time and the merge
+    agree because it sees only numpy values, which PCOL round-trips
+    exactly."""
+    n = len(keys[0])
+    h = np.full(n, 0x9E3779B97F4A7C15, dtype=np.uint64)
+    for k in keys:
+        with np.errstate(invalid="ignore"):
+            v = np.asarray(k).astype(np.int64, copy=False).view(np.uint64)
+        h = h ^ v
+        h = (h ^ (h >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        h = (h ^ (h >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        h = h ^ (h >> np.uint64(31))
+    return h
+
+
 class GroupedAggregationBuilder:
     """Sort-strategy accumulator: per-page partials folded into a compact
     table, with the reference's one-shot strategy pick from the first page."""
@@ -351,6 +389,12 @@ class GroupedAggregationBuilder:
         # folds whose inputs went to host RAM: (keys, states, valid) numpy
         self._spilled: List = []
         self.spilled_folds = 0
+        # the disk rung: the query's SpillManager (attach_spill), the runs
+        # (meta {"P", "part", "nk"}) and the pow2 partition count, which
+        # grows and never shrinks
+        self._spill_mgr = None
+        self._disk_runs: List = []
+        self._disk_parts = 1
         self._device = torch.device(device)
         # decided once from the first page's true group count
         # (_decide_strategy, one host sync): defer = groups ~ rows, so pages
@@ -618,24 +662,153 @@ class GroupedAggregationBuilder:
     def _merge_spilled(self):
         """The spilled parts and the current table merged on the host: the
         merged table may exceed what the device table holds, so it stays
-        there (CPU tensors) and the operator pages it out."""
+        there (CPU tensors) and the operator pages it out. With disk runs
+        the merge goes partition by partition (``_merge_disk``)."""
         parts = list(self._spilled)
         if self._acc is not None:
             parts.append((tuple(_host(k) for k in self._acc[0]),
                           tuple(_host(st) for st in self._acc[1]), _host(self._acc[2])))
         self._spilled, self._acc, self._table_size = [], None, None
-        keys, states = self._host_merge_parts(parts)
+        if self._disk_runs:
+            keys, states = self._merge_disk(parts)
+        else:
+            keys, states = self._host_merge_parts(parts)
         n = len(keys[0])
         return (tuple(torch.from_numpy(k) for k in keys),
                 tuple(torch.from_numpy(st) for st in states),
                 torch.ones(n, dtype=torch.bool))
+
+    # --- the disk rung (host RAM -> PCOL runs; exec/spill.py) --------------
+
+    def attach_spill(self, mgr) -> None:
+        """Wire the query's SpillManager (or None), once per operator."""
+        self._spill_mgr = mgr
+
+    def _disk_tier(self):
+        """The SpillManager when this grouping may go to disk, else None: a
+        sketch grouping's (groups, width) states have no PCOL form and stay
+        on the host rung. Dtypes are checked per flush."""
+        return self._spill_mgr if self._wide_cap is None else None
+
+    def host_spill_bytes(self) -> int:
+        """Host-RAM bytes of the spilled partials that a disk flush would
+        free (0 without a disk tier): revocable beside the device bytes."""
+        if self._disk_tier() is None:
+            return 0
+        total = 0
+        for p in self._spilled:
+            total += sum(np.asarray(a).nbytes for a in p[0] + p[1])
+            total += np.asarray(p[2]).nbytes
+        return total
+
+    def _adapt_disk_parts(self, new_rows: int, row_bytes: int) -> None:
+        """Grow the partition count from the rows seen so far (the runs'
+        rows bound the distinct keys from above), so one partition's merge
+        stays near ``_DISK_PARTITION_TARGET_BYTES``. A run written at a
+        coarser count stays addressable: its partition is a suffix of the
+        finer one's bits."""
+        est_rows = new_rows + sum(r.rows for r in self._disk_runs)
+        want = _pow2_count(max(1, (est_rows * max(row_bytes, 1)
+                                   + _DISK_PARTITION_TARGET_BYTES - 1)
+                               // _DISK_PARTITION_TARGET_BYTES))
+        self._disk_parts = min(max(self._disk_parts, want), _DISK_MAX_PARTITIONS)
+
+    def spill_to_disk(self) -> int:
+        """Flush the host partials as hash-partitioned, sorted, partially
+        reduced PCOL runs; returns the bytes written (0 when it declines: no
+        manager, a sketch state, or a dtype PCOL cannot store; the partials
+        then stay in host RAM)."""
+        mgr = self._disk_tier()
+        if mgr is None or not self._spilled:
+            return 0
+        sample = self._spilled[0]
+        if any(np.asarray(a).ndim != 1 or storage_type_for(np.asarray(a).dtype) is None
+               for a in sample[0] + sample[1]):
+            return 0
+        parts, self._spilled = self._spilled, []
+        keys, states = self._host_merge_parts(parts)
+        n = len(keys[0]) if keys else 0
+        if n == 0:
+            return 0
+        row_bytes = sum(a.dtype.itemsize for a in keys) + sum(a.dtype.itemsize for a in states)
+        self._adapt_disk_parts(n, row_bytes)
+        P = self._disk_parts
+        part = (_key_row_hash(keys) & np.uint64(P - 1)).astype(np.int64)
+        names = [f"k{i}" for i in range(len(keys))] + [f"s{i}" for i in range(len(states))]
+        written = 0
+        for p in range(P):
+            sel = part == p
+            if not sel.any():
+                continue
+            # a boolean selection keeps the key order: each run is sorted
+            run = mgr.write_columns(names, [a[sel] for a in keys] + [a[sel] for a in states],
+                                    kind="agg", meta={"P": P, "part": p, "nk": len(keys)})
+            self._disk_runs.append(run)
+            written += run.nbytes
+        return written
+
+    def _merge_disk(self, resident_parts):
+        """The exact merge of the disk runs and the partials still in host
+        RAM, one finest partition at a time: a run written at a coarser
+        count gives its rows to each fine partition that refines its own,
+        filtered by the recomputed hash. -> (key columns, state columns)."""
+        mgr = self._spill_mgr
+        runs, self._disk_runs = self._disk_runs, []
+        res_keys, res_states = (self._host_merge_parts(resident_parts)
+                                if resident_parts else ([], []))
+        have_res = bool(res_keys) and len(res_keys[0]) > 0
+        p_max = self._disk_parts
+        res_part = None
+        if have_res:
+            res_part = (_key_row_hash(res_keys) & np.uint64(p_max - 1)).astype(np.int64)
+        out_keys: List[List[np.ndarray]] = [[] for _ in self.key_types]
+        out_states: List[List[np.ndarray]] = [[] for _ in self.kinds]
+        for f in range(p_max):
+            chunk = []
+            for run in runs:
+                if run.meta["part"] != (f & (run.meta["P"] - 1)):
+                    continue
+                cols = mgr.read_columns(run)
+                nk = run.meta["nk"]
+                rkeys = [c[0] for c in cols[:nk]]
+                rstates = [c[0] for c in cols[nk:]]
+                if run.meta["P"] < p_max:
+                    sel = (_key_row_hash(rkeys) & np.uint64(p_max - 1)).astype(np.int64) == f
+                    rkeys = [k[sel] for k in rkeys]
+                    rstates = [st[sel] for st in rstates]
+                if len(rkeys[0]) == 0:
+                    continue
+                chunk.append((tuple(rkeys), tuple(rstates), np.ones(len(rkeys[0]), dtype=bool)))
+            if have_res:
+                sel = res_part == f
+                if sel.any():
+                    chunk.append((tuple(k[sel] for k in res_keys),
+                                  tuple(st[sel] for st in res_states),
+                                  np.ones(int(sel.sum()), dtype=bool)))
+            if not chunk:
+                continue
+            mk, ms = self._host_merge_parts(chunk)
+            if len(mk[0]) == 0:
+                continue
+            for i, k in enumerate(mk):
+                out_keys[i].append(k)
+            for i, st in enumerate(ms):
+                out_states[i].append(st)
+        for run in runs:
+            mgr.release(run)
+        keys = [np.concatenate(c) if c else np.zeros(0, dtype=t.np_dtype)
+                for c, t in zip(out_keys, self.key_types)]
+        states = [np.concatenate(c) if c else np.zeros(0, dtype=col.dtype)
+                  for c, col in zip(out_states,
+                                    [col for call in self.calls for col in call.function.state])]
+        return keys, states
 
     def finish(self):
         """-> (keys, states, valid), compact (valid is a prefix); on the
         host after a spill, else on the builder's device."""
         if self._pending:
             self._fold()
-        if self._spilled:
+        if self._spilled or self._disk_runs:
             return self._merge_spilled()
         if self._acc is None:  # empty input: zero groups
             dev = self._device
@@ -837,6 +1010,9 @@ class HashAggregationOperator(Operator):
                  output_capacity: int):
         super().__init__(context)
         self.builder = builder.set_channels(key_channels)
+        # the grouped builder's disk rung takes the query's SpillManager
+        if isinstance(self.builder, GroupedAggregationBuilder):
+            self.builder.attach_spill(context.spill)
         self.key_types = key_types
         self.key_dicts = key_dicts
         self.calls = calls
@@ -854,14 +1030,23 @@ class HashAggregationOperator(Operator):
         if getattr(self.builder, "memory_bytes", None) is not None:
             self.context.update_revocable(self.revocable_bytes(), self.start_memory_revoke)
 
+    # one revocation walks the ladder: the builder moves its device table to
+    # host RAM, then a grouped builder writes the host partials to disk where
+    # it has a disk tier and a state PCOL can store (spill_to_disk declines
+    # otherwise); the collecting builder keeps host RAM only
     def revocable_bytes(self) -> int:
         b = getattr(self.builder, "memory_bytes", None)
-        return b() if b is not None else 0
+        total = b() if b is not None else 0
+        if isinstance(self.builder, GroupedAggregationBuilder):
+            total += self.builder.host_spill_bytes()
+        return total
 
     def start_memory_revoke(self) -> None:
         spill = getattr(self.builder, "spill", None)
         if spill is not None:
             spill()
+            if isinstance(self.builder, GroupedAggregationBuilder):
+                self.builder.spill_to_disk()
             self.context.revocable_memory.set_bytes(self.revocable_bytes())
 
     @timed("get_output_ns")

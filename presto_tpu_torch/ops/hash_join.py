@@ -38,12 +38,14 @@ and then the NULL-key rows with NULL probe columns
 (``_emit_unmatched_build``). Such a probe runs on one driver.
 
 A build row's id is its position in the concatenation of the compacted
-build pages, as in the reference. Under memory pressure a build moves its
-device pages to host RAM (``start_memory_revoke``, the first rung of the
-reference's ladder) and re-admits them to the build's device before the
-table is built, so the insert kernel always sees card tensors. The dense
-strategy (and the probe stage's DENSE branch) and the disk rung are not
-ported yet; INNER/LEFT join filters
+build pages, as in the reference. Under memory pressure one revocation
+walks the reference's ladder: a build moves its device pages to host RAM
+and, when the query has a disk tier, writes the host pages' live rows as
+PCOL runs (``_spill_host_to_disk``; a page with a dtype PCOL cannot store
+stays in RAM). ``_build`` reads the runs back to host pages and re-admits
+every host page to the build's device before the table is built, so the
+insert kernel always sees card tensors. The dense strategy (and the probe
+stage's DENSE branch) is not ported yet; INNER/LEFT join filters
 are never planned (the optimizer moves a one-sided residual into a filter
 and refuses a two-sided one on an outer join).
 """
@@ -58,6 +60,7 @@ import torch
 
 from .. import resolve_device
 from ..block import Block, Dictionary, Page, _compact, torch_dtype
+from ..exec.spill import storage_type_for
 from ..types import Type
 from ..utils.metrics import METRICS
 from .operator import Operator, OperatorContext, OperatorFactory, timed
@@ -176,6 +179,33 @@ class LookupSourceFactory:
 # build
 # ---------------------------------------------------------------------------
 
+def _page_disk_eligible(page: Page) -> bool:
+    """Can this host page round-trip through a PCOL run? Every block's data
+    must be 1-D with a storage type (a GEOMETRY column's complex values
+    have none)."""
+    for b in page.blocks:
+        if b.data.dim() != 1 or storage_type_for(b.data.numpy().dtype) is None:
+            return False
+    return True
+
+
+def _page_from_run(mgr, run) -> Page:
+    """The compacted host page a ``_spill_host_to_disk`` run holds (every
+    row live; null flags were stored as bool columns, types and
+    dictionaries in the run's meta)."""
+    cols = mgr.read_columns(run)
+    blocks, i = [], 0
+    for (btype, bdict, has_nulls) in run.meta["blocks"]:
+        data = torch.from_numpy(cols[i][0])
+        i += 1
+        nulls = None
+        if has_nulls:
+            nulls = torch.from_numpy(cols[i][0])
+            i += 1
+        blocks.append(Block(btype, data, nulls, bdict))
+    return Page(tuple(blocks), torch.ones(run.rows, dtype=torch.bool))
+
+
 def _compact_for_build(page: Page, key_channels: Sequence[int],
                        payload_channels: Sequence[int]) -> Page:
     sel = page.select_channels(list(key_channels) + list(payload_channels))
@@ -266,6 +296,7 @@ class JoinBuildOperator(Operator):
         self.f = factory
         self._pages: List[Page] = []
         self._host_pages: List[Page] = []  # revoked to host RAM
+        self._disk_runs: List = []         # spilled to disk (exec/spill.py runs)
         self._saw_null_key = None  # device bool, read once at the build
         # FULL joins: the payload of NULL-key build rows, kept aside (they
         # match nothing but come out unmatched); masked here, not synced
@@ -297,19 +328,53 @@ class JoinBuildOperator(Operator):
         self.context.update_revocable(self.revocable_bytes(), self.start_memory_revoke)
 
     def revocable_bytes(self) -> int:
-        """The device-resident pages' bytes, from capacities and dtypes."""
-        return sum(p.accounted_bytes() for p in
-                   self._pages + self._null_key_pages[self._null_keys_on_host:])
+        """The device-resident pages' bytes, from capacities and dtypes, and
+        with a disk tier the host pages that can go to disk."""
+        total = sum(p.accounted_bytes() for p in
+                    self._pages + self._null_key_pages[self._null_keys_on_host:])
+        if self.context.spill is not None:
+            total += sum(p.accounted_bytes() for p in self._host_pages
+                         if _page_disk_eligible(p))
+        return total
 
     def start_memory_revoke(self) -> None:
-        """The host-RAM rung: every device page moves to host RAM."""
+        """One revocation walks the ladder: every device page moves to host
+        RAM, then, with a disk tier, the host pages go to disk."""
         moved = [p.to_host() for p in self._pages]
         METRICS.count("memory.revoked_bytes", sum(p.accounted_bytes() for p in moved))
         self._host_pages.extend(moved)
         self._pages = []
         self._null_key_pages = [p.to_host() for p in self._null_key_pages]
         self._null_keys_on_host = len(self._null_key_pages)
+        if self.context.spill is not None:
+            self._spill_host_to_disk()
         self.context.revocable_memory.set_bytes(self.revocable_bytes())
+
+    def _spill_host_to_disk(self) -> None:
+        """The disk rung: each eligible host page's live rows become one
+        PCOL run (data columns ``c<i>``, null flags ``n<i>``); the blocks'
+        types and dictionaries ride in the run's meta, so the read side
+        rebuilds the blocks exactly. Ineligible pages stay in host RAM."""
+        mgr = self.context.spill
+        keep: List[Page] = []
+        for p in self._host_pages:
+            if not _page_disk_eligible(p):
+                keep.append(p)
+                continue
+            live = np.flatnonzero(p.mask.numpy())
+            if len(live) == 0:
+                continue  # nothing to rebuild: the page goes
+            names, cols, specs = [], [], []
+            for i, b in enumerate(p.blocks):
+                names.append(f"c{i}")
+                cols.append(np.ascontiguousarray(b.data.numpy()[live]))
+                if b.nulls is not None:
+                    names.append(f"n{i}")
+                    cols.append(np.ascontiguousarray(b.nulls.numpy()[live]))
+                specs.append((b.type, b.dictionary, b.nulls is not None))
+            self._disk_runs.append(mgr.write_columns(names, cols, kind="join",
+                                                     meta={"blocks": specs}))
+        self._host_pages = keep
 
     def get_output(self) -> Optional[Page]:
         return None
@@ -323,6 +388,12 @@ class JoinBuildOperator(Operator):
 
     def _build(self) -> LookupSource:
         kc = len(self.f.key_channels)
+        if self._disk_runs:  # disk runs back to host RAM first
+            runs, self._disk_runs = self._disk_runs, []
+            mgr = self.context.spill
+            for run in runs:
+                self._host_pages.append(_page_from_run(mgr, run))
+                mgr.release(run)
         if self._host_pages:
             # re-admit revoked pages to the build's device: on the card the
             # kernels must never see host tensors
@@ -461,13 +532,15 @@ class JoinBuildOperatorFactory(OperatorFactory):
                 if o is op:
                     continue
                 op._pages.extend(o._pages)
-                # a revoked sibling's rows are in its host pages
+                # a revoked sibling's rows are in its host pages and runs
                 op._host_pages.extend(o._host_pages)
+                op._disk_runs.extend(o._disk_runs)
                 op._null_key_pages.extend(o._null_key_pages)
                 if o._saw_null_key is not None:
                     op._saw_null_key = o._saw_null_key if op._saw_null_key is None \
                         else (op._saw_null_key | o._saw_null_key)
                 o._pages, o._host_pages, o._null_key_pages = [], [], []
+                o._disk_runs = []
             source = op._build()
             op._pages, op._null_key_pages = [], []  # consumed into the lookup source
             self.lookup_factory.set(source)

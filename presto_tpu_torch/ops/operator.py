@@ -7,8 +7,14 @@ blocked, peak accounted memory) that EXPLAIN ANALYZE prints. Operators hold
 device tensors. When the planner wires the query's memory, each operator
 context forks the query's user and revocable contexts: an accumulating
 operator accounts its device bytes with ``update_revocable``, which revokes
-them on the operator's own thread when the pressure probe fires. Tracing is
-not ported yet.
+them on the operator's own thread when the pressure probe fires. The
+context also carries the query's disk tier (``spill``, an
+``exec/spill.SpillManager`` or None), the last rung of a revocation.
+
+``timed`` is also the flight recorder's operator tap: while a full trace is
+recording, every call above ``trace.MIN_OPERATOR_SPAN_NS`` becomes an
+``operator`` span ``<name>.<method>``, from the same clock read as the
+stats.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Callable, List, Optional
 from ..block import Page
 from ..memory import AggregatedMemoryContext, MemoryTrackingContext
 from ..types import Type
+from ..utils import trace
 
 
 @dataclasses.dataclass
@@ -55,13 +62,17 @@ class OperatorStats:
 class OperatorContext:
     def __init__(self, operator_id: int, name: str,
                  memory: Optional[MemoryTrackingContext] = None,
-                 revoke_check: Optional[Callable[[], bool]] = None):
+                 revoke_check: Optional[Callable[[], bool]] = None, spill=None):
         self.stats = OperatorStats(operator_id, name)
         self.memory = memory or MemoryTrackingContext(
             AggregatedMemoryContext(), AggregatedMemoryContext(), AggregatedMemoryContext())
         # the pressure probe: operators revoke their own state, on their own
         # thread, when it fires (no other thread touches operator state)
         self._revoke_check = revoke_check
+        # the query's disk tier (exec/spill.SpillManager) or None: operators
+        # that can write their host state to disk use it as the ladder's
+        # last rung
+        self.spill = spill
         self.user_memory = self.memory.user.new_local_memory_context(name)
         self.revocable_memory = self.memory.revocable.new_local_memory_context(name)
 
@@ -153,6 +164,7 @@ class OperatorFactory(abc.ABC):
         # wired by the local planner when the query has a memory context
         self.memory_ctx: Optional[MemoryTrackingContext] = None
         self.revoke_check: Optional[Callable[[], bool]] = None
+        self.spill_manager = None  # exec/spill.SpillManager (the disk tier)
 
     @abc.abstractmethod
     def create_operator(self) -> Operator:
@@ -161,11 +173,13 @@ class OperatorFactory(abc.ABC):
     def context(self) -> OperatorContext:
         mem = self.memory_ctx.fork() if self.memory_ctx is not None else None
         return OperatorContext(self.operator_id, self.name, memory=mem,
-                               revoke_check=self.revoke_check)
+                               revoke_check=self.revoke_check, spill=self.spill_manager)
 
 
 def timed(stats_field: str):
-    """Decorator: accumulate the wall-clock ns of an operator method into stats."""
+    """Decorator: accumulate the wall-clock ns of an operator method into
+    stats, and record it as an ``operator`` span when a trace is active."""
+    method = stats_field.rsplit("_", 1)[0]  # "add_input_ns" -> "add_input"
 
     def deco(fn):
         def wrapper(self, *a, **kw):
@@ -173,8 +187,10 @@ def timed(stats_field: str):
             try:
                 return fn(self, *a, **kw)
             finally:
+                dt = time.perf_counter_ns() - t0
                 stats = self.context.stats
-                setattr(stats, stats_field,
-                        getattr(stats, stats_field) + time.perf_counter_ns() - t0)
+                setattr(stats, stats_field, getattr(stats, stats_field) + dt)
+                if trace.active() is not None and dt >= trace.MIN_OPERATOR_SPAN_NS:
+                    trace.record(trace.OPERATOR, f"{stats.name}.{method}", t0, dt)
         return wrapper
     return deco

@@ -38,9 +38,16 @@ stall seconds and the counts, which the runner rolls into
 ``QueryResult.stats["scan_pipeline"]``. When the scan gives it a memory
 context, the staged and uploaded-unconsumed bytes are the query's user
 memory (``_account``): over ``query_max_memory_bytes`` the stage fails and
-the consumer raises the limit's exception. The reference's trace spans,
-metric counters and ``rebatch`` switch are not ported: the port re-batches
-wherever a source has split readers and a target size.
+the consumer raises the limit's exception.
+
+The flight recorder (``utils/trace.py``) active where the pipeline is made
+is bound on its dedicated stage threads (pool steps bind the recorder the
+pool captured at submit), and the stages record ``scan`` spans where they
+read their stage seconds: ``read``, ``rebatch`` and ``upload`` for work,
+``compute_stall``, ``read_stall``, ``decode_stall`` and ``upload_stall``
+for waits of at least ``_TRACE_STALL_NS``. The reference's metric counters
+and ``rebatch`` switch are not ported: the port re-batches wherever a
+source has split readers and a target size.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ import torch
 
 from ..block import Block, Page
 from ..exec.shared_pools import AGAIN, SCAN_POOL, STEP_WAIT_S, WAIT
+from ..utils import trace
 from ..utils.batching import clamp_capacity, take_rows
 
 _DONE = object()   # per-reader end of stream in the reorder buffer
@@ -66,6 +74,8 @@ _ERR = object()    # error marker on the output queue: (_ERR, exception)
 DEFAULT_PREFETCH_BYTES = 256 << 20
 DEFAULT_READER_THREADS = min(8, os.cpu_count() or 4)
 _WAIT_S = 0.1      # close() re-checks at this cadence while it waits
+# stalls shorter than this are not traced (they would churn the ring)
+_TRACE_STALL_NS = 100_000
 
 _STAGE_KEYS = ("read_busy_s", "read_stall_s", "decode_busy_s",
                "decode_stall_s", "upload_busy_s", "upload_stall_s",
@@ -236,6 +246,8 @@ class ScanPipeline:
             self._readers = list(readers)
         self._n_threads = max(1, min(int(reader_threads or DEFAULT_READER_THREADS),
                                      len(self._readers) or 1))
+        # the owning query's flight recorder, bound on dedicated stage threads
+        self._recorder = trace.active()
         self._stop = threading.Event()
         self._cv = threading.Condition()   # reorder buffer + staging budget
         self._buf: dict = {}
@@ -272,7 +284,10 @@ class ScanPipeline:
                     ended = self._live_gens == 0
                 if ended and self._out.empty():
                     raise RuntimeError("scan pipeline stages ended without a result")
-        self._add("compute_stall_s", (time.perf_counter_ns() - t0) / 1e9)
+        dt = time.perf_counter_ns() - t0
+        self._add("compute_stall_s", dt / 1e9)
+        if dt >= _TRACE_STALL_NS:
+            trace.record(trace.SCAN, "compute_stall", t0, dt)
         if item is _EOS:
             self._out.put(_EOS)  # later next() calls return None too
             return None
@@ -341,17 +356,18 @@ class ScanPipeline:
         names = [f"scan-read-{i}" for i in range(self._n_threads)] + \
             ["scan-decode", "scan-upload"]
         for g, name in zip(gens, names):
-            t = threading.Thread(target=self._drive, args=(self._guard(g),), name=name,
-                                 daemon=True)
+            t = threading.Thread(target=self._drive, args=(self._guard(g), self._recorder),
+                                 name=name, daemon=True)
             t.start()
             self._threads.append(t)
 
     @staticmethod
-    def _drive(gen) -> None:
+    def _drive(gen, recorder) -> None:
         """Dedicated-thread scheduler: the generator's own bounded waits set
-        the cadence."""
-        for _ in gen:
-            pass
+        the cadence; the thread records into the owning query's trace."""
+        with trace.bound(recorder):
+            for _ in gen:
+                pass
 
     def _guard(self, gen):
         """Wrap a stage: route its failure to the consumer and retire it
@@ -394,7 +410,10 @@ class ScanPipeline:
                     item = next(it)
                 except StopIteration:
                     break
-                self._add("read_busy_s", (time.perf_counter_ns() - t0) / 1e9)
+                dt = time.perf_counter_ns() - t0
+                self._add("read_busy_s", dt / 1e9)
+                trace.record(trace.SCAN, "read", t0, dt,
+                             {"reader": ri, "seq": seq} if trace.active() is not None else None)
                 nbytes = item.nbytes if isinstance(item, HostChunk) else page_nbytes(item)
                 ok = yield from self._stage_put_gen(ri, seq, item, nbytes)
                 if not ok:
@@ -424,7 +443,10 @@ class ScanPipeline:
                     break
                 self._cv.wait(STEP_WAIT_S)
             yield WAIT
-        self._add("read_stall_s", (time.perf_counter_ns() - t0) / 1e9)
+        dt = time.perf_counter_ns() - t0
+        self._add("read_stall_s", dt / 1e9)
+        if dt >= _TRACE_STALL_NS:
+            trace.record(trace.SCAN, "read_stall", t0, dt)
         self._account()
         return True
 
@@ -445,7 +467,10 @@ class ScanPipeline:
                     return None
                 self._cv.wait(STEP_WAIT_S)
             yield WAIT
-        self._add("decode_stall_s", (time.perf_counter_ns() - t0) / 1e9)
+        dt = time.perf_counter_ns() - t0
+        self._add("decode_stall_s", dt / 1e9)
+        if dt >= _TRACE_STALL_NS:
+            trace.record(trace.SCAN, "decode_stall", t0, dt)
         self._account()
         return item
 
@@ -466,7 +491,9 @@ class ScanPipeline:
                 if rb is not None:
                     t0 = time.perf_counter_ns()
                     batches = rb.add(item)
-                    self._add("decode_busy_s", (time.perf_counter_ns() - t0) / 1e9)
+                    dt = time.perf_counter_ns() - t0
+                    self._add("decode_busy_s", dt / 1e9)
+                    trace.record(trace.SCAN, "rebatch", t0, dt)
                     self._add("chunks", 1)
                     for page, nbytes, rows in batches:
                         ok = yield from self._emit_gen(page, nbytes, rows)
@@ -503,7 +530,10 @@ class ScanPipeline:
                     break
                 self._ocv.wait(STEP_WAIT_S)
             yield WAIT
-        self._add("upload_stall_s", (time.perf_counter_ns() - t0) / 1e9)
+        dt = time.perf_counter_ns() - t0
+        self._add("upload_stall_s", dt / 1e9)
+        if dt >= _TRACE_STALL_NS:
+            trace.record(trace.SCAN, "upload_stall", t0, dt)
         self._account()
         self._upq.put((page, nbytes, rows))
         return True
@@ -526,7 +556,10 @@ class ScanPipeline:
             page, nbytes, rows = item
             t0 = time.perf_counter_ns()
             dev = upload_page(page, self._device)
-            self._add("upload_busy_s", (time.perf_counter_ns() - t0) / 1e9)
+            dt = time.perf_counter_ns() - t0
+            self._add("upload_busy_s", dt / 1e9)
+            trace.record(trace.SCAN, "upload", t0, dt,
+                         {"rows": rows, "bytes": nbytes} if trace.active() is not None else None)
             with self._stats_lock:
                 self._stats["pages"] += 1
                 self._stats["rows"] += rows

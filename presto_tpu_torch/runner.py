@@ -22,10 +22,22 @@ the query's memory root on the process-wide pool (``_query_memory``:
 ``memory_pool_bytes``, ``query_max_memory_bytes``,
 ``revoke_target_fraction``) is attached to the planner, a live-progress
 provider reads the drivers while they run (``exec/progress.py``), and the
-query's reservations are cleared in a ``finally``. EXPLAIN ANALYZE prints
-the drivers' operator stats under the reference's header
-(``exec/explain.py``). Tracing, access control and grouped execution are
-not ported; a statement that needs one raises ``NotImplementedError``.
+query's reservations are cleared in a ``finally``. When ``spill_to_disk``
+is on (the default) the query also gets a disk tier (``exec/spill.py``),
+hung on its memory as ``memory.spill`` and closed in the same ``finally``
+before the reservations are cleared. EXPLAIN ANALYZE prints the drivers'
+operator stats under the reference's header (``exec/explain.py``).
+
+Every statement runs under the per-query flight recorder
+(``utils/trace.py``), as in the reference: a full one when ``query_trace``
+is on (``QueryResult.trace_path`` is its Chrome trace), else the always-on
+coarse black box, which is written only when the statement fails (the
+exception's ``failure_trace_path``). The recorder wraps the statement in a
+``lifecycle`` span ``query`` with ``parse``, ``plan``, ``local_plan`` and
+``execute`` inside it where the reference puts them, and every statement's
+wall goes into the ``query.wall_s`` histogram. Access control and grouped
+execution are not ported; a statement that needs one raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -51,6 +63,8 @@ from .sql.planner.optimizer import optimize
 from .sql.planner.plan import OutputNode, plan_to_text
 from .sql.planner.planner import LogicalPlanner
 from .types import BIGINT
+from .utils import trace
+from .utils.metrics import METRICS
 
 
 def _virtual_remap(source_dict, target_dict):
@@ -90,6 +104,10 @@ class QueryResult:
     # from the resident page cache
     drivers: Optional[List[int]] = None
     resident_pages: int = 0
+    # the Chrome trace of a query_trace run (utils/trace.py); a failed
+    # statement's forensic trace rides on its exception instead, as
+    # ``failure_trace_path``, since there is no result then
+    trace_path: Optional[str] = None
 
 
 # query ids in the process-wide memory pool (itertools.count is atomic
@@ -173,7 +191,34 @@ class LocalQueryRunner:
         return plan_to_text(self.plan_sql(sql))
 
     def execute(self, sql: str) -> QueryResult:
-        stmt = self.parser.parse(sql)
+        """Run one statement under the query's flight recorder (full with
+        ``query_trace``, else the coarse black box), histogramming its wall
+        in ``query.wall_s``. A failing statement dumps the ring as a
+        forensic trace pinned to the exception."""
+        t0 = time.perf_counter()
+        rec = trace.maybe_recorder(self.session)
+        installed = rec is not None and trace.install(rec)
+        try:
+            if installed:
+                with rec.span(trace.LIFECYCLE, "query"):
+                    result = self._execute_statement(sql)
+            else:
+                result = self._execute_statement(sql)
+        except BaseException as e:
+            if installed:
+                trace.attach_failure(e, rec, self.session)
+            raise
+        finally:
+            if installed:
+                trace.uninstall(rec)
+        METRICS.histogram("query.wall_s", time.perf_counter() - t0)
+        if installed and not rec.coarse:
+            result.trace_path = trace.export(rec, self.session)
+        return result
+
+    def _execute_statement(self, sql: str) -> QueryResult:
+        with trace.span(trace.LIFECYCLE, "parse"):
+            stmt = self.parser.parse(sql)
         if isinstance(stmt, t.Explain):
             if not isinstance(stmt.statement, t.Query):
                 raise ValueError("EXPLAIN requires a query")
@@ -212,7 +257,8 @@ class LocalQueryRunner:
             raise NotImplementedError(
                 f"{type(stmt).__name__} statements are not ported to presto_tpu_torch")
         self.session.check_supported()
-        plan = self.plan_statement(stmt)
+        with trace.span(trace.LIFECYCLE, "plan"):
+            plan = self.plan_statement(stmt)
         exec_plan, drivers, _wall = self._run_plan(plan)
         stats = {}
         scan = _scan_pipeline_stats(drivers)
@@ -240,10 +286,11 @@ class LocalQueryRunner:
         mem, over_target, release = self._query_memory()
         unregister = lambda: None  # noqa: E731 - rebound once the drivers exist
         try:
-            local = LocalExecutionPlanner(self.metadata, self.session, self.device)
-            local.attach_memory(mem, over_target)
-            exec_plan = local.plan(plan)
-            drivers = exec_plan.create_drivers()
+            with trace.span(trace.LIFECYCLE, "local_plan"):
+                local = LocalExecutionPlanner(self.metadata, self.session, self.device)
+                local.attach_memory(mem, over_target)
+                exec_plan = local.plan(plan)
+                drivers = exec_plan.create_drivers()
 
             def live() -> dict:
                 return {"operators": driver_stats(drivers),
@@ -251,7 +298,8 @@ class LocalQueryRunner:
                         "pool_steps": _pool_steps(local.scan_options.get("pool_key"))}
             unregister = progress.register(live)
             t0 = time.perf_counter()
-            self._run_drivers(drivers)
+            with trace.span(trace.LIFECYCLE, "execute"):
+                self._run_drivers(drivers)
             return exec_plan, drivers, time.perf_counter() - t0
         finally:
             unregister()
@@ -299,7 +347,14 @@ class LocalQueryRunner:
         when this query alone is over that fraction of its session's
         ``memory_pool_bytes`` (the shared pool only grows, so a small
         session budget still revokes); ``release`` clears this query's
-        reservations at its end."""
+        reservations at its end.
+
+        The query's disk tier rides along as ``memory.spill``: a
+        ``SpillManager`` when ``spill_to_disk`` is on, else None.
+        ``attach_memory`` lifts it into the factories, and ``release``
+        closes it (its files deleted, its ledger bytes freed) before the
+        reservations are cleared."""
+        from .exec.spill import SpillManager
         from .memory import QueryContextMemory, shared_general_pool
 
         session_bytes = int(self.session.get("memory_pool_bytes"))
@@ -307,12 +362,19 @@ class LocalQueryRunner:
         qid = f"query-{next(_QUERY_MEM_SEQ)}"
         qmem = QueryContextMemory(qid, pool, int(self.session.get("query_max_memory_bytes")))
         target = float(self.session.get("revoke_target_fraction"))
+        spill = None
+        if bool(self.session.get("spill_to_disk")):
+            spill = SpillManager(qid, pool, spill_dir=str(self.session.get("spill_dir") or ""),
+                                 max_bytes=int(self.session.get("spill_max_bytes") or 0))
+        qmem.memory.spill = spill
 
         def over_target() -> bool:
             return (pool.reserved_bytes() > pool.max_bytes * target
                     or pool.query_bytes(qid) > session_bytes * target)
 
         def release() -> None:
+            if spill is not None:
+                spill.close()
             pool.clear_query(qid)
         return qmem.memory, over_target, release
 

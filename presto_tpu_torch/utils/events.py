@@ -8,8 +8,12 @@ monotone cursor (the ``since=`` paging key), ``wall_ts`` the wall clock and
 Sinks: a bounded in-memory ring (old events drop and are counted) and an
 optional append-only JSONL file. ``emit()`` never raises into the engine
 path that calls it. The port emits ``memory.spill`` (an operator revoked
-its state under pressure), ``memory.revoke`` (``MemoryRevoker``) and
-``query.memory_exceeded`` (a query over its user-memory limit), as the
+its state under pressure), ``memory.revoke`` (``MemoryRevoker``),
+``query.memory_exceeded`` (a query over its user-memory limit),
+``query.spill.disk`` (a PCOL run written), ``query.spill.failed`` (a run's
+write or read failed, or the query went over ``spill_max_bytes``),
+``spill.gc`` (a dead process's spill directories removed) and
+``query.forensic_dumped`` (a failed query's black box written), as the
 reference does. The reference's HTTP renderer (``events_http_body``) waits
 for the server.
 """

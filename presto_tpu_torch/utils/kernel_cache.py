@@ -6,7 +6,11 @@ Python function of a fused pipeline segment (``ops/fused_segment.py``),
 keyed on a fingerprint of everything the composition closed over: each
 stage's static config and the input layout, with every dictionary's
 identity and size. Equal keys compose behaviourally identical functions, so
-repeated queries reuse one composition instead of composing it anew.
+repeated queries reuse one composition instead of composing it anew. A
+miss's ``make()`` runs inside a ``kernel`` span ``build <key[0]>`` when a
+trace is active (``utils/trace.py``); the one-time ``nvcc`` build of the
+CUDA kernels lands inside whatever span wraps their first use, as XLA's
+compile does in the reference.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import itertools
 import threading
 from collections import OrderedDict
 from typing import Callable
+
+from . import trace
 
 _LOCK = threading.Lock()
 _CACHE: "OrderedDict[tuple, object]" = OrderedDict()
@@ -28,7 +34,12 @@ def get_or_install(key: tuple, make: Callable[[], object]):
     with _LOCK:
         hit = _CACHE.get(key)
         if hit is None:
-            hit = _CACHE[key] = make()
+            if trace.active() is not None:
+                with trace.span(trace.KERNEL, f"build {key[0] if key else '?'}"):
+                    hit = make()
+            else:
+                hit = make()
+            _CACHE[key] = hit
             while len(_CACHE) > _MAX_ENTRIES:
                 _CACHE.popitem(last=False)
         _CACHE.move_to_end(key)

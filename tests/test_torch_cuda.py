@@ -432,10 +432,11 @@ def test_collect_grouping_on_the_card_equals_the_cpu_run(cuda):
 
 def test_pressured_q3_launches_on_the_card(cuda):
     """SQL Q3 at ``tiny`` with ``hash_kernels="pallas"`` under a one-byte
-    pool: every build page goes to host RAM and comes back before the
-    table is built, so the card's rows and counters equal the CPU run's and
-    each insert and probe ran as a CUDA launch (a build over host pages
-    would run the plain version and count none)."""
+    pool: every build page goes to host RAM and on to a PCOL run on disk
+    (the default ladder), and comes back before the table is built, so the
+    card's rows, counters and runs equal the CPU run's and each insert and
+    probe ran as a CUDA launch (a build over host pages would run the plain
+    version and count none)."""
     from presto_tpu_torch.metadata import Session
     from presto_tpu_torch.models.tpch_sql import QUERIES
     from presto_tpu_torch.runner import LocalQueryRunner
@@ -455,10 +456,13 @@ def test_pressured_q3_launches_on_the_card(cuda):
         rows = LocalQueryRunner(session, device=dev).execute(QUERIES[3]).rows
         delta = {k: METRICS.counter_value(k) - before[k] for k in names}
         spills = len(events.JOURNAL.events(since=seq, kind="memory.spill", limit=1 << 20))
+        disk = sorted(e["run_kind"] for e in events.JOURNAL.events(
+            since=seq, kind="query.spill.disk", limit=1 << 20))
         runs[str(dev)] = (rows, delta, spills, ph.insert_table.launches - inserts,
-                          ph.probe_table.launches - probes)
-    cpu_rows, cpu_delta, cpu_spills, cpu_inserts, cpu_probes = runs["cpu"]
-    rows, delta, spills, inserts, probes = runs[str(cuda)]
+                          ph.probe_table.launches - probes, disk)
+    cpu_rows, cpu_delta, cpu_spills, cpu_inserts, cpu_probes, cpu_disk = runs["cpu"]
+    rows, delta, spills, inserts, probes, disk = runs[str(cuda)]
+    assert disk == cpu_disk and "join" in disk
     assert rows == cpu_rows and len(rows) == 10
     # the bytes moved differ: on the CPU the grouping shrinks its partials
     # to the first page's group count (``_decide_strategy``), on the card not

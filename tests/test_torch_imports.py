@@ -37,3 +37,19 @@ def test_port_imports_no_jax_and_no_reference():
                                                       "presto_tpu_torch.")}
     assert expected <= set(res["modules"])
     assert "presto_tpu_torch.ops.pallas_hash" in res["modules"]
+    # the flight recorder, the disk rung and their helpers
+    assert {"presto_tpu_torch.utils.trace", "presto_tpu_torch.utils.metrics",
+            "presto_tpu_torch.exec.spill", "presto_tpu_torch.formats.pcol",
+            "presto_tpu_torch.native", "presto_tpu_torch.cluster.faults"} <= set(res["modules"])
+
+
+def test_native_library_is_the_ports_own():
+    """``libpcol`` builds from the port's own source into the port's own
+    ignored build directory, never the reference's."""
+    from presto_tpu_torch import native
+
+    here = os.path.dirname(native.__file__)
+    assert native._SRC == os.path.join(here, "pcol.cpp") and os.path.exists(native._SRC)
+    assert native._SO == os.path.join(here, "build", "libpcol.so")
+    with open(os.path.join(ROOT, ".gitignore")) as f:
+        assert "presto_tpu_torch/native/build/" in f.read().split()

@@ -5,12 +5,15 @@ The local cases of ``tests/test_spill.py`` run through both packages and
 the reference's sqlite oracle. Under a one-byte pool every accounting
 update is over the revoke target, so a join build moves its pages to host
 RAM, a grouping spills its folds and a window offloads its pages; the rows
-must not change. The port's ladder stops at host RAM, so the reference runs
-with ``spill_to_disk`` off: the two then revoke the same operators the same
-number of times (the ``memory.spill`` journal). The memory limit raises the
-same exception in both and leaves the shared pool empty, and each
-operator's accounted peak (from capacities and dtypes) equals the
-reference's under an explicit ``page_capacity``.
+must not change. The host-RAM cases hold both packages' ladders at host RAM
+(``spill_to_disk`` off): the two then revoke the same operators the same
+number of times (the ``memory.spill`` journal). The same cases run again
+with the disk rung on in both packages (the default), where the
+revocations and the PCOL runs written per kind (``query.spill.disk``) must
+be equal too. The memory limit raises the same exception in both and
+leaves the shared pool empty, and each operator's accounted peak (from
+capacities and dtypes) equals the reference's under an explicit
+``page_capacity``.
 """
 import collections
 
@@ -53,28 +56,34 @@ def oracle():
     return o
 
 
-def _port(props):
-    return LocalQueryRunner(Session(catalog="tpch", schema="tiny", properties=dict(props)),
+def _port(props, disk: bool = False):
+    return LocalQueryRunner(Session(catalog="tpch", schema="tiny",
+                                    properties={**props, "spill_to_disk": disk}),
                             device="cpu")
 
 
-def _ref(props):
-    # the reference's ladder goes on to disk by default; the port's stops at
-    # host RAM, so the reference is held at that rung
+def _ref(props, disk: bool = False):
     return RefRunner(RefSession(catalog="tpch", schema="tiny",
-                                properties={**props, "spill_to_disk": False}))
+                                properties={**props, "spill_to_disk": disk}))
 
 
 def _spills(journal) -> dict:
-    return dict(collections.Counter(e["operator"] for e in journal.events(kind="memory.spill")))
+    return dict(collections.Counter(e["operator"] for e in
+                                    journal.events(kind="memory.spill", limit=1 << 20)))
 
 
-def _run_both(sql_port, sql_ref, props):
-    """-> (port rows, reference rows, port spills, reference spills)."""
+def _disk_runs(journal) -> dict:
+    return dict(collections.Counter(e["run_kind"] for e in
+                                    journal.events(kind="query.spill.disk", limit=1 << 20)))
+
+
+def _run_both(sql_port, sql_ref, props, disk: bool = False):
+    """-> (port rows, reference rows, port spills, reference spills), both
+    packages' ladders stopping at host RAM, or going on to disk."""
     events.JOURNAL.clear()
     ref_events.JOURNAL.clear()
-    want = _ref(props).execute(sql_ref).rows
-    got = _port(props).execute(sql_port).rows
+    want = _ref(props, disk).execute(sql_ref).rows
+    got = _port(props, disk).execute(sql_port).rows
     return got, want, _spills(events.JOURNAL), _spills(ref_events.JOURNAL)
 
 
@@ -251,3 +260,35 @@ def test_peak_accounted_bytes_per_operator_match_reference(case, fused):
     got = [(s["name"], s["peak_memory_bytes"]) for s in driver_stats(drivers)]
     assert got == want
     assert any(b > 0 for _, b in got)
+
+
+DISK_CASES = {
+    "join agg 1 driver": (JOIN_AGG_SQL, JOIN_AGG_SQL, 1, "pallas"),
+    "join agg 4 drivers": (JOIN_AGG_SQL, JOIN_AGG_SQL, 4, "sorted"),
+    "q3": (QUERIES[3], REF_QUERIES[3], 1, "sorted"),
+    "q3 pallas": (QUERIES[3], REF_QUERIES[3], 1, "pallas"),
+    "q18": (QUERIES[18], REF_QUERIES[18], 1, "sorted"),
+    "full join null keys": (FULL_NULL_KEYS_SQL, FULL_NULL_KEYS_SQL, 1, "sorted"),
+    "window": (WINDOW_SQL, WINDOW_SQL, 1, "sorted"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DISK_CASES))
+def test_pressured_query_revokes_to_disk_like_the_reference(case):
+    """The pressure cases above with the disk rung on in both packages:
+    equal rows, the same revocations per operator and the same PCOL runs
+    per kind (a window keeps host RAM only, in both); every byte written
+    is read back, and the port leaves no spill byte in the pool."""
+    sql, ref_sql, drivers, kernels = DISK_CASES[case]
+    props = {**PRESSURE, "driver_parallelism": drivers, "hash_kernels": kernels}
+    w0 = METRICS.counter_value("spill.bytes_written")
+    r0 = METRICS.counter_value("spill.bytes_read")
+    got, want, spills, ref_spills = _run_both(sql, ref_sql, props, disk=True)
+    assert_same_rows(sorted(got), sorted(want))
+    assert spills == ref_spills and sum(spills.values()) > 0
+    runs = _disk_runs(events.JOURNAL)
+    assert runs == _disk_runs(ref_events.JOURNAL)
+    assert (sum(runs.values()) > 0) == (case != "window")
+    written = METRICS.counter_value("spill.bytes_written") - w0
+    assert written == METRICS.counter_value("spill.bytes_read") - r0
+    assert shared_general_pool().spill_by_query() == {} and shared_general_pool().by_query() == {}

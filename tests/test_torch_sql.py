@@ -162,12 +162,23 @@ def test_show_statements_match_reference(stmt):
     assert got.rows == want.rows and got.column_names == want.column_names
 
 
-@pytest.mark.parametrize("prop,value", [("spill_to_disk", True),
+@pytest.mark.parametrize("prop,value", [("streaming_exchange", True),
                                         ("grouped_execution", True)])
 def test_unported_session_property_raises_naming_itself(prop, value):
     session = Session(catalog="tpch", schema="tiny", properties={prop: value})
     with pytest.raises(NotImplementedError, match=prop):
         LocalQueryRunner(session, device="cpu").execute(QUERIES[6])
+
+
+@pytest.mark.parametrize("prop,value", [
+    ("query_trace", True), ("query_blackbox", False), ("spill_to_disk", False),
+    ("spill_dir", ""), ("spill_max_bytes", 1 << 30)])
+def test_recorder_and_disk_spill_properties_are_honoured(prop, value):
+    """The flight recorder's and the disk rung's keys run instead of
+    raising, with the reference's rows."""
+    session = Session(catalog="tpch", schema="tiny", properties={prop: value})
+    got = LocalQueryRunner(session, device="cpu").execute(QUERIES[6]).rows
+    assert_same_rows(got, _ref_rows(6, {prop: value}))
 
 
 # each feature of the default path, off and on; on the CPU, AUTO drivers
