@@ -120,12 +120,14 @@ Phases, each of which must pass:
    ``count_if`` and ``arbitrary`` grouped by flag and status and global, a
    per-day DATE grouping (``min_by``, ``stddev``, ``count_if``) that must
    take the insert kernel, and a sketch grouping above 8,192 groups that
-   must spill. Each runs cold and warm (counters set to 0 just before it)
-   and on the CPU; the rows must equal a numpy oracle (``check_p14_rows``:
-   exact where the result is, the sketches within their error bounds,
-   ``min_by``/``max_by`` a row holding the extreme, the statistics to
-   ``STAT_REL_TOL``) and the CPU run's; nothing may fall back. The insert
-   is held against its plain version at the per-day grouping's shape.
+   must spill. Each runs cold and warm (counters set to 0 just before it);
+   the rows must equal a numpy oracle (``check_p14_rows``: exact where the
+   result is, the sketches within their error bounds, ``min_by``/``max_by``
+   a row holding the extreme, the statistics to ``STAT_REL_TOL``); the
+   card's rows must equal the CPU run's at ``CPU_ROWS_SCHEMA`` (these host
+   runs once ran at SF1), both against the oracle there; nothing may fall
+   back. The insert is held against its plain version at the per-day
+   grouping's shape.
    Prints one ``WINDOW``/``FULLJOIN``/``AGG`` line per query;
 15. writes at ``tpch.sf1`` (``run_write_phase``), in one runner: CTAS of
    ``lineitem`` (6,001,215 rows on 4 scaled writer drivers), ``orders`` and
@@ -195,13 +197,31 @@ Phases, each of which must pass:
    ``query.wall_s`` must count every statement of the phase that
    completed. Prints ``TRACE``, ``FORENSIC``, ``SPILL``, ``FAULT`` and
    ``HIST`` lines;
-18. print the kernels line (JSON, with each kernel's warm-run launches per
+18. the file catalog at ``tpch.sf1`` (``run_file_phase``), with
+   ``hash_kernels="pallas"``, three ``FileConnector`` catalogs in a
+   temporary directory that the phase removes: PCOL CTAS of ``lineitem``'s
+   Q1/Q3/Q6 columns, ``orders`` and ``customer`` on the scaled writers
+   (row counts against the generator), Q1, Q3 and Q6 over them against the
+   numpy oracles, Q6 through the split readers and ``libpcol``'s range
+   pre-filter (the rows uploaded must be exactly the rows inside its
+   pushed-down domains; native opens only), the per-day grouping of the
+   file ``lineitem`` (the insert held at its shape); Q6 over a table
+   written one ``l_shipdate`` year per INSERT must keep exactly the 1994
+   insert's files; the mixed Q3 over the file ``lineitem`` (insert = the
+   two ``tpch`` builds, a probe per re-batched page, no fallback; the
+   probe held bit-identical at the split readers' page shape); Parquet and
+   ORC (``ORC_SCHEMA``) CTAS of ``lineitem``'s eight columns, Q1 and Q6
+   against the oracles with the row groups or stripes kept, the mixed Q3
+   over the Parquet ``lineitem``; an RCFile table at ``RC_SCHEMA`` against
+   numpy, which refuses an INSERT. Prints ``FILE`` lines;
+19. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
    ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``, phase 16 as
    ``SQL EXPLAIN q3``, ``SQL MEM q3 pressured`` and ``SQL PLUGIN geo``,
    phase 17 as ``SQL TRACE q3``, counted on the cold traced run, and ``SQL
-   SPILL q18 disk``), the card line, and last the result line.
+   SPILL q18 disk``, phase 18 as ``SQL FILE pcol q3 mixed``), the card
+   line, and last the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -2151,9 +2171,10 @@ def run_p14_phase(device, schema: str = "sf1") -> dict:
     ``schema`` with ``hash_kernels="pallas"`` under the full defaults: each
     query cold (cache cleared; its kernel inputs captured), warm (launch
     counters and ``COUNTERS`` set to 0 just before it, the peak device
-    memory reset) and on the CPU. Fails unless the rows equal the numpy
-    oracle's and the CPU run's, the insert launched once per join build and
-    grouped page, nothing fell back, the per-day grouping took the insert
+    memory reset); then on the card and the CPU at ``CPU_ROWS_SCHEMA``.
+    Fails unless the rows equal the numpy oracle's, the card's rows at
+    ``CPU_ROWS_SCHEMA`` the CPU run's there, the insert launched once per
+    join build and grouped page, nothing fell back, the per-day grouping took the insert
     (and the insert equals its plain version at that shape) and the sketch
     grouping spilled. Returns the records."""
     import torch
@@ -2189,13 +2210,15 @@ def run_p14_phase(device, schema: str = "sf1") -> dict:
         launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
         delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS + extra}
         check_p14_rows(label, res.rows, schema)
+        small = sql_runner(device, "pallas", CPU_ROWS_SCHEMA).execute(sql).rows
         t0 = time.perf_counter()
-        cpu_rows = sql_runner("cpu", "pallas", schema).execute(sql).rows
+        cpu_rows = sql_runner("cpu", "pallas", CPU_ROWS_SCHEMA).execute(sql).rows
         cpu_s = time.perf_counter() - t0
-        check_p14_rows(label, cpu_rows, schema)
-        if not same_p14_rows(label, res.rows, cpu_rows):
-            raise AssertionError(f"P14 {label}: the card's rows differ from the CPU run's:\n"
-                                 f"{res.rows[:3]}\n{cpu_rows[:3]}")
+        check_p14_rows(label, small, CPU_ROWS_SCHEMA)
+        check_p14_rows(label, cpu_rows, CPU_ROWS_SCHEMA)
+        if not same_p14_rows(label, small, cpu_rows):
+            raise AssertionError(f"P14 {label}: the card's rows at {CPU_ROWS_SCHEMA} differ "
+                                 f"from the CPU run's:\n{small[:3]}\n{cpu_rows[:3]}")
         builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
         if on_card and launches["insert"] != builds + pages:
             raise AssertionError(f"P14 {label}: insert launches {launches['insert']} != "
@@ -2216,8 +2239,9 @@ def run_p14_phase(device, schema: str = "sf1") -> dict:
         if label == "agg sketch spill" and delta["agg.spilled_folds"] <= 0:
             raise AssertionError(f"P14 {label}: the wide partials did not spill")
         out[label] = rec
-        log(f"{kind} {label} {schema}: {len(res.rows)} rows equal to the numpy oracle and to "
-            f"the CPU run ({cpu_s:.2f}s on the host); drivers per pipeline {res.drivers}; "
+        log(f"{kind} {label} {schema}: {len(res.rows)} rows equal to the numpy oracle; at "
+            f"{CPU_ROWS_SCHEMA} the card's rows equal the CPU run's ({cpu_s:.2f}s on the "
+            f"host); drivers per pipeline {res.drivers}; "
             f"cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s; launches {launches}; join "
             f"builds {int(builds)}, grouped pages {int(pages)}; epilogue rows "
             f"{int(delta['join.unmatched_build_rows'])}, spilled folds "
@@ -3241,6 +3265,407 @@ def run_flight_phase(device, records: dict, schema: str = "sf1") -> dict:
     return out
 
 
+# phase 18: the file catalog at TPC-H SF1
+# lineitem's Q1/Q3/Q6 columns: the lineitem of every file format; orders and
+# customer whole: o_clerk, o_comment, c_name and the rest are generated
+# (virtual) dictionaries that the sinks materialize. Writing and scanning
+# l_comment's ~6M strings takes longer than the phase's budget:
+# file_walls.py measures them
+FILE_LI_COLUMNS = ("l_orderkey, l_quantity, l_extendedprice, l_discount, l_tax, "
+                   "l_returnflag, l_linestatus, l_shipdate")
+FILE_TABLES = {"lineitem": FILE_LI_COLUMNS, "orders": "*", "customer": "*"}
+FILE_Q6_COLUMNS = "l_orderkey, l_quantity, l_extendedprice, l_discount, l_shipdate"
+FILE_YEARS = tuple(range(1992, 1999))
+# the ORC and RCFile steps' schema: ORC at SF1 took 67 s of the phase on an
+# H100 machine (CTAS 8.5-9.4 s, Q1 15.6-15.7 s, Q6 9.7-10.1 s of host
+# decoding), so it runs at tiny, against the port's CPU run too; RCFile
+# decodes its text cells one at a time in Python, in both packages
+ORC_SCHEMA = "tiny"
+RC_SCHEMA = "tiny"
+
+
+def _table_files(base: str, table: str) -> dict:
+    """name -> bytes of a file table's data files (the empty seed file that
+    pins the schema left out)."""
+    d = os.path.join(base, "default", table)
+    return {f: os.path.getsize(os.path.join(d, f)) for f in sorted(os.listdir(d))
+            if not f.startswith("00000000.")}
+
+
+class SplitLog:
+    """Records the splits a file catalog's split manager keeps for each
+    scan while on, and (after the query) the splits of the whole table."""
+
+    def __init__(self, connector):
+        self.manager = connector.split_manager()
+        self.calls = []
+
+    def __enter__(self):
+        real = self.real = self.manager.get_splits
+        log_ = self
+
+        def get_splits(table, constraint, desired):
+            kept = real(table, constraint, desired)
+            log_.calls.append((table, dict(constraint.domains), kept))
+            return kept
+
+        self.manager.get_splits = get_splits
+        return self
+
+    def __exit__(self, *exc):
+        del self.manager.get_splits  # the class's method again
+        return False
+
+    def last(self, table: str) -> tuple:
+        """(handle, domains, splits kept) of the last scan of ``table``."""
+        return [c for c in self.calls if c[0].schema_table.table == table][-1]
+
+    def kept(self, table: str) -> tuple:
+        """(splits kept, splits of the table) of the last scan of ``table``."""
+        from presto_tpu_torch.spi.connector import Constraint
+
+        handle, _domains, kept = self.last(table)
+        return len(kept), len(self.real(handle, Constraint.all(), 8))
+
+
+def oracle_file_days(schema: str):
+    """Per ``l_shipdate``: count(*), sum(l_quantity), min(l_extendedprice),
+    in numpy over the port's generator."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    sf = SCHEMAS[schema]
+    li = g.lineitem_for_orders(0, g.table_row_count("orders", sf), sf,
+                               ["l_quantity", "l_extendedprice", "l_shipdate"])
+    order = np.argsort(li["l_shipdate"], kind="stable")
+    days, starts, counts = np.unique(li["l_shipdate"][order], return_index=True,
+                                     return_counts=True)
+    qty = np.add.reduceat(li["l_quantity"][order].astype(np.int64), starts)
+    price = np.minimum.reduceat(li["l_extendedprice"][order].astype(np.int64), starts)
+    epoch = datetime.date(1970, 1, 1)
+    return [[epoch + datetime.timedelta(days=int(d)), int(c), Decimal(int(q)) / 100,
+             Decimal(int(p)) / 100] for d, c, q, p in zip(days, counts, qty, price)]
+
+
+FILE_DAYS_SQL = ("select l_shipdate, count(*), sum(l_quantity), min(l_extendedprice) "
+                 "from {} group by 1 order by 1")
+
+
+def run_file_phase(device, schema: str = "sf1") -> dict:
+    """Phase 18: the file catalog at TPC-H ``schema`` with
+    ``hash_kernels="pallas"`` under the defaults, in one runner with three
+    ``FileConnector`` catalogs in a temporary directory: ``wh`` (PCOL),
+    ``pq`` (Parquet) and ``oc`` (ORC).
+
+    - PCOL: CTAS of ``lineitem`` (``FILE_LI_COLUMNS``), ``orders`` and
+      ``customer`` on the scaled writers; Q1, Q3 and Q6 over them against
+      the numpy oracles, Q6 through the split readers and the native
+      prefilter (the rows uploaded must be exactly the rows inside Q6's
+      pushed-down domains); the per-day grouping of the file ``lineitem``
+      against numpy, with the insert held at its shape.
+    - Split pruning: Q6's columns inserted one ``l_shipdate`` year at a
+      time; Q6 must keep exactly the 1994 insert's files.
+    - The mixed Q3 (file ``lineitem``, ``tpch`` ``orders`` and
+      ``customer``): insert = the two builds, a probe per re-batched page,
+      no fallback, the probe held bit-identical at the split readers' page
+      shape.
+    - Parquet and ORC: CTAS of lineitem's eight Q1/Q3/Q6 columns, Q1 and Q6
+      against the oracles, the row groups or stripes Q6 keeps, and the
+      mixed Q3 over the Parquet ``lineitem``. ORC runs at ``ORC_SCHEMA``,
+      and, where that differs from ``schema``, against the port's CPU run
+      too.
+    - RCFile at ``RC_SCHEMA``: a table written with ``write_rcfile_table``,
+      scanned against numpy; an INSERT is refused.
+
+    Each step runs cold and warm (the warm launch counters set to 0 just
+    before it) and prints a ``FILE`` line. Returns the records whose
+    launches the kernels line reports."""
+    import functools
+    import shutil
+    import tempfile
+
+    import torch
+
+    from presto_tpu_torch.connectors.file import FileConnector
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+    from presto_tpu_torch.formats.rcfile import write_rcfile_table
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.types import BIGINT, DATE, VARCHAR, DecimalType
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-file-")
+    oracle = functools.lru_cache(maxsize=None)(lambda q, sch: SQL_ORACLES[q](sch)[0])
+
+    @functools.lru_cache(maxsize=None)
+    def n_lineitem(sch):
+        sf_ = SCHEMAS[sch]
+        return len(g.lineitem_for_orders(0, g.table_row_count("orders", sf_), sf_,
+                                         ["l_shipdate"])["l_shipdate"])
+    out = {}
+    runner = sql_runner(device, "pallas", schema)
+    bases = {c: os.path.join(tmp, c) for c in ("wh", "pq", "oc", "rc")}
+    formats = {"wh": "pcol", "pq": "parquet", "oc": "orc"}
+    for cat, fmt in formats.items():
+        runner.catalogs.register(cat, FileConnector(cat, bases[cat], write_format=fmt))
+    q3_tables = "from customer, orders, lineitem"
+
+    def timed_run(r, sql):
+        t0 = time.perf_counter()
+        res = r.execute(sql)
+        sync()
+        return res, time.perf_counter() - t0
+
+    def step(label, sql, r=None, setup=None, splits=None):
+        """A cold run, then ``setup`` and the warm run, counters zeroed;
+        ``splits``: (catalog, table) whose kept splits the warm run logs."""
+        r = r or runner
+        res, cold_s = timed_run(r, sql)
+        if setup is not None:
+            setup()
+        before = {k: METRICS.counter_value(k) for k in COUNTERS + (
+            "pcol.native_opens", "pcol.numpy_opens")}
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        if splits is not None:
+            with SplitLog(r.metadata.connector(splits[0])) as slog:
+                res, warm_s = timed_run(r, sql)
+        else:
+            res, warm_s = timed_run(r, sql)
+        launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        delta = {k: METRICS.counter_value(k) - v for k, v in before.items()}
+        if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+            raise AssertionError(f"FILE {label}: a fallback: {delta}")
+        rec = out[label] = {"rows": res.rows, "launches": launches, "delta": delta,
+                            "cold_s": cold_s, "warm_s": warm_s, "res": res,
+                            "splits": slog.kept(splits[1]) if splits else None,
+                            "kept": slog.last(splits[1]) if splits else None}
+        return rec
+
+    def file_line(label, extra="", sch=schema):
+        rec = out[label]
+        kept = "" if rec["splits"] is None else \
+            f"; splits kept {rec['splits'][0]} of {rec['splits'][1]}"
+        log(f"FILE {label} {sch}: cold wall "
+            f"{rec['cold_s']:.4f}s, warm wall {rec['warm_s']:.4f}s; launches "
+            f"{rec['launches']}; join builds {int(rec['delta']['pallas.join_builds'])}, "
+            f"grouped pages {int(rec['delta']['pallas.agg_pages'])}{kept}{extra}")
+
+    def check_mixed(label):
+        rec = out[label]
+        if rec["delta"]["pallas.join_builds"] != 2 or \
+                (on_card and rec["launches"]["probe"] <= 0):
+            raise AssertionError(f"FILE {label}: the kernels' path was not taken: {rec}")
+        if on_card and rec["launches"]["insert"] != 2 + rec["delta"]["pallas.agg_pages"]:
+            raise AssertionError(f"FILE {label}: insert launches {rec['launches']}")
+
+    try:
+        sf = SCHEMAS[schema]
+        n_li = n_lineitem(schema)
+        RESIDENT_CACHE.clear()
+        # 1. PCOL CTAS of three tables on the scaled writers
+        for t, cols in FILE_TABLES.items():
+            src = f"select {cols} from tpch.{schema}.{t}"
+            n_want = n_li if t == "lineitem" else g.table_row_count(t, sf)
+            writers = runner._scaled_writer_count(runner.plan_sql(src))
+            step(f"ctas {t}", f"create table wh.default.{t} as {src}",
+                 setup=lambda t=t: runner.execute(f"drop table wh.default.{t}"))
+            rec = out[f"ctas {t}"]
+            if rec["rows"] != [[n_want]]:
+                raise AssertionError(f"FILE ctas {t}: {rec['rows']} rows, want {n_want}")
+            files = _table_files(bases["wh"], t)
+            rec["bytes"] = sum(files.values())
+            file_line(f"ctas {t}", f"; {n_want} rows, writer drivers {writers}, {len(files)} "
+                      f"files, {rec['bytes']} bytes ({n_want / rec['warm_s']:.0f} rows/s warm)")
+        # 2. Q1, Q3, Q6 over the PCOL tables
+        for q in (1, 6, 3):
+            sql = QUERIES[q].replace(q3_tables, "from wh.default.customer, wh.default.orders, "
+                                                "wh.default.lineitem") \
+                if q == 3 else QUERIES[q].replace("from lineitem", "from wh.default.lineitem")
+            rec = step(f"pcol q{q}", sql, splits=("wh", "lineitem"))
+            if not same_rows(rec["rows"], oracle(q, schema)):
+                raise AssertionError(f"FILE pcol q{q}: rows differ from the oracle:\n"
+                                     f"{rec['rows'][:3]}")
+            file_line(f"pcol q{q}", f"; scan {_fmt_scan(rec['res'].stats.get('scan_pipeline'))}")
+        # Q6 took the split readers and the native prefilter: the rows it
+        # uploaded are exactly the rows inside its pushed-down domains (the
+        # constant comparisons on l_shipdate and l_quantity; the BETWEEN of
+        # l_discount gives none, in the reference too)
+        rec = out["pcol q6"]
+        st = rec["res"].stats.get("scan_pipeline") or {}
+        domains = rec["kept"][1]
+        li = g.lineitem_for_orders(0, g.table_row_count("orders", sf), sf, list(domains))
+        inside = np.ones(n_li, dtype=bool)
+        for col, (lo, hi) in domains.items():
+            if lo is not None:
+                inside &= li[col] >= lo
+            if hi is not None:
+                inside &= li[col] <= hi
+        inside = int(inside.sum())
+        if "l_shipdate" not in domains or not st.get("chunks") or st.get("rows") != inside:
+            raise AssertionError(f"FILE pcol q6: not re-batched from the prefiltered split "
+                                 f"readers: {st}, domains {domains}, {inside} rows inside")
+        if rec["delta"]["pcol.native_opens"] <= 0 or rec["delta"]["pcol.numpy_opens"] != 0:
+            raise AssertionError(f"FILE pcol q6: opens {rec['delta']}")
+        log(f"FILE pcol q6 {schema}: domains {domains}; rows read {n_li}, rows uploaded "
+            f"{st['rows']} (= the rows inside the domains) in {st['pages']} re-batched pages "
+            f"from {st['chunks']} split-reader chunks; native opens "
+            f"{int(rec['delta']['pcol.native_opens'])}, numpy opens 0")
+        # the per-day grouping of the file lineitem takes the insert
+        capture = KernelCapture()
+        with capture:
+            timed_run(runner, FILE_DAYS_SQL.format("wh.default.lineitem"))
+        rec = step("pcol agg per day", FILE_DAYS_SQL.format("wh.default.lineitem"))
+        if not same_rows(rec["rows"], oracle_file_days(schema)):
+            raise AssertionError(f"FILE pcol agg per day: rows differ:\n{rec['rows'][:3]}")
+        grouping = capture.grouping or capture.build
+        if on_card and (rec["delta"]["pallas.agg_pages"] <= 0 or grouping is None):
+            raise AssertionError(f"FILE pcol agg per day: the insert was not taken: {rec}")
+        if grouping is not None:
+            rec["insert"] = check_insert_at(device, "phase 18 file-table grouping", *grouping)
+        file_line("pcol agg per day")
+
+        # 3. split pruning: Q6's columns, one l_shipdate year per INSERT
+        runner.execute(f"create table wh.default.years as select {FILE_Q6_COLUMNS} "
+                       f"from tpch.{schema}.lineitem where l_orderkey < 0")
+        by_year = {}
+        for y in FILE_YEARS:
+            before = set(_table_files(bases["wh"], "years"))
+            timed_run(runner, f"insert into wh.default.years select "
+                                           f"{FILE_Q6_COLUMNS} from tpch.{schema}.lineitem "
+                                           f"where l_shipdate >= date '{y}-01-01' and "
+                                           f"l_shipdate < date '{y + 1}-01-01'")
+            by_year[y] = sorted(set(_table_files(bases["wh"], "years")) - before)
+        rec = step("pcol years q6", QUERIES[6].replace("from lineitem", "from wh.default.years"),
+                   splits=("wh", "years"))
+        if not same_rows(rec["rows"], oracle(6, schema)):
+            raise AssertionError(f"FILE pcol years q6: rows differ: {rec['rows']}")
+        _handle, domains, kept = rec["kept"]
+        kept_files = sorted(os.path.basename(s.payload[1]) for s in kept)
+        if kept_files != by_year[1994]:
+            raise AssertionError(f"FILE pcol years q6: kept {kept_files}, the 1994 insert "
+                                 f"wrote {by_year[1994]}")
+        file_line("pcol years q6", f"; files per insert "
+                  f"{[len(by_year[y]) for y in FILE_YEARS]}, kept exactly the 1994 insert's "
+                  f"{len(kept_files)} (domains {domains})")
+
+        # 4. the mixed Q3: the file lineitem probes tpch's tables
+        want_q3 = oracle(3, schema)
+        mixed = QUERIES[3].replace(q3_tables, f"from tpch.{schema}.customer, "
+                                              f"tpch.{schema}.orders, wh.default.lineitem")
+        capture = KernelCapture()
+        with capture:
+            timed_run(runner, mixed)
+        rec = step("pcol q3 mixed", mixed, splits=("wh", "lineitem"))
+        if not same_rows(rec["rows"], want_q3):
+            raise AssertionError(f"FILE pcol q3 mixed: rows differ:\n{rec['rows'][:3]}")
+        check_mixed("pcol q3 mixed")
+        if not capture.by_table:
+            raise AssertionError("FILE pcol q3 mixed: no probe of a file page was captured")
+        args = max(capture.by_table.values(), key=lambda a: a[1].shape[0])
+        rec["probe"] = check_probe_at(device, "phase 18 mixed Q3 (a split-reader page)", *args)
+        st = rec["res"].stats.get("scan_pipeline") or {}
+        file_line("pcol q3 mixed", f"; the file lineitem gave {st.get('pages')} re-batched "
+                  f"pages of {st.get('rows')} rows in all, probes {rec['launches']['probe']}")
+
+        # 5. Parquet and ORC: lineitem's Q1/Q3/Q6 columns
+        fmt_runners = {"pq": (runner, schema)}
+        if ORC_SCHEMA == schema:
+            fmt_runners["oc"] = (runner, schema)
+        else:
+            orc_runner = sql_runner(device, "pallas", ORC_SCHEMA)
+            orc_runner.catalogs.register("oc", FileConnector("oc", bases["oc"],
+                                                             write_format="orc"))
+            fmt_runners["oc"] = (orc_runner, ORC_SCHEMA)
+        for cat, (r, sch) in fmt_runners.items():
+            name = formats[cat]
+            src = f"select {FILE_LI_COLUMNS} from tpch.{sch}.lineitem"
+            step(f"{name} ctas lineitem", f"create table {cat}.default.lineitem as {src}", r=r,
+                 setup=lambda cat=cat, r=r: r.execute(f"drop table {cat}.default.lineitem"))
+            rec = out[f"{name} ctas lineitem"]
+            n_want = n_lineitem(sch)
+            if rec["rows"] != [[n_want]]:
+                raise AssertionError(f"FILE {name} ctas: {rec['rows']}, want {n_want}")
+            files = _table_files(bases[cat], "lineitem")
+            rec["bytes"] = sum(files.values())
+            file_line(f"{name} ctas lineitem", f"; {n_want} rows, {len(files)} files, "
+                      f"{rec['bytes']} bytes ({n_want / rec['warm_s']:.0f} rows/s warm)", sch)
+            for q in (1, 6):
+                sql = QUERIES[q].replace("from lineitem", f"from {cat}.default.lineitem")
+                rec = step(f"{name} q{q}", sql, r=r, splits=(cat, "lineitem"))
+                if not same_rows(rec["rows"], oracle(q, sch)):
+                    raise AssertionError(f"FILE {name} q{q}: rows differ:\n{rec['rows'][:3]}")
+                if sch != schema:
+                    cpu = sql_runner(torch.device("cpu"), "pallas", sch)
+                    cpu.catalogs.register(cat, FileConnector(cat, bases[cat], write_format=name))
+                    if not same_rows(cpu.execute(sql).rows, rec["rows"]):
+                        raise AssertionError(f"FILE {name} q{q}: the card's rows differ from "
+                                             f"the CPU run's")
+                unit = "row groups" if cat == "pq" else "stripes"
+                file_line(f"{name} q{q}", f" ({unit})", sch)
+        rec = step("parquet q3 mixed", QUERIES[3].replace(
+            q3_tables, f"from tpch.{schema}.customer, tpch.{schema}.orders, pq.default.lineitem"),
+            splits=("pq", "lineitem"))
+        if not same_rows(rec["rows"], want_q3):
+            raise AssertionError(f"FILE parquet q3 mixed: rows differ:\n{rec['rows'][:3]}")
+        check_mixed("parquet q3 mixed")
+        file_line("parquet q3 mixed", " (row groups)")
+
+        # 6. RCFile, ingest-only, at RC_SCHEMA
+        rsf = SCHEMAS[RC_SCHEMA]
+        li = g.lineitem_for_orders(0, g.table_row_count("orders", rsf), rsf,
+                                   ["l_orderkey", "l_quantity", "l_returnflag", "l_shipdate"])
+        epoch = datetime.date(1970, 1, 1)
+        flags = g.DICT_RETURNFLAG.values
+        cells = [[str(int(v)) for v in li["l_orderkey"]],
+                 [f"{int(v) // 100}.{int(v) % 100:02d}" for v in li["l_quantity"]],
+                 [str(flags[int(v)]) for v in li["l_returnflag"]],
+                 [(epoch + datetime.timedelta(days=int(v))).isoformat()
+                  for v in li["l_shipdate"]]]
+        rc_dir = os.path.join(bases["rc"], "default", "lineitem")
+        os.makedirs(rc_dir)
+        t0 = time.perf_counter()
+        write_rcfile_table(os.path.join(rc_dir, "part0.rc"),
+                           ["l_orderkey", "l_quantity", "l_returnflag", "l_shipdate"],
+                           [BIGINT, DecimalType(12, 2), VARCHAR, DATE], cells,
+                           rows_per_group=16384)
+        write_s = time.perf_counter() - t0
+        rc_runner = sql_runner(device, "pallas", RC_SCHEMA)
+        rc_runner.catalogs.register("rc", FileConnector("rc", bases["rc"]))
+        rec = step("rcfile scan", "select l_returnflag, count(*), sum(l_quantity), "
+                   "min(l_shipdate), max(l_orderkey) from rc.default.lineitem "
+                   "group by 1 order by 1", r=rc_runner)
+        want = []
+        for code in sorted(np.unique(li["l_returnflag"]), key=lambda c: flags[int(c)]):
+            sel = li["l_returnflag"] == code
+            want.append([str(flags[int(code)]), int(sel.sum()),
+                         Decimal(int(li["l_quantity"][sel].astype(np.int64).sum())) / 100,
+                         epoch + datetime.timedelta(days=int(li["l_shipdate"][sel].min())),
+                         int(li["l_orderkey"][sel].max())])
+        if not same_rows(rec["rows"], want):
+            raise AssertionError(f"FILE rcfile scan: {rec['rows']} != {want}")
+        try:
+            rc_runner.execute("insert into rc.default.lineitem select 1, 2.00, 'A', "
+                              "date '1995-01-01'")
+            raise AssertionError("FILE rcfile: an INSERT was not refused")
+        except RuntimeError as e:
+            if "read-only" not in str(e):
+                raise
+        file_line("rcfile scan", f": {len(cells[0])} rows written in "
+                  f"{write_s:.4f}s ({os.path.getsize(os.path.join(rc_dir, 'part0.rc'))} bytes); "
+                  f"an INSERT is refused (read-only)", RC_SCHEMA)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rec in out.values():
+        rec.pop("res", None)
+        rec.pop("kept", None)
+    return out
+
+
 def check_probe_at(device, label: str, slot_keys, slot_rows, keys, mask, trips,
                    reps: int = 20, plain_reps: int = 3) -> dict:
     """The probe against its plain version, bit for bit, at one captured
@@ -3384,6 +3809,8 @@ def main() -> int:
         phase_done("16 plugins, EXPLAIN ANALYZE, memory")
         flight_records = run_flight_phase(device, records)
         phase_done("17 flight recorder, histograms, disk spill")
+        file_records = run_file_phase(device)
+        phase_done(f"18 file catalog (ORC at {ORC_SCHEMA}, RCFile at {RC_SCHEMA})")
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -3405,7 +3832,9 @@ def main() -> int:
                     **{f"SQL WRITE {label}": rec["launches"][k]
                        for label, rec in write_records.items()},
                     **{label: rec["launches"][k] for label, rec in memory_records.items()},
-                    **{label: rec["launches"][k] for label, rec in flight_records.items()}}}
+                    **{label: rec["launches"][k] for label, rec in flight_records.items()},
+                    **{f"SQL FILE {label}": rec["launches"][k]
+                       for label, rec in file_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

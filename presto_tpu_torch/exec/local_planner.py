@@ -36,7 +36,9 @@ the 22 TPC-H queries, on an explicit ``device``:
   in a join build runs whole as N build drivers, whose last finisher
   builds. N is ``driver_parallelism``: AUTO gives ``task_concurrency`` on a
   CUDA device and 1 on the CPU. Fusion runs after the cut.
-- Every scan gets the session's pipeline knobs (``scan_options``).
+- Every scan gets the session's pipeline knobs (``scan_options``), and a
+  filtered scan the filter's column ranges (``_extract_constraint``), which
+  its connector's split manager and page sources may prune with.
 - A VALUES list (``SELECT`` without ``FROM``) is one literal host page,
   scanned once.
 - UNION [ALL], INTERSECT, EXCEPT and grouping sets plan as a UnionNode:
@@ -73,7 +75,7 @@ from ..ops.single_row import EnforceSingleRowOperatorFactory
 from ..ops.topn import (LimitOperatorFactory, OrderByOperatorFactory, SortOrder,
                         TopNOperatorFactory)
 from ..spi.connector import ConcatPageSource, ConnectorPageSource, Constraint, FixedPageSource
-from ..sql.planner.optimizer import and_all, substitute
+from ..sql.planner.optimizer import and_all, split_and, substitute
 from ..sql.planner.plan import (AggregationNode, EnforceSingleRowNode, FilterNode, JoinNode,
                                 LimitNode, OutputNode, PlanNode, ProjectNode, SemiJoinNode,
                                 SortNode, Symbol, TableScanNode, TopNNode, UnionNode,
@@ -97,6 +99,107 @@ def _intern_union_dict(values: List[str]) -> Dictionary:
             _UNION_DICTS.clear()
         d = _UNION_DICTS[key] = Dictionary(values)
     return d
+
+
+def _extract_constraint(filter_parts, scan: TableScanNode) -> Constraint:
+    """Scan-filter conjuncts -> per-column [lo, hi] domains (TupleDomain
+    extraction, narrowed to constant comparisons: what file and split
+    pruning need). Bounds are in the column's substrate units (scaled
+    decimal ints, date days, floats); a string constant gives no domain."""
+    import math
+
+    from ..ops.expressions import Call, Constant, InputRef
+    from ..types import DecimalType
+
+    cols = {i: col for i, (_s, col) in enumerate(scan.assignments)}
+    domains: Dict[str, List] = {}
+
+    def bound(v, vt, ct, kind: str):
+        """Constant in ITS representation (scaled decimal int, date days,
+        float) -> a domain bound in the COLUMN's substrate units.
+
+        kind: lo_ge | lo_gt | hi_le | hi_lt — strict bounds tighten AFTER
+        the exact conversion (tightening in the constant's coarser scale
+        then upscaling would narrow the domain and drop satisfying rows).
+        Integer paths use exact integer arithmetic — float round-trips
+        above 2^53 could likewise narrow a domain."""
+        if is_string(ct):
+            fl = cl = v  # dictionary code compare: units already match
+            exact = True
+        else:
+            s_from = vt.scale if isinstance(vt, DecimalType) else 0
+            s_to = ct.scale if isinstance(ct, DecimalType) else 0
+            if ct.name in ("double", "real"):
+                # continuous substrate: strict bounds stay inclusive
+                # (over-approximation, the engine filter refines)
+                return float(v) / (10 ** s_from) if s_from else float(v)
+            if isinstance(v, int):
+                if s_to >= s_from:
+                    fl = cl = v * 10 ** (s_to - s_from)
+                    exact = True
+                else:
+                    q, r = divmod(v, 10 ** (s_from - s_to))  # // floors
+                    fl, cl, exact = q, q + (1 if r else 0), r == 0
+            else:
+                x = v * (10 ** (s_to - s_from)) if s_to != s_from else v
+                fl, cl = math.floor(x), math.ceil(x)
+                exact = fl == cl
+        if kind == "hi_le":
+            return fl
+        if kind == "hi_lt":
+            return fl - 1 if exact else fl
+        if kind == "lo_ge":
+            return cl
+        return cl + 1 if exact else cl  # lo_gt
+
+    def note(ch: int, kind: str, v, vt):
+        col = cols.get(ch)
+        if col is None:
+            return
+        cur = domains.setdefault(col.name, [None, None])
+        b = bound(v, vt, col.type, kind)
+        if kind.startswith("lo"):
+            cur[0] = b if cur[0] is None else max(cur[0], b)
+        else:
+            cur[1] = b if cur[1] is None else min(cur[1], b)
+
+    # flatten AND trees first: a multi-conjunct WHERE arrives as ONE nested
+    # conjunction, and every conjunct may contribute a domain bound (Q6's
+    # shipdate and quantity ranges drive both split pruning and the file
+    # scan's native pre-filter; its BETWEEN of computed bounds gives none)
+    for part in (c for fp in filter_parts for c in split_and(fp)):
+        if not isinstance(part, Call) or len(part.args) != 2:
+            continue
+        a, b = part.args
+        if isinstance(a, Constant) and isinstance(b, InputRef):
+            flip = {"less_than": "greater_than",
+                    "less_than_or_equal": "greater_than_or_equal",
+                    "greater_than": "less_than",
+                    "greater_than_or_equal": "less_than_or_equal",
+                    "equal": "equal"}.get(part.name)
+            if flip is None:
+                continue
+            a, b, name = b, a, flip
+        elif isinstance(a, InputRef) and isinstance(b, Constant):
+            name = part.name
+        else:
+            continue
+        v = b.value
+        if v is None or isinstance(v, str):
+            continue
+        if name == "equal":
+            note(a.channel, "lo_ge", v, b.type)
+            note(a.channel, "hi_le", v, b.type)
+        elif name == "less_than":
+            note(a.channel, "hi_lt", v, b.type)
+        elif name == "less_than_or_equal":
+            note(a.channel, "hi_le", v, b.type)
+        elif name == "greater_than":
+            note(a.channel, "lo_gt", v, b.type)
+        elif name == "greater_than_or_equal":
+            note(a.channel, "lo_ge", v, b.type)
+    return Constraint({k: tuple(v) for k, v in domains.items()}) \
+        if domains else Constraint.all()
 
 
 # the port plans one local task, so every operator belongs to worker 0
@@ -382,7 +485,8 @@ class LocalExecutionPlanner:
         processor = PageProcessor(layout, and_all(filter_parts),
                                   [mapping[s.name] for s in out_symbols])
         if isinstance(cur, TableScanNode):
-            fac = TableScanOperatorFactory(next(self._ids), self._page_sources(cur),
+            sources = self._page_sources(cur, _extract_constraint(filter_parts, cur))
+            fac = TableScanOperatorFactory(next(self._ids), sources,
                                            processor.output_types, processor, self.device)
             return Chain([fac], list(out_symbols), processor.output_dicts)
         fac = FilterProjectOperatorFactory(next(self._ids), processor)
@@ -393,10 +497,12 @@ class LocalExecutionPlanner:
         return InputLayout([s.type for s, _ in node.assignments],
                            [meta.column(col.name).dictionary for _, col in node.assignments])
 
-    def _page_sources(self, node: TableScanNode):
-        """One source over every split of the table (one scan driver)."""
+    def _page_sources(self, node: TableScanNode, constraint: Constraint):
+        """One source over every split of the table (one scan driver).
+        ``constraint`` carries the scan filter's column ranges to the split
+        manager and the page sources, which may prune with them (file
+        statistics, range pre-filters)."""
         conn = self.metadata.connector(node.table.connector_id)
-        constraint = Constraint.all()
         splits = conn.split_manager().get_splits(node.table, constraint, 8)
         cols = [c for _, c in node.assignments]
         provider = conn.page_source_provider()
@@ -408,7 +514,8 @@ class LocalExecutionPlanner:
         processor = PageProcessor(self._scan_layout(node), None,
                                   [input_ref(i, s.type)
                                    for i, (s, _) in enumerate(node.assignments)])
-        fac = TableScanOperatorFactory(next(self._ids), self._page_sources(node),
+        fac = TableScanOperatorFactory(next(self._ids),
+                                       self._page_sources(node, Constraint.all()),
                                        processor.output_types, processor, self.device)
         return Chain([fac], [s for s, _ in node.assignments], processor.output_dicts)
 

@@ -172,9 +172,13 @@ def write_pcol(path: str, names: Sequence[str], types: Sequence[Type],
 
 
 class PcolFile:
-    """Reader: a native mmap when libpcol loads, else a host read."""
+    """Reader: a native mmap when libpcol loads, else a host read.
 
-    def __init__(self, path: str):
+    ``header`` skips the JSON header's parse with one already parsed: the
+    split readers of one file each open their own mapping but share one
+    parse (a header with large dictionaries can be megabytes)."""
+
+    def __init__(self, path: str, header: Optional[Dict] = None):
         self.path = path
         self._map = None
         self._lib = _libpcol()
@@ -194,7 +198,8 @@ class PcolFile:
             self.close()
             raise ValueError(f"{path}: not a pcol file")
         hlen = int(np.frombuffer(self._buf[6:10], dtype=np.uint32)[0])
-        self.header = json.loads(bytes(self._buf[10:10 + hlen]))
+        self.header = header if header is not None \
+            else json.loads(bytes(self._buf[10:10 + hlen]))
         self.rows = self.header["rows"]
         self._data_start = _pad(10 + hlen)
         self.columns = {e["name"]: e for e in self.header["columns"]}

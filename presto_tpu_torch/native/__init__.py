@@ -1,7 +1,8 @@
 """Host C++ of the PyTorch port, built at first use and bound through ctypes.
 
 Counterpart of ``presto_tpu/native/__init__.py``. ``libpcol`` is the PCOL
-file format's data plane (mmap and write-time statistics),
+file format's data plane (mmap, write-time statistics and the range
+pre-filters of the file connector's scan),
 compiled from this package's own ``pcol.cpp`` with ``g++`` into the
 git-ignored ``build/`` beside it; the reference's ``libpcol.so`` is never
 loaded. It is host code, not a device kernel. The build goes to a temporary
@@ -70,6 +71,12 @@ def libpcol() -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_uint64,
                 ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double)]
             lib.pcol_stats_f64.restype = None
+            lib.pcol_filter_range_i64.restype = ctypes.c_uint64
+            lib.pcol_filter_range_i64.argtypes = [
+                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p]
+            lib.pcol_filter_range_i32.restype = ctypes.c_uint64
+            lib.pcol_filter_range_i32.argtypes = lib.pcol_filter_range_i64.argtypes
             _lib = lib
     return _lib
 

@@ -1,12 +1,13 @@
 // libpcol: native data plane for the PCOL columnar file format (the
-// PyTorch port's own copy of presto_tpu/native/pcol.cpp, without the range
-// pre-filters, which only a file connector would call).
+// PyTorch port's own copy of presto_tpu/native/pcol.cpp).
 //
 // Column chunks are raw little-endian arrays, 64-byte aligned, mmap-ed and
 // handed to numpy zero-copy, so a read is page cache -> host array with no
 // decode step. The C++ side owns:
 //   - mmap lifecycle (open/close, shared read-only mappings)
-//   - write-time column statistics (min/max over int64/int32/float64 chunks).
+//   - write-time column statistics (min/max over int64/int32/float64 chunks)
+//   - range pre-filters (selection masks), which the file connector's scan
+//     runs on pushed-down ranges before rows are uploaded.
 //
 // Built at first use by presto_tpu_torch/native/__init__.py:
 //   g++ -O3 -shared -fPIC -std=c++17 pcol.cpp -o build/libpcol.so
@@ -92,6 +93,31 @@ void pcol_stats_i32(const int32_t* data, uint64_t n, int64_t* out_min,
     }
     *out_min = mn;
     *out_max = mx;
+}
+
+// ---------------------------------------------------------- range filtering
+
+// mask[i] &= lo <= data[i] <= hi. Returns the selected count.
+uint64_t pcol_filter_range_i64(const int64_t* data, uint64_t n, int64_t lo,
+                               int64_t hi, uint8_t* mask) {
+    uint64_t count = 0;
+    for (uint64_t i = 0; i < n; i++) {
+        uint8_t keep = (data[i] >= lo) & (data[i] <= hi);
+        mask[i] &= keep;  // AND into the caller's running mask
+        count += mask[i];
+    }
+    return count;
+}
+
+uint64_t pcol_filter_range_i32(const int32_t* data, uint64_t n, int64_t lo,
+                               int64_t hi, uint8_t* mask) {
+    uint64_t count = 0;
+    for (uint64_t i = 0; i < n; i++) {
+        uint8_t keep = (data[i] >= lo) & (data[i] <= hi);
+        mask[i] &= keep;
+        count += mask[i];
+    }
+    return count;
 }
 
 }  // extern "C"

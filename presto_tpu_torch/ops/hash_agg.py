@@ -272,6 +272,13 @@ def _ordering_codes(call, arg_index: int, block: Block) -> torch.Tensor:
     d = block.dictionary
     if d is None:
         return block.data
+    ordering = call.function.name in ("min", "max") or \
+        (call.function.name in ("min_by", "max_by") and arg_index == 1)
+    if ordering and not hasattr(d, "values") and not getattr(d, "monotonic", False):
+        # a virtual dictionary's codes keep the strings' order only when
+        # its format does (zero-padded Supplier#%09d)
+        raise NotImplementedError(
+            f"{call.function.name} over non-monotonic virtual dictionary {d!r} is not ported")
     if _ranked_min_max(call) or (call.function.name in ("min_by", "max_by")
                                  and arg_index == 1 and hasattr(d, "values")
                                  and not d.is_sorted()):

@@ -1,4 +1,7 @@
-"""presto_tpu_torch and chip_smoke.py import neither jax nor presto_tpu."""
+"""presto_tpu_torch, chip_smoke.py and the measurement scripts
+port_walls.py and file_walls.py import neither jax nor presto_tpu, nor
+pyarrow or zstandard (the card's machine has neither: the file
+formats import ``zstandard`` only where a zstd page is met)."""
 import os
 import pkgutil
 import subprocess
@@ -16,10 +19,11 @@ names = ['presto_tpu_torch'] + [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import importlib.util
-spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for script in ('chip_smoke', 'port_walls', 'file_walls'):
+    spec = importlib.util.spec_from_file_location(script, script + '.py')
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'presto_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'presto_tpu', 'pyarrow', 'zstandard'))
 print(json.dumps({'modules': names, 'bad': bad}))
 """
 
@@ -41,6 +45,11 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"presto_tpu_torch.utils.trace", "presto_tpu_torch.utils.metrics",
             "presto_tpu_torch.exec.spill", "presto_tpu_torch.formats.pcol",
             "presto_tpu_torch.native", "presto_tpu_torch.cluster.faults"} <= set(res["modules"])
+    # the file catalog and its formats
+    assert {"presto_tpu_torch.connectors.file", "presto_tpu_torch.formats.parquet",
+            "presto_tpu_torch.formats.parquet_writer", "presto_tpu_torch.formats.orc",
+            "presto_tpu_torch.formats.orc_writer",
+            "presto_tpu_torch.formats.rcfile"} <= set(res["modules"])
 
 
 def test_native_library_is_the_ports_own():
