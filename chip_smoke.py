@@ -42,17 +42,15 @@ Phases, each of which must pass:
    unfused SQL Q3 grouping gives it (its first hash-grouped page: the key
    components, the live rows, and the slots the first page's group count
    sized), and time it;
-8. run TPC-H Q5, Q9 and Q13 as SQL at SF1 the same way (multi-key joins,
+8. run TPC-H Q5, Q9 and Q13 as SQL the same way (multi-key joins,
    duplicate-key INNER and LEFT expansion, LIKE), with numpy-only oracles:
    the unique single-key builds on the table (Q5 3, Q9 4, Q13 0), no
    fallback, insert launches equal to ``join_builds + agg_pages``, and each
-   table probed by the probe kernel at least once. Q5's unfused and sorted
-   runs go at ``tiny`` (``Q5_REPEATS_SCHEMA``: its SF1 runs take 20-40 s
-   each), beside one fused run there, and it prints the seconds that
-   saves; its cold and warm runs stay at SF1 against the numpy Q5. Q5
+   table probed by the probe kernel at least once. Q9 and Q13 run at SF1,
+   Q5 at ``Q5_SCHEMA`` (``tiny``: its SF1 runs take 40-64 s each; its SF1
+   walls are ``port_walls.py --queries 5``'s). Q5
    prints its expansion chunks, expanded rows and peak device memory; Q9
-   and Q13 get a profiler
-   pass; all three get the host-clock layers. Both kernels are held against
+   and Q13 get a profiler pass and the host-clock layers. Both kernels are held against
    their plain versions at the shapes the unfused Q9 gives them;
 9. the default path of Q1, Q3, Q5, Q6, Q9 and Q13, from the warm runs of
    phases 6 and 8: each query's fused segments (operators, dispatches,
@@ -73,7 +71,8 @@ Phases, each of which must pass:
    (a resident replay; launch counters and ``COUNTERS`` set to 0 just
    before it), phases 6 and 8 giving these runs for their queries; then
    under the oracle properties ``driver_parallelism=1, scan_pipeline=False``
-   (cold and warm; Q5 once, at ``tiny``, against its fused run there). Fails unless the rows equal the oracle's, the
+   (cold and warm; Q5 once, at ``Q5_SCHEMA`` as its phase 8 runs). Fails
+   unless the rows equal the oracle's, the
    warm run replayed resident pages and staged none, the insert launched
    once per join build and grouped page, a query that built a table probed
    it with the kernel, nothing fell back, Q18's inner grouping spilled to
@@ -214,14 +213,31 @@ Phases, each of which must pass:
    against the oracles with the row groups or stripes kept, the mixed Q3
    over the Parquet ``lineitem``; an RCFile table at ``RC_SCHEMA`` against
    numpy, which refuses an INSERT. Prints ``FILE`` lines;
-19. print the kernels line (JSON, with each kernel's warm-run launches per
+19. the warehouse connectors at ``tpch.sf1`` (``run_warehouse_phase``), with
+   ``hash_kernels="pallas"``, a ``HiveConnector`` and a ``RaptorConnector``
+   in a temporary directory that the phase removes: hive CTAS of
+   ``lineitem`` and ``orders`` bucketed 4 ways on their order keys; the
+   grouped query (Q3 without ``customer``) grouped (``last_grouped == 4``)
+   and ungrouped against numpy, with each warm run's allocator peak beside
+   its accounted peak, then grouped unfused, where the grouping takes the
+   insert (at least one launch; the insert held bit-identical at the first
+   bucket's grouped-page shape); CTAS partitioned by ``l_shipmode`` (the
+   routing's share of its wall) and by ``l_linenumber``, and a sum over
+   one partition of each (the ``l_linenumber`` sum keeps exactly its
+   partition's files; a string key gives no domain); the mixed Q3 over the hive ``lineitem`` (insert = the
+   two builds, the probe held bit-identical at a hive page's shape);
+   Parquet and ORC hive tables at ``HIVE_FORMAT_SCHEMA``; raptor: CTAS and
+   Q6, seven yearly INSERTs whose Q6 keeps exactly the 1994 shard, then
+   ``maintenance()`` compacting them into one. Prints ``WAREHOUSE`` lines;
+20. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
    ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``, phase 16 as
    ``SQL EXPLAIN q3``, ``SQL MEM q3 pressured`` and ``SQL PLUGIN geo``,
    phase 17 as ``SQL TRACE q3``, counted on the cold traced run, and ``SQL
-   SPILL q18 disk``, phase 18 as ``SQL FILE pcol q3 mixed``), the card
-   line, and last the result line.
+   SPILL q18 disk``, phase 18 as ``SQL FILE pcol q3 mixed``, phase 19 as
+   ``SQL HIVE q3 grouped unfused`` and ``SQL RAPTOR q6``), the card line,
+   and last the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -237,6 +253,7 @@ import datetime
 import gc
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -268,9 +285,10 @@ SEGMENT_OPERATORS = {1: [], 6: [], 3: [[_LJ, _LJ, _FP, _HA]], 5: [[_LJ] * 3],
                      9: [[_LJ] * 3, [_LJ, _FP]], 13: [[_FP, _HA]]}
 # every TPC-H query the port runs as SQL: all 22
 PORTED_QUERIES = tuple(range(1, 23))
-# Q5's repeats (unfused, sorted, the oracle properties) run at this schema;
-# its cold and warm runs under the defaults stay at SF1 against oracle_q5
-Q5_REPEATS_SCHEMA = "tiny"
+# Q5 runs at this schema in phases 8-11, every run and check of it: at SF1
+# its cold run took 39-64 s and its warm run 51-58 s on an H100 machine.
+# Its SF1 walls are port_walls.py's: python3 port_walls.py --queries 5
+Q5_SCHEMA = "tiny"
 # phase 11 holds both kernels at the shapes these queries' cold runs give them
 PATH_KERNEL_QUERIES = (15, 17, 21)
 # the oracle of the default path: one driver per pipeline, the serial scan
@@ -542,21 +560,24 @@ def check_kernels(device, reps: int = 20, plain_reps: int = 3):
     return out
 
 
-def oracle_q3(schema: str):
+def oracle_q3(schema: str, customers: bool = True):
     """TPC-H Q3 in numpy over the port's generator: rows as Python values,
-    and the number of source rows it read."""
+    and the number of source rows it read. ``customers=False`` drops the
+    ``customer`` join and its BUILDING filter (phase 19's grouped query)."""
     from presto_tpu_torch.connectors.tpch import generator as g
     from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
 
     sf = SCHEMAS[schema]
     cut = civil_day(1995, 3, 15)
-    c = g.generate_rows("customer", 0, g.table_row_count("customer", sf), sf,
-                        ["c_custkey", "c_mktsegment"])
+    c = g.generate_rows("customer", 0, g.table_row_count("customer", sf) if customers else 0,
+                        sf, ["c_custkey", "c_mktsegment"])
     building = c["c_custkey"][c["c_mktsegment"] == g.DICT_SEGMENT.code_of("BUILDING")]
     n_orders = g.table_row_count("orders", sf)
     o = g.generate_rows("orders", 0, n_orders, sf,
                         ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority"])
-    keep = (o["o_orderdate"] < cut) & np.isin(o["o_custkey"], building)
+    keep = o["o_orderdate"] < cut
+    if customers:
+        keep &= np.isin(o["o_custkey"], building)
     order = np.argsort(o["o_orderkey"][keep], kind="stable")
     okey = o["o_orderkey"][keep][order]
     odate = o["o_orderdate"][keep][order]
@@ -943,17 +964,14 @@ def sql_runner(device, hash_kernels: str, schema: str, **props):
                             device=device)
 
 
-def run_sql_query(device, q: int, schema: str, cold_capture=None, unfused_capture=None,
-                  repeats_schema: Optional[str] = None):
+def run_sql_query(device, q: int, schema: str, cold_capture=None, unfused_capture=None):
     """SQL query ``q`` with ``hash_kernels="pallas"`` under the session
     defaults (fused segments, coalesced pages): a cold run (under
     ``cold_capture``), then a warm run with the launch counters and
     ``COUNTERS`` set to 0 just before it and read just after; then the
     query unfused (under ``unfused_capture``) and under
-    ``hash_kernels="sorted"``. With ``repeats_schema`` those two repeats run
-    at that smaller schema, beside one fused run there (``repeat_rows``):
-    Q5's do, its SF1 runs taking 20-40 s each. Fails unless the unfused rows
-    equal the fused ones. Returns what the phases check and print."""
+    ``hash_kernels="sorted"``. Fails unless the unfused rows equal the fused
+    ones. Returns what the phases check and print."""
     import contextlib
 
     import torch
@@ -986,23 +1004,20 @@ def run_sql_query(device, q: int, schema: str, cold_capture=None, unfused_captur
     launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
     delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
     peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-    rschema = repeats_schema or schema
-    repeat_rows = res.rows if rschema == schema else \
-        sql_runner(device, "pallas", rschema).execute(QUERIES[q]).rows
     t0 = time.perf_counter()
     with unfused_capture or contextlib.nullcontext():
-        unfused = sql_runner(device, "pallas", rschema, **UNFUSED).execute(QUERIES[q])
+        unfused = sql_runner(device, "pallas", schema, **UNFUSED).execute(QUERIES[q])
     sync()
     unfused_s = time.perf_counter() - t0
-    if not same_rows(unfused.rows, repeat_rows):
-        raise AssertionError(f"SQL Q{q} rows fused and unfused differ:\n{repeat_rows}\n"
+    if not same_rows(unfused.rows, res.rows):
+        raise AssertionError(f"SQL Q{q} rows fused and unfused differ:\n{res.rows}\n"
                              f"{unfused.rows}")
     t0 = time.perf_counter()
-    sorted_rows = sql_runner(device, "sorted", rschema).execute(QUERIES[q]).rows
+    sorted_rows = sql_runner(device, "sorted", schema).execute(QUERIES[q]).rows
     sync()
     sorted_s = time.perf_counter() - t0
-    return {"q": q, "rows": res.rows, "segments": (res.stats or {}).get("segments"),
-            "repeats_schema": rschema, "repeat_rows": repeat_rows,
+    return {"q": q, "schema": schema, "rows": res.rows,
+            "segments": (res.stats or {}).get("segments"),
             "launches": launches, "delta": delta, "streams": dict(streams.calls),
             "peak": peak, "cold_s": cold_s, "warm_s": warm_s, "unfused_s": unfused_s,
             "sorted_rows": sorted_rows, "sorted_s": sorted_s, "drivers": res.drivers,
@@ -1011,20 +1026,19 @@ def run_sql_query(device, q: int, schema: str, cold_capture=None, unfused_captur
             "resident_pages": res.resident_pages}
 
 
-def check_rows(rec: dict, oracle, schema: str) -> None:
-    """The warm rows and the sorted run's against the numpy oracle; logs
-    the walls and the first rows."""
-    q = rec["q"]
+def check_rows(rec: dict, oracle) -> None:
+    """The warm rows and the sorted run's against the numpy oracle at the
+    run's schema; logs the walls and the first rows."""
+    q, schema = rec["q"], rec["schema"]
     want, source_rows = oracle(schema)
     if not same_rows(rec["rows"], want):
         raise AssertionError(f"SQL Q{q} rows differ from the numpy oracle:\n{rec['rows']}\n"
                              f"{want}")
-    rschema = rec["repeats_schema"]
-    if not same_rows(rec["sorted_rows"], want if rschema == schema else oracle(rschema)[0]):
+    if not same_rows(rec["sorted_rows"], want):
         raise AssertionError(f"SQL Q{q} rows under hash_kernels='sorted' differ")
     warm_s = rec["warm_s"]
     log(f"SQL Q{q} {schema}: {len(rec['rows'])} rows equal to the numpy oracle, to the "
-        f"unfused run and to the sorted run (those two at {rschema}); cold wall "
+        f"unfused run and to the sorted run; cold wall "
         f"{rec['cold_s']:.3f}s; warm wall {warm_s:.4f}s = {source_rows / warm_s:.0f} source "
         f"rows/s ({source_rows} rows); unfused {rec['unfused_s']:.4f}s; sorted run "
         f"{rec['sorted_s']:.4f}s")
@@ -1092,7 +1106,7 @@ def run_sql_phase(device, schema: str = "sf1"):
                                      f"{builds} + grouped pages {pages} (want 0 pages)")
             if on_card and launches["probe"] < 2:
                 raise AssertionError(f"fewer than one probe per probe stream: {launches}")
-        check_rows(rec, SQL_ORACLES[q], schema)
+        check_rows(rec, SQL_ORACLES[q])
     for props, label in (({}, "SQL Q3"), (UNFUSED, "SQL Q3 unfused")):
         runner = sql_runner(device, "pallas", schema, **props)
         profile_q3(device, schema, run=lambda: runner.execute(QUERIES[3]), label=label)
@@ -1216,12 +1230,11 @@ def run_join_phase(device, schema: str = "sf1"):
     on_card = device.type == "cuda"
     records, capture = {}, KernelCapture()
     for q in (5, 9, 13):
-        # Q5's repeats (unfused, sorted) run at tiny: its SF1 runs take 20-40 s
-        rec = run_sql_query(device, q, schema, unfused_capture=capture if q == 9 else None,
-                            repeats_schema=Q5_REPEATS_SCHEMA if q == 5 else None)
+        rec = run_sql_query(device, q, Q5_SCHEMA if q == 5 else schema,
+                            unfused_capture=capture if q == 9 else None)
         records[q] = rec
         got, delta, calls = rec["launches"], rec["delta"], rec["streams"]
-        log(f"SQL Q{q} {schema} launches on the warm run: {got}; probe calls per stream "
+        log(f"SQL Q{q} {rec['schema']} launches on the warm run: {got}; probe calls per stream "
             f"{sorted(calls.values())}; counters {delta}")
         builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
         if builds != want_builds[q] or delta["pallas.join_fallbacks"] != 0 or \
@@ -1236,16 +1249,11 @@ def run_join_phase(device, schema: str = "sf1"):
                                  f"{calls}, probe launches {got['probe']}")
         if q in (5, 13) and not delta["join.expanded_rows"]:
             raise AssertionError(f"Q{q}: the duplicate-key join did not expand: {delta}")
-        check_rows(rec, JOIN_ORACLES[q], schema)
+        check_rows(rec, JOIN_ORACLES[q])
         if q == 5:
-            log(f"SQL Q5 {schema} expansion: {int(delta['join.expansion_chunks'])} chunks, "
-                f"{int(delta['join.expanded_rows'])} expanded rows; peak device memory "
+            log(f"SQL Q5 {rec['schema']} expansion: {int(delta['join.expansion_chunks'])} "
+                f"chunks, {int(delta['join.expanded_rows'])} expanded rows; peak device memory "
                 f"{rec['peak']} bytes (torch.cuda.max_memory_allocated)")
-            # the three dropped SF1 runs (unfused, sorted, the oracle
-            # properties) each take at most the 4-driver warm wall
-            log(f"SQL Q5: unfused and sorted repeats at {rec['repeats_schema']} took "
-                f"{rec['unfused_s'] + rec['sorted_s']:.3f}s; the SF1 repeats they replace "
-                f"would take at most 3 x {rec['warm_s']:.3f}s = {3 * rec['warm_s']:.3f}s")
     for q in (9, 13):
         runner = sql_runner(device, "pallas", schema)
         if on_card:
@@ -1267,7 +1275,7 @@ def check_default_path(device, records: dict, schema: str = "sf1") -> None:
         rec = records[q]
         stats, delta, launches = rec["segments"], rec["delta"], rec["launches"]
         segs = stats["segments"] if stats else []
-        log(f"SEGMENTS SQL Q{q} {schema}: {len(segs)} fused segment(s), "
+        log(f"SEGMENTS SQL Q{q} {rec.get('schema', schema)}: {len(segs)} fused segment(s), "
             f"{stats['dispatches'] if stats else 0} dispatches; coalesce pages in "
             f"{int(delta['coalesce.pages_in'])}, out {int(delta['coalesce.pages_out'])}; "
             f"warm wall fused {rec['warm_s']:.4f}s, unfused {rec['unfused_s']:.4f}s")
@@ -1516,8 +1524,9 @@ def run_default_path_phase(device, records: dict, schema: str = "sf1",
                            resident_pages=res.resident_pages,
                            segments=(res.stats or {}).get("segments"))
             walls = []
-            # Q5 takes the oracle properties at its repeats' schema, once
-            oschema = rec.get("repeats_schema", schema)
+            # Q5's runs are phase 8's at Q5_SCHEMA; it takes the oracle
+            # properties there, once
+            oschema = rec.setdefault("schema", schema)
             oracle_runner = sql_runner(device, "pallas", oschema, **ORACLE_PROPS)
             for _ in range(1 if q == 5 else 2):
                 t0 = time.perf_counter()
@@ -1525,11 +1534,10 @@ def run_default_path_phase(device, records: dict, schema: str = "sf1",
                 sync()
                 walls.append(time.perf_counter() - t0)
         rec["oracle_s"] = walls
-        defaults_rows = rec["rows"] if oschema == schema else rec["repeat_rows"]
-        if not same_rows(defaults_rows, oracle.rows):
+        if not same_rows(rec["rows"], oracle.rows):
             raise AssertionError(f"SQL Q{q}: rows under the defaults differ from the oracle "
                                  f"properties' ({ORACLE_PROPS}) at {oschema}:\n"
-                                 f"{defaults_rows}\n{oracle.rows}")
+                                 f"{rec['rows']}\n{oracle.rows}")
         if max(rec["drivers"]) != want_drivers or max(oracle.drivers) != 1:
             raise AssertionError(f"SQL Q{q}: drivers {rec['drivers']} / oracle {oracle.drivers}")
         if rec["warm_scan"] or not rec["resident_pages"]:
@@ -1545,20 +1553,20 @@ def run_default_path_phase(device, records: dict, schema: str = "sf1",
         if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
             raise AssertionError(f"SQL Q{q}: a fallback: {delta}")
         if q in DEFAULT_PATH_ORACLES:
-            want, _ = DEFAULT_PATH_ORACLES[q](schema)
+            want, _ = DEFAULT_PATH_ORACLES[q](oschema)
             if not same_rows(rec["rows"], want):
                 raise AssertionError(f"SQL Q{q} rows differ from the numpy oracle:\n"
                                      f"{rec['rows']}\n{want}")
-            log(f"SQL Q{q} {schema}: {len(want)} rows equal to the numpy oracle")
+            log(f"SQL Q{q} {oschema}: {len(want)} rows equal to the numpy oracle")
         if q == 18:
             spills = delta.get("agg.spilled_folds", 0)
             if not (rec.get("cold_spills") and spills):
                 raise AssertionError(f"SQL Q18: the inner grouping did not spill ({spills})")
             rec["merge_s"] = merges.seconds
         out[q] = rec
-        log(f"DEFAULTPATH SQL Q{q} {schema}: {len(rec['rows'])} rows equal to the oracle "
+        log(f"DEFAULTPATH SQL Q{q} {oschema}: {len(rec['rows'])} rows equal to the oracle "
             f"properties' run; drivers per pipeline {rec['drivers']}; cold wall "
-            f"{rec['cold_s']:.4f}s, warm (resident) wall {rec['warm_s']:.4f}s, oracle at {oschema} "
+            f"{rec['cold_s']:.4f}s, warm (resident) wall {rec['warm_s']:.4f}s, oracle "
             f"{' / '.join(f'{w:.4f}s' for w in walls)}; warm run replayed "
             f"{rec['resident_pages']} resident pages; launches {launches}; "
             f"join builds {int(builds)}, fallbacks {int(delta['pallas.join_fallbacks'])}, "
@@ -1579,30 +1587,111 @@ def run_default_path_phase(device, records: dict, schema: str = "sf1",
 # (PERF.md section 6); the card's SF1 rows stay held by the numpy oracles and
 # the oracle-property runs
 CPU_ROWS_SCHEMA = "tiny"
-SF1_HOST_SECONDS = 90.2 + 107.9
 
 
-def check_cpu_rows(device, schema: str = CPU_ROWS_SCHEMA) -> None:
+def host_rows_main(out_dir: str) -> int:
+    """``--host-rows DIR``: the port's CPU rows of every ported TPC-H query,
+    then of every TPC-DS query, at ``CPU_ROWS_SCHEMA``, pickled as
+    ``DIR/tpch.pkl`` and ``DIR/tpcds.pkl`` ({query: (rows, host seconds)}),
+    each file renamed into place when complete."""
+    import torch
+
+    from presto_tpu_torch.models import tpcds_sql, tpch_sql
+
+    torch.set_num_threads(2)  # the card's phases run beside it on the host
+    for catalog, queries, run in (
+            ("tpch", PORTED_QUERIES, lambda q: sql_runner(
+                "cpu", "pallas", CPU_ROWS_SCHEMA).execute(tpch_sql.QUERIES[q])),
+            ("tpcds", sorted(tpcds_sql.QUERIES), lambda q: ds_runner(
+                "cpu", CPU_ROWS_SCHEMA).execute(tpcds_sql.QUERIES[q]))):
+        out = {}
+        for q in queries:
+            t0 = time.perf_counter()
+            out[q] = (run(q).rows, time.perf_counter() - t0)
+        path = os.path.join(out_dir, f"{catalog}.pkl")
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(out, f)
+        os.replace(path + ".tmp", path)
+    return 0
+
+
+class HostRows:
+    """The card-against-host checks' host half, run beside the card's
+    phases: a child process (``--host-rows``, with no card visible)
+    computes the port's CPU rows at ``CPU_ROWS_SCHEMA``; ``rows`` waits for
+    a catalog's file, ``close`` stops the child and removes its files."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip-smoke-host-rows-")
+        self.err = open(os.path.join(self.dir, "child.log"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--host-rows", self.dir],
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), stdout=self.err,
+            stderr=subprocess.STDOUT)
+        self.waited_s = 0.0
+
+    def rows(self, catalog: str, timeout: float = 900.0) -> dict:
+        """{query: (rows, host seconds)} of ``catalog`` ("tpch" or "tpcds")."""
+        path = os.path.join(self.dir, f"{catalog}.pkl")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if self.proc.poll() is not None and not os.path.exists(path):
+                self.err.seek(0)
+                raise AssertionError(f"the host-rows process exited {self.proc.returncode}:\n"
+                                     f"{self.err.read()[-4000:]}")
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"no host rows of {catalog} after {timeout:.0f}s")
+            time.sleep(0.2)
+        self.waited_s += time.perf_counter() - t0
+        with open(path, "rb") as f:
+            return pickle.load(f)
+
+    def close(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def check_cpu_rows(device, schema: str = CPU_ROWS_SCHEMA,
+                   host: Optional[HostRows] = None) -> float:
     """Every ported query under the defaults, on the card and in the port's
-    own CPU run, both at ``schema``: equal rows."""
+    own CPU run (``host``'s child process, else here), both at ``schema``:
+    equal rows. -> the host runs' seconds."""
     from presto_tpu_torch.models.tpch_sql import QUERIES
     from presto_tpu_torch.ops.scan import RESIDENT_CACHE
 
+    host_rows = host.rows("tpch") if host is not None else {}
+    total = 0.0
     for q in PORTED_QUERIES:
         card = sql_runner(device, "pallas", schema).execute(QUERIES[q]).rows
-        t0 = time.perf_counter()
-        rows = sql_runner("cpu", "pallas", schema).execute(QUERIES[q]).rows
+        if q in host_rows:
+            rows, host_s = host_rows[q]
+        else:
+            t0 = time.perf_counter()
+            rows = sql_runner("cpu", "pallas", schema).execute(QUERIES[q]).rows
+            host_s = time.perf_counter() - t0
+        total += host_s
         if not same_rows(card, rows):
             raise AssertionError(f"SQL Q{q}: the card's rows differ from the CPU run's "
                                  f"at {schema}:\n{card}\n{rows}")
         log(f"CPU SQL Q{q} {schema}: {len(rows)} rows equal to the card's "
-            f"({time.perf_counter() - t0:.2f}s on the host)")
+            f"({host_s:.2f}s on the host)")
     RESIDENT_CACHE.clear()  # the host pages are no use to the card
+    return total
 
 
 # phase 12: TPC-DS at SF1 (no cache token: every run regenerates its pages)
 DS_DEEP = (64, 72)   # the north-star pair: profiler, expansion, kernel shapes
 DS_NO_ROWS = (50,)   # returns no rows at tiny and SF1, in both packages
+# the oracle-property runs of phase 12 go at this schema, against a run under
+# the defaults there (at SF1 they took 19-30 s of the phase)
+DS_ORACLE_SCHEMA = "tiny"
 
 
 def ds_runner(device, schema: str, **props):
@@ -1614,13 +1703,15 @@ def ds_runner(device, schema: str, **props):
                             device=device)
 
 
-def run_tpcds_phase(device, schema: str = "sf1") -> dict:
+def run_tpcds_phase(device, schema: str = "sf1", oracle_schema: str = DS_ORACLE_SCHEMA) -> dict:
     """Every TPC-DS query of ``models/tpcds_sql.py`` with
-    ``hash_kernels="pallas"`` under the full defaults: a cold run, a warm
+    ``hash_kernels="pallas"`` under the full defaults: a cold run and a warm
     run with the launch counters and ``COUNTERS`` set to 0 just before it
-    and read just after, and one run under the oracle properties. A TPC-DS
-    scan has no cache token, so warm regenerates its pages too. Fails
-    unless the three runs give the same rows, the warm run replayed no
+    and read just after; then, at ``oracle_schema``, one run under the
+    oracle properties and one under the defaults. A TPC-DS scan has no
+    cache token, so warm regenerates its pages too. Fails unless cold and
+    warm give the same rows, and so do the two runs at ``oracle_schema``,
+    the warm run replayed no
     resident page, the insert launched once per join build and grouped
     page, a query that built on the table probed it with the kernel, and
     nothing fell back. Q64 and Q72 also print their expansion and peak
@@ -1661,16 +1752,22 @@ def run_tpcds_phase(device, schema: str = "sf1") -> dict:
         delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
         peak = torch.cuda.max_memory_allocated(device) if on_card else 0
         t0 = time.perf_counter()
-        oracle = ds_runner(device, schema, **ORACLE_PROPS).execute(QUERIES[q])
+        oracle = ds_runner(device, oracle_schema, **ORACLE_PROPS).execute(QUERIES[q])
         sync()
         oracle_s = time.perf_counter() - t0
+        base = res if oracle_schema == schema else \
+            ds_runner(device, oracle_schema).execute(QUERIES[q])
         rec = {"q": q, "rows": res.rows, "launches": launches, "delta": delta,
                "drivers": res.drivers, "cold_s": cold_s, "warm_s": warm_s,
                "oracle_s": oracle_s, "peak": peak, "scan": (cold.stats or {}).get("scan_pipeline"),
-               "warm_scan": (res.stats or {}).get("scan_pipeline")}
-        if not (same_rows(cold.rows, res.rows) and same_rows(oracle.rows, res.rows)):
-            raise AssertionError(f"SQL DS Q{q}: cold, warm and oracle-property rows differ:\n"
-                                 f"{cold.rows}\n{res.rows}\n{oracle.rows}")
+               "warm_scan": (res.stats or {}).get("scan_pipeline"),
+               "oracle_schema": oracle_schema, "oracle_schema_rows": base.rows}
+        if not same_rows(cold.rows, res.rows):
+            raise AssertionError(f"SQL DS Q{q}: cold and warm rows differ:\n"
+                                 f"{cold.rows}\n{res.rows}")
+        if not same_rows(oracle.rows, base.rows):
+            raise AssertionError(f"SQL DS Q{q}: the oracle properties' rows differ from the "
+                                 f"defaults' at {oracle_schema}:\n{base.rows}\n{oracle.rows}")
         if not res.rows and q not in DS_NO_ROWS:
             raise AssertionError(f"SQL DS Q{q} returned no rows")
         if max(oracle.drivers) != 1 or res.resident_pages or not rec["warm_scan"]:
@@ -1687,10 +1784,11 @@ def run_tpcds_phase(device, schema: str = "sf1") -> dict:
         if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
             raise AssertionError(f"SQL DS Q{q}: a fallback: {delta}")
         out[q] = rec
-        log(f"DSPATH SQL DS Q{q} {schema}: {len(res.rows)} rows equal cold, warm and under the "
-            f"oracle properties; drivers per pipeline {res.drivers}; cold wall {cold_s:.4f}s, "
-            f"warm wall {warm_s:.4f}s (regenerated, {res.resident_pages} resident pages), "
-            f"oracle {oracle_s:.4f}s; launches {launches}; join builds {int(builds)}, "
+        log(f"DSPATH SQL DS Q{q} {schema}: {len(res.rows)} rows equal cold and warm, and "
+            f"under the oracle properties at {oracle_schema}; drivers per pipeline "
+            f"{res.drivers}; cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s (regenerated, "
+            f"{res.resident_pages} resident pages), oracle at {oracle_schema} {oracle_s:.4f}s; "
+            f"launches {launches}; join builds {int(builds)}, "
             f"fallbacks {int(delta['pallas.join_fallbacks'])}, grouped pages {int(pages)}")
         log(f"  warm scan stages: {_fmt_scan(rec['warm_scan'])}")
         if q in DS_DEEP:
@@ -1705,20 +1803,31 @@ def run_tpcds_phase(device, schema: str = "sf1") -> dict:
     return out
 
 
-def check_ds_cpu_rows(device, schema: str = CPU_ROWS_SCHEMA) -> None:
-    """Every TPC-DS query under the defaults, on the card and in the port's
-    own CPU run, both at ``schema``: equal rows."""
+def check_ds_cpu_rows(device, schema: str = CPU_ROWS_SCHEMA,
+                      host: Optional[HostRows] = None, card_rows: Optional[dict] = None) -> float:
+    """Every TPC-DS query under the defaults, on the card (``card_rows``,
+    {query: rows} at ``schema``, else run here) and in the port's own CPU run
+    (``host``'s child process, else here), both at ``schema``: equal rows.
+    -> the host runs' seconds."""
     from presto_tpu_torch.models.tpcds_sql import QUERIES
 
+    host_rows = host.rows("tpcds") if host is not None else {}
+    total = 0.0
     for q in sorted(QUERIES):
-        card = ds_runner(device, schema).execute(QUERIES[q]).rows
-        t0 = time.perf_counter()
-        rows = ds_runner("cpu", schema).execute(QUERIES[q]).rows
+        card = card_rows[q] if card_rows else ds_runner(device, schema).execute(QUERIES[q]).rows
+        if q in host_rows:
+            rows, host_s = host_rows[q]
+        else:
+            t0 = time.perf_counter()
+            rows = ds_runner("cpu", schema).execute(QUERIES[q]).rows
+            host_s = time.perf_counter() - t0
+        total += host_s
         if not same_rows(card, rows):
             raise AssertionError(f"SQL DS Q{q}: the card's rows differ from the CPU run's "
                                  f"at {schema}:\n{card}\n{rows}")
         log(f"CPU SQL DS Q{q} {schema}: {len(rows)} rows equal to the card's "
-            f"({time.perf_counter() - t0:.2f}s on the host)")
+            f"({host_s:.2f}s on the host)")
+    return total
 
 
 # phase 13: set operations at TPC-H SF1, each against a numpy oracle
@@ -2761,6 +2870,42 @@ class PoolPeak:
         return False
 
 
+class OperatorPeaks:
+    """Records, while on, each operator's accounted peak (the most bytes one
+    of its memory contexts held, over its drivers and a grouped query's
+    buckets), keyed by the context's tag (the operator's name), and what
+    each tag held, summed over its contexts, when the sum over every
+    context peaked (``at_peak``, ``total``)."""
+
+    def __enter__(self):
+        import threading
+
+        from presto_tpu_torch.memory import LocalMemoryContext
+
+        self.cls, self.set_bytes = LocalMemoryContext, LocalMemoryContext.set_bytes
+        self.peaks, self.at_peak, self.total = {}, {}, 0
+        live, lock, rec = {}, threading.Lock(), self
+
+        def set_bytes(ctx, new_bytes):
+            rec.set_bytes(ctx, new_bytes)
+            with lock:
+                rec.peaks[ctx.tag] = max(rec.peaks.get(ctx.tag, 0), new_bytes)
+                live[id(ctx)] = (ctx.tag, new_bytes)
+                total = sum(b for _t, b in live.values())
+                if total > rec.total:
+                    rec.total, rec.at_peak = total, {}
+                    for tag, b in live.values():
+                        if b:
+                            rec.at_peak[tag] = rec.at_peak.get(tag, 0) + b
+
+        LocalMemoryContext.set_bytes = set_bytes
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.set_bytes = self.set_bytes
+        return False
+
+
 def _explain_table(rows):
     """EXPLAIN ANALYZE text -> (drivers in the header, {(pipeline, operator
     index, name): (in rows, out rows)})."""
@@ -3666,6 +3811,426 @@ def run_file_phase(device, schema: str = "sf1") -> dict:
     return out
 
 
+HIVE_LI_COLUMNS = ("l_orderkey, l_extendedprice, l_discount, l_shipdate, l_quantity, "
+                   "l_returnflag, l_linestatus, l_tax")
+HIVE_TABLES = {"lineitem": (HIVE_LI_COLUMNS, "l_orderkey"),
+               "orders": ("o_orderkey, o_custkey, o_orderdate, o_shippriority, o_totalprice",
+                          "o_orderkey")}
+HIVE_BUCKETS = 4
+HIVE_PART_COLUMNS = ("l_orderkey, l_quantity, l_extendedprice, l_discount, l_shipdate, "
+                     "l_shipmode")
+# Q3 without customer, as users join two tables bucketed on the join key
+HIVE_GROUPED_SQL = ("select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue, "
+                    "o_orderdate, o_shippriority from hive.default.lineitem "
+                    "join hive.default.orders on l_orderkey = o_orderkey "
+                    "where o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15' "
+                    "group by l_orderkey, o_orderdate, o_shippriority "
+                    "order by revenue desc, o_orderdate limit 10")
+# a sum over one partition in 1994: {table: (partition column, the value's SQL)}
+HIVE_PARTITION_SQL = ("select sum(l_extendedprice * l_discount), count(*) from "
+                      "hive.default.{} where {} = {} and l_shipdate >= date '1994-01-01' "
+                      "and l_shipdate < date '1995-01-01'")
+HIVE_PARTITIONED = {"shipmodes": ("l_shipmode", "'MAIL'"), "linenumbers": ("l_linenumber", "3")}
+# the Parquet and ORC hive tables' schema (ORC at SF1 took 67 s of phase 18)
+HIVE_FORMAT_SCHEMA = "tiny"
+# a year of lineitem at SF1 (0.85-0.92 M rows) is a small shard under this
+RAPTOR_THRESHOLD = 1 << 20
+
+
+def oracle_partition_sum(schema: str, table: str):
+    """``HIVE_PARTITION_SQL`` over ``table`` in numpy over the port's
+    generator."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    sf = SCHEMAS[schema]
+    col, value = HIVE_PARTITIONED[table]
+    li = g.lineitem_for_orders(0, g.table_row_count("orders", sf), sf,
+                               ["l_extendedprice", "l_discount", "l_shipdate", col])
+    want = g.DICT_SHIP_MODE.code_of(value.strip("'")) if col == "l_shipmode" else int(value)
+    keep = (li[col] == want) & \
+        (li["l_shipdate"] >= civil_day(1994, 1, 1)) & (li["l_shipdate"] < civil_day(1995, 1, 1))
+    rev = int((li["l_extendedprice"][keep].astype(np.int64) *
+               li["l_discount"][keep].astype(np.int64)).sum())
+    return [[Decimal(rev) / 10 ** 4, int(keep.sum())]]
+
+
+class RoutingClock:
+    """Sums, while on, the seconds the hive sinks spend in ``append_page``
+    (the host copy, the routing and the buffering) and in its numpy
+    partition grouping, over every writer thread."""
+
+    def __enter__(self):
+        from presto_tpu_torch.connectors import hive
+
+        self.hive, self.append, self.groups = hive, hive.HivePageSink.append_page, \
+            hive.partition_groups
+        self.append_s = self.groups_s = 0.0
+        clock = self
+
+        def timed(fn, attr):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    setattr(clock, attr, getattr(clock, attr) + time.perf_counter() - t0)
+            return run
+
+        hive.HivePageSink.append_page = timed(self.append, "append_s")
+        hive.partition_groups = timed(self.groups, "groups_s")
+        return self
+
+    def __exit__(self, *exc):
+        self.hive.HivePageSink.append_page = self.append
+        self.hive.partition_groups = self.groups
+        return False
+
+
+def _hive_files(base: str, table: str) -> dict:
+    """(partition directory, bucket) -> [bytes of each data file]."""
+    from presto_tpu_torch.connectors.hive import _bucket_of_file
+
+    root = os.path.join(base, "default", table)
+    out = {}
+    for dirpath, _dirs, files in os.walk(root):
+        for f in files:
+            if not f.startswith("."):
+                out.setdefault((os.path.relpath(dirpath, root), _bucket_of_file(f)), []).append(
+                    os.path.getsize(os.path.join(dirpath, f)))
+    return out
+
+
+def run_warehouse_phase(device, schema: str = "sf1") -> dict:
+    """Phase 19: the warehouse connectors at TPC-H ``schema`` with
+    ``hash_kernels="pallas"`` under the defaults, in one runner with a
+    ``hive`` and a ``raptor`` catalog in a temporary directory.
+
+    - Hive CTAS of ``lineitem`` and ``orders`` bucketed 4 ways on their
+      order keys (files per bucket, bytes, rows/s).
+    - The grouped query (``HIVE_GROUPED_SQL``) against numpy: grouped (4
+      buckets, one at a time) and ungrouped, cold and warm, each warm run's
+      peak device memory (``torch.cuda.max_memory_allocated`` less what was
+      allocated before the run) beside its accounted peak; then grouped under the unfused properties, where the
+      grouping takes the insert (a fused grouping computes the sort
+      partial, and a hive build is not provably unique, so it builds
+      sorted): at least one insert launch, the insert held bit-identical
+      at the first bucket's grouped-page shape.
+    - Hive CTAS partitioned by ``l_shipmode`` (7 partitions) with the
+      routing's share of its wall, and by ``l_linenumber``; a sum over one
+      partition of each in 1994 (``HIVE_PARTITIONED``): the
+      ``l_linenumber`` sum keeps exactly its partition's splits, the
+      ``l_shipmode`` sum every split (a string constant gives no domain,
+      in the reference too).
+    - The mixed Q3: the bucketed hive ``lineitem`` probes ``tpch``'s
+      ``orders`` and ``customer`` (ungrouped): insert = the two builds, a
+      probe per page, the probe held bit-identical at a hive page's shape.
+    - Parquet and ORC hive tables at ``HIVE_FORMAT_SCHEMA``: a CTAS and Q1.
+    - Raptor: CTAS of ``lineitem``'s eight columns and Q6; Q6's columns
+      inserted one year at a time (shards under ``RAPTOR_THRESHOLD``), Q6
+      keeping exactly the 1994 shard, pruned in the metadata database;
+      ``maintenance()`` compacting the seven into one, and Q6 again.
+
+    Each step runs cold and warm (the warm launch counters set to 0 just
+    before it) and prints a ``WAREHOUSE`` line. Returns the records whose
+    launches the kernels line reports, keyed ``HIVE ...`` and ``RAPTOR
+    ...``."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from presto_tpu_torch.connectors.hive import HiveConnector
+    from presto_tpu_torch.connectors.raptor import RaptorConnector
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.spi.connector import SchemaTableName
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-warehouse-")
+    sf = SCHEMAS[schema]
+    out = {}
+    hive_conn = HiveConnector("hive", os.path.join(tmp, "hive"))
+    raptor_conn = RaptorConnector("raptor", os.path.join(tmp, "raptor"),
+                                  compaction_threshold_rows=RAPTOR_THRESHOLD)
+
+    def runner_of(sch=schema, **props):
+        r = sql_runner(device, "pallas", sch, **props)
+        r.catalogs.register("hive", hive_conn)
+        r.catalogs.register("raptor", raptor_conn)
+        return r
+    runner = runner_of()
+
+    def timed_run(r, sql):
+        t0 = time.perf_counter()
+        res = r.execute(sql)
+        sync()
+        return res, time.perf_counter() - t0
+
+    def step(label, sql, r=None, setup=None, splits=None, capture=None, clock=None):
+        """A cold run, then ``setup`` and the warm run: launch counters set
+        to 0 just before it, the allocator's peak reset, the accounted peak
+        recorded, ``capture`` and ``clock`` on; ``splits``: the (catalog,
+        table) whose kept splits the warm run logs."""
+        r = r or runner
+        _res, cold_s = timed_run(r, sql)
+        if setup is not None:
+            setup()
+        before = {k: METRICS.counter_value(k) for k in COUNTERS}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        # what earlier steps and phases hold (resident pages, the allocator's
+        # cache): the run's own peak is the allocated peak less this
+        base = torch.cuda.memory_allocated(device) if on_card else 0
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        with contextlib.ExitStack() as stack:
+            peak = stack.enter_context(PoolPeak())
+            ops = stack.enter_context(OperatorPeaks())
+            for ctx in (capture, clock):
+                if ctx is not None:
+                    stack.enter_context(ctx)
+            slog = stack.enter_context(SplitLog(r.metadata.connector(splits[0]))) \
+                if splits else None
+            res, warm_s = timed_run(r, sql)
+        delta = {k: METRICS.counter_value(k) - v for k, v in before.items()}
+        if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+            raise AssertionError(f"WAREHOUSE {label}: a fallback: {delta}")
+        out[label] = rec = {
+            "rows": res.rows, "res": res, "cold_s": cold_s, "warm_s": warm_s, "delta": delta,
+            "launches": {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches},
+            "grouped": r.last_grouped, "accounted": peak.peak, "ops": ops, "base": base,
+            "allocated": (torch.cuda.max_memory_allocated(device) if on_card else 0) - base,
+            "splits": slog.kept(splits[1]) if splits else None,
+            "kept": slog.last(splits[1])[2] if splits else None}
+        return rec
+
+    def line(label, extra="", sch=schema):
+        rec = out[label]
+        kept = "" if rec["splits"] is None else \
+            f"; splits kept {rec['splits'][0]} of {rec['splits'][1]}"
+        log(f"WAREHOUSE {label} {sch}: cold wall {rec['cold_s']:.4f}s, warm wall "
+            f"{rec['warm_s']:.4f}s; launches {rec['launches']}; join builds "
+            f"{int(rec['delta']['pallas.join_builds'])}, grouped pages "
+            f"{int(rec['delta']['pallas.agg_pages'])}; last_grouped {rec['grouped']}; peak "
+            f"accounted {rec['accounted']} bytes, allocated {rec['allocated']} bytes over the "
+            f"{rec['base']} held before the run{kept}{extra}")
+
+    def expect(label, rows, grouped=None):
+        rec = out[label]
+        if not same_rows(rec["rows"], rows):
+            raise AssertionError(f"WAREHOUSE {label}: rows differ:\n{rec['rows'][:3]}\n"
+                                 f"want {rows[:3]}")
+        if rec["grouped"] != grouped:
+            raise AssertionError(f"WAREHOUSE {label}: last_grouped {rec['grouped']}, "
+                                 f"want {grouped}")
+
+    def n_lineitem(sch):
+        sf_ = SCHEMAS[sch]
+        return len(g.lineitem_for_orders(0, g.table_row_count("orders", sf_), sf_,
+                                         ["l_shipdate"])["l_shipdate"])
+
+    try:
+        n_li = n_lineitem(schema)
+        # 1. hive CTAS, bucketed on the order keys
+        for t, (cols, key) in HIVE_TABLES.items():
+            n_want = n_li if t == "lineitem" else g.table_row_count(t, sf)
+            step(f"HIVE ctas {t}", f"create table hive.default.{t} with (bucketed_by = "
+                 f"array['{key}'], bucket_count = {HIVE_BUCKETS}) as select {cols} "
+                 f"from tpch.{schema}.{t}",
+                 setup=lambda t=t: runner.execute(f"drop table hive.default.{t}"))
+            expect(f"HIVE ctas {t}", [[n_want]])
+            files = _hive_files(hive_conn.store.base, t)
+            per_bucket = {b: len(v) for (_d, b), v in sorted(files.items())}
+            if sorted(per_bucket) != list(range(HIVE_BUCKETS)):
+                raise AssertionError(f"WAREHOUSE ctas {t}: buckets {per_bucket}")
+            nbytes = sum(sum(v) for v in files.values())
+            line(f"HIVE ctas {t}", f"; {n_want} rows; files per bucket {per_bucket}, "
+                 f"{nbytes} bytes ({n_want / out[f'HIVE ctas {t}']['warm_s']:.0f} rows/s warm)")
+
+        # 2. the grouped query, grouped and ungrouped; the kernels' path unfused
+        want = oracle_q3(schema, customers=False)[0]
+        for label, r, grouped in (("HIVE q3 grouped", runner, HIVE_BUCKETS),
+                                  ("HIVE q3 ungrouped", runner_of(grouped_execution=False),
+                                   None)):
+            rec = step(label, HIVE_GROUPED_SQL, r=r)
+            expect(label, want, grouped)
+            line(label, f"; scan {_fmt_scan(rec['res'].stats.get('scan_pipeline'))}")
+        capture = KernelCapture()
+        rec = step("HIVE q3 grouped unfused", HIVE_GROUPED_SQL, r=runner_of(**UNFUSED),
+                   capture=capture)
+        expect("HIVE q3 grouped unfused", want, HIVE_BUCKETS)
+        if on_card and (rec["launches"]["insert"] <= 0 or capture.grouping is None):
+            raise AssertionError(f"WAREHOUSE q3 grouped unfused: no insert launch, the "
+                                 f"kernels' path was not taken: {rec['launches']}")
+        if capture.grouping is not None:
+            rec["insert"] = check_insert_at(device, "phase 19 grouped first-bucket page",
+                                            *capture.grouping)
+        line("HIVE q3 grouped unfused")
+        g_rec, u_rec = out["HIVE q3 grouped"], out["HIVE q3 ungrouped"]
+        log(f"WAREHOUSE grouped against ungrouped {schema}: warm wall ratio "
+            f"{g_rec['warm_s'] / u_rec['warm_s']:.3f}, allocated peak ratio "
+            f"{g_rec['allocated'] / max(u_rec['allocated'], 1):.3f}, accounted peak ratio "
+            f"{g_rec['accounted'] / max(u_rec['accounted'], 1):.3f}")
+        for label, rec in (("grouped", g_rec), ("ungrouped", u_rec)):
+            log(f"WAREHOUSE q3 {label} {schema}: accounted peak per operator "
+                f"{dict(sorted(rec['ops'].peaks.items()))}; at the query's peak "
+                f"({rec['ops'].total} bytes) {dict(sorted(rec['ops'].at_peak.items()))}")
+        # a bucket's run holds no operator's state above the whole table's
+        # (tests/test_torch_grouped_execution.py holds the same at tiny)
+        over = {tag: (b, u_rec["ops"].peaks.get(tag, 0))
+                for tag, b in g_rec["ops"].peaks.items() if b > u_rec["ops"].peaks.get(tag, 0)}
+        if over:
+            raise AssertionError(f"WAREHOUSE q3 grouped: operators whose accounted peak is "
+                                 f"above the ungrouped run's (grouped, ungrouped): {over}")
+
+        # 3. hive CTAS partitioned by l_shipmode, then by l_linenumber; a sum
+        # over one partition of each. A string constant gives no domain, in
+        # the reference too, so the l_shipmode sum keeps every partition; the
+        # l_linenumber sum must keep exactly its partition's files.
+        clock = RoutingClock()
+        rec = step("HIVE ctas partitioned", "create table hive.default.shipmodes with "
+                   "(partitioned_by = array['l_shipmode']) as select "
+                   f"{HIVE_PART_COLUMNS} from tpch.{schema}.lineitem",
+                   setup=lambda: runner.execute("drop table hive.default.shipmodes"),
+                   clock=clock)
+        expect("HIVE ctas partitioned", [[n_li]])
+        files = {"shipmodes": _hive_files(hive_conn.store.base, "shipmodes")}
+        parts = sorted({d for d, _b in files["shipmodes"]})
+        if len(parts) != 7:
+            raise AssertionError(f"WAREHOUSE ctas partitioned: partitions {parts}")
+        line("HIVE ctas partitioned", f"; {len(parts)} partitions, "
+             f"{sum(len(v) for v in files['shipmodes'].values())} files; the sinks' "
+             f"append_page {clock.append_s:.4f}s summed over the writers "
+             f"({clock.append_s / rec['warm_s']:.3f} of the warm wall), of which the partition "
+             f"grouping {clock.groups_s:.4f}s ({clock.groups_s / rec['warm_s']:.3f})")
+        _res, ctas_s = timed_run(runner, "create table hive.default.linenumbers with "
+                                 "(partitioned_by = array['l_linenumber']) as select l_orderkey, "
+                                 "l_extendedprice, l_discount, l_shipdate, l_linenumber from "
+                                 f"tpch.{schema}.lineitem")
+        files["linenumbers"] = _hive_files(hive_conn.store.base, "linenumbers")
+        for table, (col, value) in HIVE_PARTITIONED.items():
+            label = f"HIVE partition sum {col}"
+            rec = step(label, HIVE_PARTITION_SQL.format(table, col, value),
+                       splits=("hive", table))
+            expect(label, oracle_partition_sum(schema, table))
+            part = f"{col}={value.strip(chr(39))}"
+            mine = len(files[table][(part, None)])
+            every = sum(len(v) for v in files[table].values())
+            kept_dirs = {s.payload[1] for s in rec["kept"]}
+            if col == "l_shipmode":  # no domain: every file is kept
+                ok, what = rec["splits"] == (every, every), "every partition's"
+            else:
+                ok, what = rec["splits"] == (mine, every) and kept_dirs == {part}, \
+                    f"exactly the {part} partition's"
+            if not ok:
+                raise AssertionError(f"WAREHOUSE {label}: kept {kept_dirs}, {rec['splits']}")
+            line(label, f"; kept {what} files" + (
+                f"; the table's CTAS {ctas_s:.4f}s" if col == "l_linenumber" else ""))
+
+        # 4. the mixed Q3: the bucketed hive lineitem probes tpch's tables
+        mixed = QUERIES[3].replace("from customer, orders, lineitem",
+                                   f"from tpch.{schema}.customer, tpch.{schema}.orders, "
+                                   f"hive.default.lineitem")
+        capture = KernelCapture()
+        with capture:
+            timed_run(runner, mixed)
+        rec = step("HIVE q3 mixed", mixed, splits=("hive", "lineitem"))
+        expect("HIVE q3 mixed", oracle_q3(schema)[0])
+        if rec["delta"]["pallas.join_builds"] != 2 or (on_card and (
+                rec["launches"]["probe"] <= 0 or
+                rec["launches"]["insert"] != 2 + rec["delta"]["pallas.agg_pages"])):
+            raise AssertionError(f"WAREHOUSE q3 mixed: the kernels' path was not taken: "
+                                 f"{rec['launches']}, {rec['delta']}")
+        if not capture.by_table:
+            raise AssertionError("WAREHOUSE q3 mixed: no probe of a hive page was captured")
+        args = max(capture.by_table.values(), key=lambda a: a[1].shape[0])
+        rec["probe"] = check_probe_at(device, "phase 19 mixed Q3 (a hive page)", *args)
+        st = rec["res"].stats.get("scan_pipeline") or {}
+        line("HIVE q3 mixed", f"; the hive lineitem gave {st.get('pages')} pages of "
+             f"{st.get('rows')} rows ({(st.get('rows') or 0) / max(st.get('pages') or 1, 1):.0f} "
+             f"rows per page), coalesced after the exchange (drivers per pipeline "
+             f"{rec['res'].drivers}): probes {rec['launches']['probe']}")
+
+        # 5. Parquet and ORC hive tables at HIVE_FORMAT_SCHEMA
+        fr = runner_of(HIVE_FORMAT_SCHEMA)
+        for fmt in ("parquet", "orc"):
+            label = f"HIVE {fmt} ctas"
+            step(label, f"create table hive.default.li_{fmt} with (bucketed_by = "
+                 f"array['l_orderkey'], bucket_count = {HIVE_BUCKETS}, format = '{fmt}') as "
+                 f"select {HIVE_LI_COLUMNS} from tpch.{HIVE_FORMAT_SCHEMA}.lineitem", r=fr,
+                 setup=lambda fmt=fmt: fr.execute(f"drop table hive.default.li_{fmt}"))
+            expect(label, [[n_lineitem(HIVE_FORMAT_SCHEMA)]])
+            line(label, f"; {sum(len(v) for v in _hive_files(hive_conn.store.base, f'li_{fmt}').values())} "
+                 f"files", HIVE_FORMAT_SCHEMA)
+            label = f"HIVE {fmt} q1"
+            step(label, QUERIES[1].replace("from lineitem", f"from hive.default.li_{fmt}"), r=fr)
+            expect(label, oracle_q1(HIVE_FORMAT_SCHEMA)[0])
+            line(label, "", HIVE_FORMAT_SCHEMA)
+
+        # 6. raptor: a CTAS and Q6; one shard a year, pruned, then compacted
+        shards = raptor_conn.shard_manager
+
+        def shards_of(table):
+            return shards.shards(shards.table_id(SchemaTableName("default", table)))
+        step("RAPTOR ctas lineitem", f"create table raptor.default.lineitem as select "
+             f"{HIVE_LI_COLUMNS} from tpch.{schema}.lineitem",
+             setup=lambda: runner.execute("drop table raptor.default.lineitem"))
+        expect("RAPTOR ctas lineitem", [[n_li]])
+        line("RAPTOR ctas lineitem", f"; {len(shards_of('lineitem'))} shards of "
+             f"{sorted(n for _u, n in shards_of('lineitem'))} rows")
+        q6_want = oracle_q6(schema)[0]
+        step("RAPTOR q6", QUERIES[6].replace("from lineitem", "from raptor.default.lineitem"),
+             splits=("raptor", "lineitem"))
+        expect("RAPTOR q6", q6_want)
+        line("RAPTOR q6")
+        runner.execute(f"create table raptor.default.years as select {FILE_Q6_COLUMNS} "
+                       f"from tpch.{schema}.lineitem where l_orderkey < 0")
+        by_year, t0 = {}, time.perf_counter()
+        for y in FILE_YEARS:
+            have = set(shards_of("years"))
+            runner.execute(f"insert into raptor.default.years select {FILE_Q6_COLUMNS} from "
+                           f"tpch.{schema}.lineitem where l_shipdate >= date '{y}-01-01' and "
+                           f"l_shipdate < date '{y + 1}-01-01'")
+            by_year[y] = sorted(set(shards_of("years")) - have)
+        inserts_s = time.perf_counter() - t0
+        # the empty CTAS wrote an empty shard, as the reference's sink does
+        small = sorted(n for _u, n in shards_of("years"))
+        if len(small) != len(FILE_YEARS) + 1 or small[0] != 0 or small[-1] >= RAPTOR_THRESHOLD:
+            raise AssertionError(f"RAPTOR years: shards of {small} rows")
+        years_q6 = QUERIES[6].replace("from lineitem", "from raptor.default.years")
+        rec = step("RAPTOR years q6", years_q6, splits=("raptor", "years"))
+        expect("RAPTOR years q6", q6_want)
+        if sorted(s.payload[2] for s in rec["kept"]) != [u for u, _n in by_year[1994]]:
+            raise AssertionError(f"RAPTOR years q6: kept {rec['kept']}, the 1994 insert "
+                                 f"wrote {by_year[1994]}")
+        line("RAPTOR years q6", f"; seven yearly INSERTs in {inserts_s:.4f}s, one shard each; "
+             f"shards of {small} rows (the first the empty CTAS's); kept exactly the 1994 "
+             f"shard (pruned in the metadata database)")
+        t0 = time.perf_counter()
+        removed = raptor_conn.maintenance()
+        maint_s = time.perf_counter() - t0
+        after = shards_of("years")
+        if removed != len(small) or len(after) != 1 or after[0][1] != sum(small):
+            raise AssertionError(f"RAPTOR maintenance: removed {removed}, after {after}")
+        step("RAPTOR years q6 compacted", years_q6, splits=("raptor", "years"))
+        expect("RAPTOR years q6 compacted", q6_want)
+        line("RAPTOR years q6 compacted", f"; maintenance() {maint_s:.4f}s compacted "
+             f"{len(small)} shards into {len(after)} of {after[0][1]} rows")
+    finally:
+        raptor_conn.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rec in out.values():
+        rec.pop("res", None)
+        rec.pop("kept", None)
+    return out
+
+
 def check_probe_at(device, label: str, slot_keys, slot_rows, keys, mask, trips,
                    reps: int = 20, plain_reps: int = 3) -> dict:
     """The probe against its plain version, bit for bit, at one captured
@@ -3733,6 +4298,10 @@ def check_stage_failure(device) -> None:
 
 
 def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    if sys.argv[1:2] == ["--host-rows"] and len(sys.argv) == 3:  # HostRows' child
+        sys.path.insert(0, here)
+        return host_rows_main(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -3741,7 +4310,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "presto_tpu_torch")):
         print("chip_smoke: presto_tpu_torch is not beside this script", file=sys.stderr)
         return 2
@@ -3763,6 +4331,7 @@ def main() -> int:
         clock[0] = now
         return spent
 
+    host = HostRows()  # the host halves of phases 11 and 12, beside the card's phases
     try:
         build_kernels()
         measured = check_kernels(device)
@@ -3790,15 +4359,16 @@ def main() -> int:
             check_path_kernels(device, capture, run=f"SQL Q{q} cold run",
                                need_grouping=False)
         phase_done("11 TPC-H on the card")
-        check_cpu_rows(device)
-        host_s = phase_done("11 TPC-H on the host")
+        host_s = check_cpu_rows(device, host=host)
+        phase_done("11 TPC-H on the host")
         ds_records = run_tpcds_phase(device)
         phase_done("12 TPC-DS on the card")
-        check_ds_cpu_rows(device)
-        host_s += time.perf_counter() - clock[0]
-        phase_done(f"12 TPC-DS on the host (11-12 on the host at {CPU_ROWS_SCHEMA}: "
-                   f"{host_s:.1f}s, {SF1_HOST_SECONDS - host_s:.1f}s saved against "
-                   f"{SF1_HOST_SECONDS:.1f}s at SF1)")
+        host_s += check_ds_cpu_rows(device, host=host, card_rows={
+            q: rec["oracle_schema_rows"] for q, rec in ds_records.items()
+            if rec["oracle_schema"] == CPU_ROWS_SCHEMA})
+        phase_done(f"12 TPC-DS on the host (11-12's host runs at {CPU_ROWS_SCHEMA}: "
+                   f"{host_s:.1f}s in a child process beside the card's phases, "
+                   f"{host.waited_s:.1f}s waited for)")
         setop_records = run_setops_phase(device)
         phase_done("13 set operations")
         p14_records = run_p14_phase(device)
@@ -3811,11 +4381,15 @@ def main() -> int:
         phase_done("17 flight recorder, histograms, disk spill")
         file_records = run_file_phase(device)
         phase_done(f"18 file catalog (ORC at {ORC_SCHEMA}, RCFile at {RC_SCHEMA})")
+        warehouse_records = run_warehouse_phase(device)
+        phase_done(f"19 warehouse connectors (Parquet and ORC at {HIVE_FORMAT_SCHEMA})")
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
         traceback.print_exc()
         return 1
+    finally:
+        host.close()
     launches = records[3]["launches"]
     kernels = [{"name": k, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": TPU_KERNELS[k], "launches": launches[k],
@@ -3834,7 +4408,9 @@ def main() -> int:
                     **{label: rec["launches"][k] for label, rec in memory_records.items()},
                     **{label: rec["launches"][k] for label, rec in flight_records.items()},
                     **{f"SQL FILE {label}": rec["launches"][k]
-                       for label, rec in file_records.items()}}}
+                       for label, rec in file_records.items()},
+                    **{f"SQL {label}": rec["launches"][k]
+                       for label, rec in warehouse_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -264,10 +264,14 @@ class LocalExecutionPlan:
 
 
 class LocalExecutionPlanner:
-    """Plans one query on ``device`` (default ``"cuda"``; raises without CUDA)."""
+    """Plans one query on ``device`` (default ``"cuda"``; raises without CUDA).
+    ``bucket_filter``: grouped execution's lifespan, whose scans keep only
+    the splits of that bucket (``exec/grouped.py``)."""
 
-    def __init__(self, metadata: MetadataManager, session: Session, device="cuda"):
+    def __init__(self, metadata: MetadataManager, session: Session, device="cuda",
+                 bucket_filter: Optional[int] = None):
         session.check_supported()
+        self.bucket_filter = bucket_filter
         self.metadata = metadata
         self.session = session
         self.device = resolve_device(device)
@@ -504,6 +508,8 @@ class LocalExecutionPlanner:
         statistics, range pre-filters)."""
         conn = self.metadata.connector(node.table.connector_id)
         splits = conn.split_manager().get_splits(node.table, constraint, 8)
+        if self.bucket_filter is not None:
+            splits = [s for s in splits if s.bucket == self.bucket_filter]
         cols = [c for _, c in node.assignments]
         provider = conn.page_source_provider()
         return [ConcatPageSource(provider.create_page_source(s, cols, self.page_capacity,

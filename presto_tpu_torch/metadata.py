@@ -7,7 +7,7 @@ ordering, behind a catalog registry.
 The port's ``Session.DEFAULTS`` hold only the properties the port honours,
 each with the reference's default value: fused segments, page coalescing,
 the streaming scan pipeline, parallel drivers, the disk rung of the memory
-ladder and the black-box recorder are on. A property outside
+ladder, the black-box recorder and grouped execution are on. A property outside
 ``DEFAULTS`` raises ``NotImplementedError`` naming it when a query is
 planned (``Session.check_supported``): no property is ignored quietly.
 """
@@ -49,6 +49,10 @@ class Session:
         "spill_to_disk": True,
         "spill_dir": "",
         "spill_max_bytes": 0,
+        # grouped (lifespan) execution over co-bucketed tables: the plan runs
+        # once per bucket, so join and grouping state hold one bucket's data
+        # (exec/grouped.py)
+        "grouped_execution": True,
         # the flight recorder (utils/trace.py): a full trace written to
         # query_trace_dir ("" = the tempdir) when query_trace is on, with a
         # ring of query_trace_max_events spans (0 = the default, 2^16);

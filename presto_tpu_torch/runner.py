@@ -35,9 +35,16 @@ coarse black box, which is written only when the statement fails (the
 exception's ``failure_trace_path``). The recorder wraps the statement in a
 ``lifecycle`` span ``query`` with ``parse``, ``plan``, ``local_plan`` and
 ``execute`` inside it where the reference puts them, and every statement's
-wall goes into the ``query.wall_s`` histogram. Access control and grouped
-execution are not ported; a statement that needs one raises
-``NotImplementedError``.
+wall goes into the ``query.wall_s`` histogram.
+
+A query over co-bucketed tables runs grouped (``exec/grouped.py``, on by
+default with ``grouped_execution``): ``_run_plan`` once per bucket, each
+with its own memory reservation released before the next bucket, one
+``local_plan`` and ``execute`` span per bucket under the statement's one
+``query`` span, the scan and segment stats summed over the buckets and the
+rows merged by ``merge_rows``. ``last_grouped`` holds the bucket count of
+the last statement that ran grouped, else None. EXPLAIN ANALYZE runs
+ungrouped, as in the reference. Access control is not ported.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ from .connectors.blackhole import BlackholeConnector
 from .connectors.memory import MemoryConnector
 from .connectors.tpcds.connector import TpcdsConnector
 from .connectors.tpch.connector import TpchConnector
+from .exec.grouped import analyze_grouped, merge_rows
 from .exec.local_planner import LocalExecutionPlanner
 from .exec.task_executor import TaskExecutor
 from .metadata import CatalogManager, MetadataManager, Session
@@ -176,6 +184,8 @@ class LocalQueryRunner:
         self.metadata = MetadataManager(catalogs)
         self.session = session or Session(catalog="tpch", schema="tiny")
         self.parser = SqlParser()
+        # the bucket count of the last statement that ran grouped, else None
+        self.last_grouped: Optional[int] = None
 
     def plan_sql(self, sql: str) -> OutputNode:
         stmt = self.parser.parse(sql)
@@ -217,6 +227,7 @@ class LocalQueryRunner:
         return result
 
     def _execute_statement(self, sql: str) -> QueryResult:
+        self.last_grouped = None  # set again on the grouped path
         with trace.span(trace.LIFECYCLE, "parse"):
             stmt = self.parser.parse(sql)
         if isinstance(stmt, t.Explain):
@@ -259,26 +270,42 @@ class LocalQueryRunner:
         self.session.check_supported()
         with trace.span(trace.LIFECYCLE, "plan"):
             plan = self.plan_statement(stmt)
-        exec_plan, drivers, _wall = self._run_plan(plan)
+        g = analyze_grouped(plan, self.metadata, self.session)
+        if g is not None:
+            self.last_grouped = g.bucket_count
+        results, scan_stats, seg_stats, resident = [], {}, None, 0
+        for bucket in (range(g.bucket_count) if g is not None else [None]):
+            exec_plan, drivers, _wall = self._run_plan(plan, bucket_filter=bucket)
+            results.append(exec_plan.sink.rows())
+            for k, v in (_scan_pipeline_stats(drivers) or {}).items():
+                scan_stats[k] = round(scan_stats.get(k, 0) + v, 6)
+            seg = _segment_stats(exec_plan)
+            if seg is not None:
+                if seg_stats is None:
+                    seg_stats = seg
+                else:  # counters summed over the buckets, one decision set
+                    for k in ("count", "dispatches", "compiles"):
+                        seg_stats[k] += seg[k]
+                    seg_stats["segments"].extend(seg["segments"])
+            resident += sum(getattr(op, "resident_hits", 0)
+                            for d in drivers for op in d.operators)
         stats = {}
-        scan = _scan_pipeline_stats(drivers)
-        if scan is not None:
-            stats["scan_pipeline"] = scan
-        seg = _segment_stats(exec_plan)
-        if seg is not None:
-            stats["segments"] = seg
+        if scan_stats:
+            stats["scan_pipeline"] = scan_stats
+        if seg_stats is not None:
+            stats["segments"] = seg_stats
         return QueryResult(
-            exec_plan.sink.rows(), exec_plan.output_names, exec_plan.output_types,
-            stats=stats or None,
+            merge_rows(results, g) if g is not None else results[0],
+            exec_plan.output_names, exec_plan.output_types, stats=stats or None,
             drivers=[getattr(chain[0], "parallel_drivers", 1) for chain in exec_plan.pipelines],
-            resident_pages=sum(getattr(op, "resident_hits", 0)
-                               for d in drivers for op in d.operators))
+            resident_pages=resident)
 
-    def _run_plan(self, plan: OutputNode):
+    def _run_plan(self, plan: OutputNode, bucket_filter: Optional[int] = None):
         """The execution recipe of queries and EXPLAIN ANALYZE (the writes
         attach the same memory): local planning with the query's memory
         attached, a live-progress provider while the drivers run, and the
-        query's reservations cleared in the ``finally``.
+        query's reservations cleared in the ``finally``. ``bucket_filter``:
+        the one bucket a grouped query's scans read this run.
         -> (exec_plan, drivers, wall seconds of the run)."""
         from .exec import progress
         from .exec.explain import driver_stats
@@ -287,7 +314,8 @@ class LocalQueryRunner:
         unregister = lambda: None  # noqa: E731 - rebound once the drivers exist
         try:
             with trace.span(trace.LIFECYCLE, "local_plan"):
-                local = LocalExecutionPlanner(self.metadata, self.session, self.device)
+                local = LocalExecutionPlanner(self.metadata, self.session, self.device,
+                                              bucket_filter=bucket_filter)
                 local.attach_memory(mem, over_target)
                 exec_plan = local.plan(plan)
                 drivers = exec_plan.create_drivers()

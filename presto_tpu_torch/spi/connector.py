@@ -6,7 +6,8 @@ and masked; the table scan copies them to the device. A writable catalog's
 ``page_sink_provider()`` hands the table writer one ``ConnectorPageSink``
 per writer driver, and its metadata commits the sinks' fragments
 (``create_table``, ``begin_insert``, ``finish_insert``, ``drop_table``);
-a read-only catalog returns None there.
+a read-only catalog returns None there. A bucketing catalog says how its
+tables are bucketed through ``node_partitioning_provider()``.
 """
 from __future__ import annotations
 
@@ -277,6 +278,20 @@ class ConnectorPageSinkProvider(abc.ABC):
         ...
 
 
+class ConnectorNodePartitioningProvider:
+    """A connector's bucketing: the bucket count of a table and the columns
+    its bucket hash is computed over. Grouped execution
+    (``exec/grouped.py``) runs a plan over co-bucketed tables one bucket at
+    a time. This default says "not bucketed"."""
+
+    def bucket_count(self, table: TableHandle) -> Optional[int]:
+        return None
+
+    def bucket_columns(self, table: TableHandle) -> Optional[Tuple[str, ...]]:
+        """Ordered column names of the bucket hash, or None."""
+        return None
+
+
 class Connector(abc.ABC):
     """Bundle of services for one catalog."""
 
@@ -295,3 +310,6 @@ class Connector(abc.ABC):
     def page_sink_provider(self) -> Optional[ConnectorPageSinkProvider]:
         """None: the catalog is read-only."""
         return None
+
+    def node_partitioning_provider(self) -> ConnectorNodePartitioningProvider:
+        return ConnectorNodePartitioningProvider()

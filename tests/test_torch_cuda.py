@@ -473,3 +473,31 @@ def test_pressured_q3_launches_on_the_card(cuda):
     assert delta["memory.revoked_bytes"] > 0 and cpu_delta["memory.revoked_bytes"] > 0
     assert cpu_inserts == cpu_probes == 0  # the CPU runs the plain versions
     assert inserts == delta["pallas.join_builds"] + delta["pallas.agg_pages"] and probes > 0
+
+
+def test_grouped_query_on_the_card_equals_the_cpu_run(cuda, tmp_path):
+    """A co-bucketed hive join and grouping at ``tiny`` runs one bucket at
+    a time on the card (``last_grouped == 4``), with the CPU run's rows."""
+    from presto_tpu_torch.connectors.hive import HiveConnector
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.runner import LocalQueryRunner
+
+    sql = ("select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue, "
+           "o_orderdate, o_shippriority from hive.default.lineitem join hive.default.orders "
+           "on l_orderkey = o_orderkey where o_orderdate < date '1995-03-15' and "
+           "l_shipdate > date '1995-03-15' group by l_orderkey, o_orderdate, o_shippriority "
+           "order by revenue desc, o_orderdate limit 10")
+    runs = {}
+    for dev in ("cpu", cuda):
+        r = LocalQueryRunner(Session(catalog="tpch", schema="tiny",
+                                     properties={"hash_kernels": "pallas"}), device=dev)
+        r.catalogs.register("hive", HiveConnector("hive", str(tmp_path / str(dev))))
+        r.execute("create table hive.default.lineitem with (bucketed_by = array['l_orderkey'], "
+                  "bucket_count = 4) as select l_orderkey, l_extendedprice, l_discount, "
+                  "l_shipdate from lineitem")
+        r.execute("create table hive.default.orders with (bucketed_by = array['o_orderkey'], "
+                  "bucket_count = 4) as select o_orderkey, o_orderdate, o_shippriority "
+                  "from orders")
+        runs[str(dev)] = r.execute(sql).rows
+        assert r.last_grouped == 4
+    assert runs[str(cuda)] == runs["cpu"] and len(runs["cpu"]) == 10

@@ -50,6 +50,9 @@ def test_port_imports_no_jax_and_no_reference():
             "presto_tpu_torch.formats.parquet_writer", "presto_tpu_torch.formats.orc",
             "presto_tpu_torch.formats.orc_writer",
             "presto_tpu_torch.formats.rcfile"} <= set(res["modules"])
+    # the warehouse connectors and grouped execution
+    assert {"presto_tpu_torch.connectors.hive", "presto_tpu_torch.exec.grouped",
+            "presto_tpu_torch.connectors.raptor"} <= set(res["modules"])
 
 
 def test_native_library_is_the_ports_own():

@@ -163,7 +163,7 @@ def test_show_statements_match_reference(stmt):
 
 
 @pytest.mark.parametrize("prop,value", [("streaming_exchange", True),
-                                        ("grouped_execution", True)])
+                                        ("join_distribution_type", "BROADCAST")])
 def test_unported_session_property_raises_naming_itself(prop, value):
     session = Session(catalog="tpch", schema="tiny", properties={prop: value})
     with pytest.raises(NotImplementedError, match=prop):
@@ -199,7 +199,7 @@ def test_ported_feature_turned_on_alone_matches_reference(prop):
 def test_defaults_equal_the_reference_on_shared_keys():
     shared = set(Session.DEFAULTS) & set(RefSession.DEFAULTS)
     assert {"scan_pipeline", "driver_parallelism", "task_concurrency", "shared_pools",
-            "segment_fusion", "coalesce_pages"} <= shared
+            "segment_fusion", "coalesce_pages", "grouped_execution"} <= shared
     assert {k: Session.DEFAULTS[k] for k in shared} == \
         {k: RefSession.DEFAULTS[k] for k in shared}
     # the default path runs rather than raises
