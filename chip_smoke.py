@@ -229,15 +229,31 @@ Phases, each of which must pass:
    Parquet and ORC hive tables at ``HIVE_FORMAT_SCHEMA``; raptor: CTAS and
    Q6, seven yearly INSERTs whose Q6 keeps exactly the 1994 shard, then
    ``maintenance()`` compacting them into one. Prints ``WAREHOUSE`` lines;
-20. print the kernels line (JSON, with each kernel's warm-run launches per
+20. the federated catalogs at ``tpch.sf1`` (``run_federation_phase``), with
+   ``hash_kernels="pallas"``: a sqlite file behind ``sqlite_connector``
+   (CTAS of ``orders`` and ``customer``, Q3 over them beside ``tpch``'s
+   ``lineitem`` with the rows sqlite returned after the pushed-down
+   ``o_orderdate``, the per-day grouping), the ``orders`` topic as JSON
+   partition logs behind a ``KafkaConnector`` (the stream join with
+   ``tpch``'s ``customer``, the decode's seconds, messages per
+   ``_partition_id``; the insert held bit-identical at the ``customer``
+   build, the probe at the first topic page), a ``RemoteTestingService``
+   behind a ``RemoteConnector`` whose first endpoint is closed (Q3 with the
+   service's ``customer``, its requests by method), and a
+   ``FileBasedAccessControl`` (the analyst's Q3, a denied CTAS that
+   launches nothing and creates nothing, a CTE shadowing a denied name).
+   Every query's rows equal its ``tpch`` counterpart's, and both Q3s
+   phase 11's. Prints ``FEDERATION`` lines;
+21. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
    ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``, phase 16 as
    ``SQL EXPLAIN q3``, ``SQL MEM q3 pressured`` and ``SQL PLUGIN geo``,
    phase 17 as ``SQL TRACE q3``, counted on the cold traced run, and ``SQL
    SPILL q18 disk``, phase 18 as ``SQL FILE pcol q3 mixed``, phase 19 as
-   ``SQL HIVE q3 grouped unfused`` and ``SQL RAPTOR q6``), the card line,
-   and last the result line.
+   ``SQL HIVE q3 grouped unfused`` and ``SQL RAPTOR q6``, phase 20 as
+   ``SQL FED kafka stream join``), the card line, and last the result
+   line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -4231,6 +4247,385 @@ def run_warehouse_phase(device, schema: str = "sf1") -> dict:
     return out
 
 
+FED_ORDERS = ("o_orderkey", "o_custkey", "o_orderdate", "o_shippriority", "o_orderpriority",
+              "o_totalprice")
+FED_CUSTOMER = ("c_custkey", "c_mktsegment", "c_nationkey", "c_acctbal")
+FED_TYPES = {"o_orderkey": "bigint", "o_custkey": "bigint", "o_orderdate": "date",
+             "o_shippriority": "integer", "o_orderpriority": "varchar",
+             "o_totalprice": "decimal(12,2)", "c_custkey": "bigint", "c_mktsegment": "varchar",
+             "c_nationkey": "bigint", "c_acctbal": "decimal(12,2)", "n_nationkey": "bigint",
+             "n_name": "varchar", "n_regionkey": "bigint"}
+KAFKA_PARTITIONS = 8  # tpch's split ranges of orders, one log each
+FED_DAYS_SQL = ("select o_orderdate, count(*), sum(o_totalprice) from {} "
+                "group by o_orderdate order by o_orderdate")
+FED_STREAM_SQL = ("select c_mktsegment, count(*), sum(o_totalprice) from {} join "
+                  "tpch.{}.customer on o_custkey = c_custkey group by c_mktsegment "
+                  "order by c_mktsegment")
+REMOTE_ROWS_PER_BATCH = 4096
+REMOTE_SPLITS = 3
+
+
+class SourceLog:
+    """Records the page sources a catalog creates while on (the dbapi
+    sources count the rows they fetch)."""
+
+    def __init__(self, connector):
+        self.provider = connector.page_source_provider()
+        self.sources = []
+
+    def __enter__(self):
+        real = self.provider.create_page_source
+        log_ = self
+
+        def create(split, columns, *a, **kw):
+            src = real(split, columns, *a, **kw)
+            log_.sources.append(src)
+            return src
+
+        self.provider.create_page_source = create
+        return self
+
+    def __exit__(self, *exc):
+        del self.provider.create_page_source  # the class's method again
+        return False
+
+    def fetched(self, table: str) -> int:
+        return sum(s.rows_fetched for s in self.sources
+                   if s.split.payload[0].table == table)
+
+
+def _write_topic(log_dir: str, sf: float):
+    """The ``orders`` topic: the table description and one JSON log per tpch
+    split range of ``orders`` (``KAFKA_PARTITIONS`` of them), each with one
+    poison line in its middle. Returns (messages written, bytes)."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+
+    desc = {"topic": "orders", "message": {"dataFormat": "json", "fields": [
+        {"name": c, "type": FED_TYPES[c], "mapping": c} for c in FED_ORDERS]}}
+    with open(os.path.join(log_dir, "default.orders.json"), "w") as f:
+        json.dump(desc, f)
+    n = g.table_row_count("orders", sf)
+    step = -(-n // KAFKA_PARTITIONS)
+    written = nbytes = 0
+    for p in range(KAFKA_PARTITIONS):
+        lo, hi = p * step, min((p + 1) * step, n)
+        o = g.generate_rows("orders", lo, hi, sf, list(FED_ORDERS))
+        prio = g.DICT_PRIORITY.values[o["o_orderpriority"]].tolist()
+        lines = [f'{{"o_orderkey": {k}, "o_custkey": {c}, "o_orderdate": "{d}", '
+                 f'"o_shippriority": {s}, "o_orderpriority": "{r}", '
+                 f'"o_totalprice": {t // 100}.{t % 100:02d}}}'
+                 for k, c, d, s, r, t in zip(
+                     o["o_orderkey"].tolist(), o["o_custkey"].tolist(),
+                     o["o_orderdate"].astype("datetime64[D]").astype(str).tolist(),
+                     o["o_shippriority"].tolist(), prio,
+                     o["o_totalprice"].astype(np.int64).tolist())]
+        lines.insert(len(lines) // 2, "{poison")
+        body = ("\n".join(lines) + "\n").encode()
+        with open(os.path.join(log_dir, f"orders-{p}.log"), "wb") as f:
+            f.write(body)
+        written += len(lines)
+        nbytes += len(body)
+    return written, nbytes
+
+
+def _remote_service(sf: float):
+    """A started ``RemoteTestingService`` serving ``sales.customer`` (the
+    four ``FED_CUSTOMER`` columns; decimals as unscaled ints) and
+    ``sales.nation`` from the port's generator; -> (service, endpoint)."""
+    from presto_tpu_torch.connectors.remote import RemoteTestingService
+    from presto_tpu_torch.connectors.tpch import generator as g
+
+    svc = RemoteTestingService(rows_per_batch=REMOTE_ROWS_PER_BATCH, n_splits=REMOTE_SPLITS)
+    c = _table("customer", sf, list(FED_CUSTOMER))
+    data = {k: c[k].astype(np.int64).tolist() for k in FED_CUSTOMER if k != "c_mktsegment"}
+    data["c_mktsegment"] = g.DICT_SEGMENT.values[c["c_mktsegment"]].tolist()
+    svc.add_table("sales", "customer", [(k, FED_TYPES[k]) for k in FED_CUSTOMER], data)
+    nat = _table("nation", sf, ["n_nationkey", "n_name", "n_regionkey"])
+    svc.add_table("sales", "nation", [(k, FED_TYPES[k]) for k in nat],
+                  {"n_nationkey": nat["n_nationkey"].astype(np.int64).tolist(),
+                   "n_name": g.DICT_NATION_NAME.values[nat["n_name"]].tolist(),
+                   "n_regionkey": nat["n_regionkey"].astype(np.int64).tolist()})
+    return svc, svc.start()
+
+
+def _closed_endpoint():
+    """-> (an endpoint on 127.0.0.1 that refuses connections, its socket):
+    the port is bound and never listened on, so no other process can take
+    it while the caller holds the socket open."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    return f"http://127.0.0.1:{sock.getsockname()[1]}", sock
+
+
+def run_federation_phase(device, q3_rows=None, schema: str = "sf1") -> dict:
+    """Phase 20: the federated catalogs at TPC-H ``schema`` with
+    ``hash_kernels="pallas"`` under the defaults, in one runner with an
+    ``ext`` (sqlite), a ``kafka`` and an ``svc`` (remote service) catalog
+    beside ``tpch``; the external systems hold ``tpch``'s own rows, so every
+    federated query has its answer in a ``tpch`` query.
+
+    - dbapi: CTAS of ``orders`` (``FED_ORDERS``) and ``customer``
+      (``FED_CUSTOMER``) into the sqlite file (walls, rows/s, bytes); Q3
+      over ``ext``'s ``customer`` and ``orders`` and ``tpch``'s
+      ``lineitem`` (rows equal to ``q3_rows``, phase 11's Q3, and to the
+      numpy Q3; the rows sqlite returned after the pushed-down
+      ``o_orderdate``); the per-day grouping over ``ext.main.orders`` (rows
+      equal to the same over ``tpch``).
+    - kafka: the ``orders`` topic as ``KAFKA_PARTITIONS`` JSON logs
+      (tpch's split ranges, one poison line each); the stream join with
+      ``tpch``'s ``customer`` (rows equal to the same over ``tpch``, the
+      poison rows' NULL keys joining nothing), the decode's seconds, the
+      messages per ``_partition_id`` and the NULL keys. The insert is held
+      bit-identical at the ``customer`` build, the probe at the first
+      topic page.
+    - remote: ``RemoteTestingService(REMOTE_ROWS_PER_BATCH,
+      REMOTE_SPLITS)`` on 127.0.0.1 serving ``sales.customer`` and
+      ``sales.nation``, behind a catalog whose first endpoint is closed
+      (the first call fails over); Q3 with ``svc``'s ``customer`` (rows
+      equal to phase 11's), the requests it took by method.
+    - access control: a runner whose session resolves one-part names in
+      ``memory`` and a ``FileBasedAccessControl`` (``analyst`` may select
+      from ``tpch`` and ``ext``; ``etl`` may write ``memory`` too): the
+      analyst's Q3 over ``ext`` (step 1's rows), a denied CTAS into
+      ``ext`` (``AccessDeniedException``, no launch, no table), a CTE
+      named ``orders`` shadowing the denied ``memory.default.orders``
+      (allowed; the bare name alone is denied), the etl's CTAS into
+      ``memory``.
+
+    Each query runs cold and warm (launch counters set to 0 just before the
+    warm run) and prints a ``FEDERATION`` line. Returns the records whose
+    launches the kernels line reports, keyed ``FED ...``."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from presto_tpu_torch.connectors.dbapi import sqlite_connector
+    from presto_tpu_torch.connectors.kafka import KafkaConnector
+    from presto_tpu_torch.connectors.remote import RemoteConnector
+    from presto_tpu_torch.connectors.tpch import generator as g
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.runner import LocalQueryRunner
+    from presto_tpu_torch.security import (AccessDeniedException, AccessRule,
+                                           FileBasedAccessControl)
+    from presto_tpu_torch.spi.connector import SchemaTableName
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sf = SCHEMAS[schema]
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-federation-")
+    out = {}
+    svc = dead_sock = None
+    n_orders = g.table_row_count("orders", sf)
+    n_customers = g.table_row_count("customer", sf)
+    q3_want = oracle_q3(schema)[0]
+    if q3_rows is not None and not same_rows(q3_rows, q3_want):
+        raise AssertionError("FEDERATION: phase 11's Q3 rows differ from the numpy Q3")
+
+    def timed_run(r, sql, user=None):
+        t0 = time.perf_counter()
+        res = r.execute(sql, user=user)
+        sync()
+        return res, time.perf_counter() - t0
+
+    def step(label, sql, r, setup=None, capture=None, user=None, log_sources=None):
+        """A cold run, then ``setup`` and the warm run, the launch counters
+        set to 0 just before it, ``capture`` and the page-source log on."""
+        _res, cold_s = timed_run(r, sql, user)
+        if setup is not None:
+            setup()
+        before = {k: METRICS.counter_value(k) for k in COUNTERS}
+        requests = (svc.request_count, dict(svc.calls)) if svc is not None else None
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        slog = SourceLog(log_sources) if log_sources is not None else None
+        with capture or contextlib.nullcontext(), slog or contextlib.nullcontext():
+            res, warm_s = timed_run(r, sql, user)
+        delta = {k: METRICS.counter_value(k) - v for k, v in before.items()}
+        if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+            raise AssertionError(f"FEDERATION {label}: a fallback: {delta}")
+        rec = out[label] = {
+            "rows": res.rows, "cold_s": cold_s, "warm_s": warm_s, "delta": delta,
+            "launches": {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches},
+            "sources": slog}
+        if requests is not None:
+            rec["requests"] = svc.request_count - requests[0]
+            rec["calls"] = {k: v - requests[1].get(k, 0) for k, v in svc.calls.items()
+                            if v != requests[1].get(k, 0)}
+        return rec
+
+    def line(label, extra=""):
+        rec = out[label]
+        log(f"FEDERATION {label} {schema}: cold wall {rec['cold_s']:.4f}s, warm wall "
+            f"{rec['warm_s']:.4f}s; launches {rec['launches']}; join builds "
+            f"{int(rec['delta']['pallas.join_builds'])}, grouped pages "
+            f"{int(rec['delta']['pallas.agg_pages'])}{extra}")
+
+    def expect(label, rows):
+        if not same_rows(out[label]["rows"], rows):
+            raise AssertionError(f"FEDERATION {label}: rows differ:\n{out[label]['rows'][:3]}\n"
+                                 f"want {rows[:3]}")
+
+    ext_path = os.path.join(tmp, "ext.db")
+    ext = sqlite_connector("ext", ext_path)
+    log_dir = os.path.join(tmp, "logs")
+    os.makedirs(log_dir)
+    kafka = KafkaConnector("kafka", log_dir)
+    runner = sql_runner(device, "pallas", schema)
+    runner.catalogs.register("ext", ext)
+    runner.catalogs.register("kafka", kafka)
+    try:
+        # 1. dbapi: CTAS into sqlite, Q3 and the per-day grouping over it
+        for table, cols, n_want in (("orders", FED_ORDERS, n_orders),
+                                    ("customer", FED_CUSTOMER, n_customers)):
+            label = f"FED dbapi ctas {table}"
+            step(label, f"create table ext.main.{table} as select {', '.join(cols)} "
+                 f"from tpch.{schema}.{table}", runner,
+                 setup=lambda t=table: runner.execute(f"drop table ext.main.{t}"))
+            expect(label, [[n_want]])
+            line(label, f"; {n_want} rows ({n_want / out[label]['warm_s']:.0f} rows/s warm); "
+                 f"the sqlite file {os.path.getsize(ext_path)} bytes")
+        q3_ext = QUERIES[3].replace("from customer, orders, lineitem",
+                                    f"from ext.main.customer, ext.main.orders, "
+                                    f"tpch.{schema}.lineitem")
+        rec = step("FED dbapi q3", q3_ext, runner, log_sources=ext)
+        expect("FED dbapi q3", q3_want)
+        fetched = {t: rec["sources"].fetched(t) for t in ("orders", "customer")}
+        want_fetched = int((g.generate_rows("orders", 0, n_orders, sf, ["o_orderdate"])[
+            "o_orderdate"] < civil_day(1995, 3, 15)).sum())
+        if fetched["orders"] != want_fetched or fetched["customer"] != n_customers:
+            raise AssertionError(f"FEDERATION dbapi q3: fetched {fetched}, want orders "
+                                 f"{want_fetched} (the pushed-down o_orderdate) and customer "
+                                 f"{n_customers}")
+        rec["fetched"] = fetched
+        line("FED dbapi q3", f"; rows sqlite returned: orders {fetched['orders']} of "
+             f"{n_orders} (o_orderdate < 1995-03-15 pushed down), customer "
+             f"{fetched['customer']} of {n_customers} (a varchar domain stays in the engine)")
+        want_days = runner.execute(FED_DAYS_SQL.format(f"tpch.{schema}.orders")).rows
+        step("FED dbapi per-day", FED_DAYS_SQL.format("ext.main.orders"), runner)
+        expect("FED dbapi per-day", want_days)
+        line("FED dbapi per-day", f"; {len(want_days)} groups")
+
+        # 2. kafka: the orders topic, decoded, joined with tpch's customer
+        t0 = time.perf_counter()
+        n_msgs, n_bytes = _write_topic(log_dir, sf)
+        write_s = time.perf_counter() - t0
+        step_rows = -(-n_orders // KAFKA_PARTITIONS)
+        topic_key = SchemaTableName("default", "orders")
+        meta = kafka.metadata()
+        decode_s = []
+        real_topic_data = meta.topic_data
+
+        def timed_topic_data(name):
+            t = time.perf_counter()
+            try:
+                return real_topic_data(name)
+            finally:
+                decode_s.append(time.perf_counter() - t)
+        meta.topic_data = timed_topic_data
+        stream_sql = FED_STREAM_SQL.format("kafka.default.orders", schema)
+        want_stream = runner.execute(FED_STREAM_SQL.format(f"tpch.{schema}.orders",
+                                                           schema)).rows
+        capture = KernelCapture()
+        try:
+            rec = step("FED kafka stream join", stream_sql, runner, capture=capture)
+        finally:
+            del meta.topic_data
+        expect("FED kafka stream join", want_stream)
+        rec["decode_s"] = max(decode_s)
+        if on_card and (capture.build is None or capture.probe_args is None):
+            raise AssertionError(f"FEDERATION kafka stream join: the kernels' path was not "
+                                 f"taken: {rec['launches']}, {rec['delta']}")
+        if capture.build is not None:
+            rec["insert"] = check_insert_at(device, "phase 20 customer build", *capture.build)
+        if capture.probe_args is not None:
+            rec["probe"] = check_probe_at(device, "phase 20 first topic page",
+                                          *capture.probe_args)
+        parts = runner.execute("select _partition_id, count(*), count(o_orderkey) from "
+                               "kafka.default.orders group by _partition_id order by 1").rows
+        nulls = runner.execute("select count(*) from kafka.default.orders "
+                               "where o_orderkey is null").rows
+        want_parts = [[p, min(step_rows, n_orders - p * step_rows) + 1,
+                       min(step_rows, n_orders - p * step_rows)]
+                      for p in range(KAFKA_PARTITIONS)]
+        if parts != want_parts or nulls != [[KAFKA_PARTITIONS]]:
+            raise AssertionError(f"FEDERATION kafka: per partition {parts}, NULL keys {nulls}")
+        line("FED kafka stream join", f"; {n_msgs} messages ({n_bytes} bytes in "
+             f"{KAFKA_PARTITIONS} logs, written in {write_s:.4f}s); the cold run's decode "
+             f"{rec['decode_s']:.4f}s ({n_msgs / rec['decode_s']:.0f} messages/s); per partition "
+             f"{[r[1] for r in parts]} messages, {nulls[0][0]} NULL keys (the poison lines)")
+
+        # 3. remote: customer from the service, orders and lineitem from tpch
+        svc, endpoint = _remote_service(sf)
+        dead, dead_sock = _closed_endpoint()
+        runner.catalogs.register("svc", RemoteConnector("svc", [dead, endpoint], timeout_s=60.0))
+        q3_svc = QUERIES[3].replace("from customer, orders, lineitem",
+                                    f"from svc.sales.customer, tpch.{schema}.orders, "
+                                    f"tpch.{schema}.lineitem")
+        rec = step("FED remote q3", q3_svc, runner)
+        expect("FED remote q3", q3_want)
+        line("FED remote q3", f"; {rec['requests']} requests on the warm run {rec['calls']} "
+             f"(rows_per_batch {REMOTE_ROWS_PER_BATCH}, {REMOTE_SPLITS} splits; the first call "
+             f"failed over past {dead}); {svc.request_count} requests in all")
+
+        # 4. access control
+        acl = LocalQueryRunner(Session(catalog="memory", schema="default",
+                                       properties={"hash_kernels": "pallas"}), device=device)
+        acl.catalogs.register("ext", ext)
+        acl.access_control = FileBasedAccessControl([
+            AccessRule(user_regex="analyst|etl", catalog_regex="tpch|ext",
+                       privileges=("select",)),
+            AccessRule(user_regex="etl", catalog_regex="memory")])
+        step("FED acl analyst q3", q3_ext, acl, user="analyst")
+        expect("FED acl analyst q3", out["FED dbapi q3"]["rows"])
+        line("FED acl analyst q3", "; allowed")
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        denied = []
+        for sql in (f"create table ext.main.x as select o_orderkey from tpch.{schema}.orders",
+                    "select count(*) from orders"):
+            try:
+                acl.execute(sql, user="analyst")
+            except AccessDeniedException as e:
+                denied.append(str(e))
+        launched = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        tables = [t.table for t in ext.metadata().list_tables("main")]
+        if len(denied) != 2 or launched != {"insert": 0, "probe": 0} or "x" in tables:
+            raise AssertionError(f"FEDERATION acl: denied {denied}, launches {launched}, "
+                                 f"ext tables {tables}")
+        out["FED acl denied ctas"] = {"launches": launched}
+        log(f"FEDERATION acl denied {schema}: {denied}; launches {launched}; ext tables "
+            f"{tables}")
+        shadow = ("with orders as (select o_orderkey, o_totalprice from ext.main.orders) "
+                  "select count(*), sum(o_totalprice) from orders")
+        step("FED acl cte shadow", shadow, acl, user="analyst")
+        expect("FED acl cte shadow", runner.execute(
+            f"select count(*), sum(o_totalprice) from tpch.{schema}.orders").rows)
+        line("FED acl cte shadow", "; allowed: the CTE named orders is not "
+             "memory.default.orders")
+        res, _s = timed_run(acl, f"create table memory.default.nations as select n_nationkey "
+                            f"from tpch.{schema}.nation", user="etl")
+        if res.rows != [[25]]:
+            raise AssertionError(f"FEDERATION acl etl ctas: {res.rows}")
+        log(f"FEDERATION acl etl {schema}: CTAS into memory allowed, {res.rows[0][0]} rows")
+    finally:
+        if svc is not None:
+            svc.stop()
+        if dead_sock is not None:
+            dead_sock.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rec in out.values():
+        rec.pop("sources", None)
+    return out
+
+
 def check_probe_at(device, label: str, slot_keys, slot_rows, keys, mask, trips,
                    reps: int = 20, plain_reps: int = 3) -> dict:
     """The probe against its plain version, bit for bit, at one captured
@@ -4383,6 +4778,8 @@ def main() -> int:
         phase_done(f"18 file catalog (ORC at {ORC_SCHEMA}, RCFile at {RC_SCHEMA})")
         warehouse_records = run_warehouse_phase(device)
         phase_done(f"19 warehouse connectors (Parquet and ORC at {HIVE_FORMAT_SCHEMA})")
+        federation_records = run_federation_phase(device, records[3]["rows"])
+        phase_done("20 federated catalogs, access control")
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -4410,7 +4807,9 @@ def main() -> int:
                     **{f"SQL FILE {label}": rec["launches"][k]
                        for label, rec in file_records.items()},
                     **{f"SQL {label}": rec["launches"][k]
-                       for label, rec in warehouse_records.items()}}}
+                       for label, rec in warehouse_records.items()},
+                    **{f"SQL {label}": rec["launches"][k]
+                       for label, rec in federation_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

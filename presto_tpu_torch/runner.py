@@ -44,7 +44,15 @@ with its own memory reservation released before the next bucket, one
 ``query`` span, the scan and segment stats summed over the buckets and the
 rows merged by ``merge_rows``. ``last_grouped`` holds the bucket count of
 the last statement that ran grouped, else None. EXPLAIN ANALYZE runs
-ungrouped, as in the reference. Access control is not ported.
+ungrouped, as in the reference.
+
+Access control: with an ``AccessControl`` in ``access_control``
+(``security.py``), ``execute(sql, user=...)`` checks the statement right
+after the parse, before any planning, as the reference's runner does
+(``_check_access``): every table a query reads needs the select privilege
+(a name that a CTE in scope defines is not a table), and CTAS, INSERT and
+DROP need their write privilege on the target. ``user`` defaults to the
+session's.
 """
 from __future__ import annotations
 
@@ -200,20 +208,75 @@ class LocalQueryRunner:
     def explain(self, sql: str) -> str:
         return plan_to_text(self.plan_sql(sql))
 
-    def execute(self, sql: str) -> QueryResult:
-        """Run one statement under the query's flight recorder (full with
-        ``query_trace``, else the coarse black box), histogramming its wall
-        in ``query.wall_s``. A failing statement dumps the ring as a
-        forensic trace pinned to the exception."""
+    # an AccessControl (security.py) that every statement is checked against
+    access_control = None
+
+    def _check_access(self, stmt, user: Optional[str] = None) -> None:
+        """Raise ``AccessDeniedException`` unless ``user`` (default: the
+        session's) may run ``stmt``: the reference's walk over the tables it
+        names, before any planning."""
+        ac = self.access_control
+        if ac is None:
+            return
+        from .sql.analyzer import _ast_children
+
+        user = user if user is not None else self.session.user
+
+        def resolve(name_parts):
+            return self.metadata.resolve_table_name(
+                self.session, tuple(p.lower() for p in name_parts))
+
+        def walk(node, cte_names=frozenset()):
+            if isinstance(node, t.Query) and node.with_ is not None:
+                names = set(cte_names)
+                for cte_name, cte_query in node.with_.queries:
+                    walk(cte_query, frozenset(names))  # a CTE's body is checked too
+                    names.add(cte_name.lower())
+                walk(node.body, frozenset(names))
+                for c in _ast_children(node):
+                    if c is not node.body and c is not node.with_:
+                        walk(c, frozenset(names))
+                return
+            if isinstance(node, t.Table):
+                # a one-part name that a CTE in scope defines is not a table
+                if len(node.name) == 1 and node.name[0].lower() in cte_names:
+                    return
+                q = resolve(node.name)
+                ac.check_can_select(user, q.catalog, q.schema, q.table)
+                return
+            for c in _ast_children(node):
+                walk(c, cte_names)
+
+        if isinstance(stmt, t.CreateTableAsSelect):
+            q = resolve(stmt.name)
+            ac.check_can_write(user, q.catalog, q.schema, q.table, "create")
+            walk(stmt.query)
+        elif isinstance(stmt, t.Insert):
+            q = resolve(stmt.name)
+            ac.check_can_write(user, q.catalog, q.schema, q.table, "insert")
+            if stmt.query is not None:
+                walk(stmt.query)
+        elif isinstance(stmt, t.DropTable):
+            q = resolve(stmt.name)
+            ac.check_can_write(user, q.catalog, q.schema, q.table, "drop")
+        else:
+            walk(stmt)
+
+    def execute(self, sql: str, user: Optional[str] = None) -> QueryResult:
+        """Run one statement as ``user`` (default: the session's) under the
+        query's flight recorder (full with ``query_trace``, else the coarse
+        black box), histogramming its wall in ``query.wall_s``. A failing
+        statement dumps the ring as a forensic trace pinned to the
+        exception."""
         t0 = time.perf_counter()
         rec = trace.maybe_recorder(self.session)
         installed = rec is not None and trace.install(rec)
         try:
             if installed:
                 with rec.span(trace.LIFECYCLE, "query"):
-                    result = self._execute_statement(sql)
+                    result = self._execute_statement(sql, user)
             else:
-                result = self._execute_statement(sql)
+                result = self._execute_statement(sql, user)
         except BaseException as e:
             if installed:
                 trace.attach_failure(e, rec, self.session)
@@ -226,10 +289,11 @@ class LocalQueryRunner:
             result.trace_path = trace.export(rec, self.session)
         return result
 
-    def _execute_statement(self, sql: str) -> QueryResult:
+    def _execute_statement(self, sql: str, user: Optional[str] = None) -> QueryResult:
         self.last_grouped = None  # set again on the grouped path
         with trace.span(trace.LIFECYCLE, "parse"):
             stmt = self.parser.parse(sql)
+        self._check_access(stmt, user)
         if isinstance(stmt, t.Explain):
             if not isinstance(stmt.statement, t.Query):
                 raise ValueError("EXPLAIN requires a query")

@@ -19,6 +19,42 @@ from presto_tpu_torch.types import BIGINT
 pytestmark = pytest.mark.cuda
 
 
+def test_stream_join_on_the_card_equals_the_cpu_run(cuda, tmp_path):
+    """A kafka topic of ``tiny``'s orders (JSON, two partitions, a poison
+    line) joined with ``tpch``'s ``customer``: on the card the customer
+    build takes the insert and the topic's pages the probe, with the CPU
+    run's rows, which equal the same query over ``tpch``."""
+    import json
+
+    from presto_tpu_torch.connectors.kafka import KafkaConnector
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.runner import LocalQueryRunner
+
+    base = LocalQueryRunner(Session(catalog="tpch", schema="tiny"), device="cpu")
+    rows = base.execute("select o_orderkey, o_custkey, o_totalprice from orders").rows
+    fields = [{"name": "o_orderkey", "type": "bigint", "mapping": "k"},
+              {"name": "o_custkey", "type": "bigint", "mapping": "c"},
+              {"name": "o_totalprice", "type": "decimal(12,2)", "mapping": "p"}]
+    (tmp_path / "default.orders.json").write_text(json.dumps(
+        {"topic": "orders", "message": {"dataFormat": "json", "fields": fields}}))
+    for part in range(2):
+        lines = [json.dumps({"k": k, "c": c, "p": float(p)}) for k, c, p in rows[part::2]]
+        (tmp_path / f"orders-{part}.log").write_text("\n".join(lines + ["{poison"]) + "\n")
+    sql = ("select c_mktsegment, count(*), sum(o_totalprice) from {} join customer "
+           "on o_custkey = c_custkey group by c_mktsegment order by c_mktsegment")
+    runs = {}
+    for dev in ("cpu", cuda):
+        r = LocalQueryRunner(Session(catalog="tpch", schema="tiny",
+                                     properties={"hash_kernels": "pallas"}), device=dev)
+        r.catalogs.register("kafka", KafkaConnector("kafka", str(tmp_path)))
+        r.execute(sql.format("kafka.default.orders"))  # the decode
+        ph.insert_table.launches = ph.probe_table.launches = 0
+        runs[str(dev)] = r.execute(sql.format("kafka.default.orders")).rows
+        launches = (ph.insert_table.launches, ph.probe_table.launches)
+    assert runs[str(cuda)] == runs["cpu"] == base.execute(sql.format("orders")).rows
+    assert launches[0] >= 1 and launches[1] >= 1
+
+
 EDGE_CASES = ("all_masked", "one_row", "ragged", "tail_crossing", "one_trip")
 
 

@@ -53,6 +53,11 @@ def test_port_imports_no_jax_and_no_reference():
     # the warehouse connectors and grouped execution
     assert {"presto_tpu_torch.connectors.hive", "presto_tpu_torch.exec.grouped",
             "presto_tpu_torch.connectors.raptor"} <= set(res["modules"])
+    # the federated catalogs, access control, transactions and event listeners
+    assert {"presto_tpu_torch.spi.decoder", "presto_tpu_torch.connectors.kafka",
+            "presto_tpu_torch.connectors.dbapi", "presto_tpu_torch.connectors.remote",
+            "presto_tpu_torch.security", "presto_tpu_torch.transaction",
+            "presto_tpu_torch.spi.eventlistener"} <= set(res["modules"])
 
 
 def test_native_library_is_the_ports_own():
