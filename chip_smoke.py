@@ -88,9 +88,10 @@ Phases, each of which must pass:
    equal rows (``CPU_ROWS_SCHEMA``; these host checks once ran at SF1);
 12. all 22 TPC-DS queries of ``models/tpcds_sql.py`` (Q64 and Q72 among
    them) as SQL at ``tpcds.sf1`` with ``hash_kernels="pallas"`` under the
-   full defaults: cold, warm (counters set to 0 just before it) and once
-   under the oracle properties, with equal rows. A TPC-DS scan has no cache
-   token, so the warm run regenerates its pages (it must replay none).
+   full defaults: warm (counters set to 0 just before it; a cold run
+   before it for Q64 and Q72 only) and once under the oracle properties,
+   with equal rows. A TPC-DS scan has no cache token, so the warm run
+   regenerates its pages (it must replay none).
    Fails unless the insert launched once per join build and grouped page,
    a query that built a table probed it with the kernel, and nothing fell
    back. Prints per query the drivers per pipeline, the walls, the warm
@@ -119,7 +120,8 @@ Phases, each of which must pass:
    ``count_if`` and ``arbitrary`` grouped by flag and status and global, a
    per-day DATE grouping (``min_by``, ``stddev``, ``count_if``) that must
    take the insert kernel, and a sketch grouping above 8,192 groups that
-   must spill. Each runs cold and warm (counters set to 0 just before it);
+   must spill. Each runs cold and warm (counters set to 0 just before it),
+   but the sketch grouping, which runs once (``P14_ONE_RUN``);
    the rows must equal a numpy oracle (``check_p14_rows``: exact where the
    result is, the sketches within their error bounds, ``min_by``/``max_by``
    a row holding the extreme, the statistics to ``STAT_REL_TOL``); the
@@ -244,7 +246,18 @@ Phases, each of which must pass:
    launches nothing and creates nothing, a CTE shadowing a denied name).
    Every query's rows equal its ``tpch`` counterpart's, and both Q3s
    phase 11's. Prints ``FEDERATION`` lines;
-21. print the kernels line (JSON, with each kernel's warm-run launches per
+21. distributed TPC-H (``run_distributed_phase``): SQL Q1, Q3, Q5 and Q9
+   through ``DistributedQueryRunner`` on ``MeshContext([cuda:0] * 4)``,
+   four logical workers on the one card, under the session defaults
+   (streaming exchange, skew-aware) with ``hash_kernels="pallas"``: a cold
+   and a warm run each, rows equal to phase 11's for the same query (Q5 at
+   ``Q5_SCHEMA``, ``DIST_SCHEMA``), no page reaching an exchange from host
+   memory (``host_uploads`` 0), insert launches equal to the workers' join
+   builds plus grouped pages, and a probe launch wherever a worker built a
+   table; then Q3 under ``streaming_exchange=False`` with equal rows.
+   Prints ``DIST`` lines: walls, exchanges, chunks, pages, per-exchange
+   ``partition_rows`` and the warm run's launches;
+22. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
    ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``, phase 16 as
@@ -252,8 +265,8 @@ Phases, each of which must pass:
    phase 17 as ``SQL TRACE q3``, counted on the cold traced run, and ``SQL
    SPILL q18 disk``, phase 18 as ``SQL FILE pcol q3 mixed``, phase 19 as
    ``SQL HIVE q3 grouped unfused`` and ``SQL RAPTOR q6``, phase 20 as
-   ``SQL FED kafka stream join``), the card line, and last the result
-   line.
+   ``SQL FED kafka stream join``, phase 21 as ``SQL DIST Q3``), the card
+   line, and last the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -1721,12 +1734,14 @@ def ds_runner(device, schema: str, **props):
 
 def run_tpcds_phase(device, schema: str = "sf1", oracle_schema: str = DS_ORACLE_SCHEMA) -> dict:
     """Every TPC-DS query of ``models/tpcds_sql.py`` with
-    ``hash_kernels="pallas"`` under the full defaults: a cold run and a warm
-    run with the launch counters and ``COUNTERS`` set to 0 just before it
-    and read just after; then, at ``oracle_schema``, one run under the
-    oracle properties and one under the defaults. A TPC-DS scan has no
-    cache token, so warm regenerates its pages too. Fails unless cold and
-    warm give the same rows, and so do the two runs at ``oracle_schema``,
+    ``hash_kernels="pallas"`` under the full defaults: a warm run with the
+    launch counters and ``COUNTERS`` set to 0 just before it and read just
+    after, after a cold run for ``DS_DEEP`` only (whose kernel shapes the
+    cold run captures; the others' cold SF1 runs were cut for the script's
+    budget); then, at ``oracle_schema``, one run under the oracle
+    properties and one under the defaults. A TPC-DS scan has no cache
+    token, so every run regenerates its pages. Fails unless cold and warm
+    give the same rows, and so do the two runs at ``oracle_schema``,
     the warm run replayed no
     resident page, the insert launched once per join build and grouped
     page, a query that built on the table probed it with the kernel, and
@@ -1750,11 +1765,13 @@ def run_tpcds_phase(device, schema: str = "sf1", oracle_schema: str = DS_ORACLE_
         capture = KernelCapture() if q in DS_DEEP else None
         runner = ds_runner(device, schema)
         RESIDENT_CACHE.clear()
-        t0 = time.perf_counter()
-        with capture or contextlib.nullcontext():
-            cold = runner.execute(QUERIES[q])
-        sync()
-        cold_s = time.perf_counter() - t0
+        cold, cold_s = None, None
+        if q in DS_DEEP:
+            t0 = time.perf_counter()
+            with capture or contextlib.nullcontext():
+                cold = runner.execute(QUERIES[q])
+            sync()
+            cold_s = time.perf_counter() - t0
         if on_card:
             torch.cuda.reset_peak_memory_stats(device)
         before = {k: METRICS.counter_value(k) for k in COUNTERS}
@@ -1775,10 +1792,11 @@ def run_tpcds_phase(device, schema: str = "sf1", oracle_schema: str = DS_ORACLE_
             ds_runner(device, oracle_schema).execute(QUERIES[q])
         rec = {"q": q, "rows": res.rows, "launches": launches, "delta": delta,
                "drivers": res.drivers, "cold_s": cold_s, "warm_s": warm_s,
-               "oracle_s": oracle_s, "peak": peak, "scan": (cold.stats or {}).get("scan_pipeline"),
+               "oracle_s": oracle_s, "peak": peak,
+               "scan": ((cold or res).stats or {}).get("scan_pipeline"),
                "warm_scan": (res.stats or {}).get("scan_pipeline"),
                "oracle_schema": oracle_schema, "oracle_schema_rows": base.rows}
-        if not same_rows(cold.rows, res.rows):
+        if cold is not None and not same_rows(cold.rows, res.rows):
             raise AssertionError(f"SQL DS Q{q}: cold and warm rows differ:\n"
                                  f"{cold.rows}\n{res.rows}")
         if not same_rows(oracle.rows, base.rows):
@@ -1800,9 +1818,11 @@ def run_tpcds_phase(device, schema: str = "sf1", oracle_schema: str = DS_ORACLE_
         if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
             raise AssertionError(f"SQL DS Q{q}: a fallback: {delta}")
         out[q] = rec
-        log(f"DSPATH SQL DS Q{q} {schema}: {len(res.rows)} rows equal cold and warm, and "
-            f"under the oracle properties at {oracle_schema}; drivers per pipeline "
-            f"{res.drivers}; cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s (regenerated, "
+        cold_wall = f"{cold_s:.4f}s" if cold is not None else "not run"
+        log(f"DSPATH SQL DS Q{q} {schema}: {len(res.rows)} rows"
+            f"{' equal cold and warm,' if cold is not None else ''} equal under the oracle "
+            f"properties at {oracle_schema}; drivers per pipeline "
+            f"{res.drivers}; cold wall {cold_wall}, warm wall {warm_s:.4f}s (regenerated, "
             f"{res.resident_pages} resident pages), oracle at {oracle_schema} {oracle_s:.4f}s; "
             f"launches {launches}; join builds {int(builds)}, "
             f"fallbacks {int(delta['pallas.join_fallbacks'])}, grouped pages {int(pages)}")
@@ -2291,12 +2311,18 @@ def check_insert_at(device, label: str, comps, mask, slots, reps: int = 20,
     return out
 
 
+# the phase 14 queries that run once (no separate cold run)
+P14_ONE_RUN = ("agg sketch spill",)
+
+
 def run_p14_phase(device, schema: str = "sf1") -> dict:
     """Phase 14: windows, FULL joins and the new aggregates at TPC-H
     ``schema`` with ``hash_kernels="pallas"`` under the full defaults: each
     query cold (cache cleared; its kernel inputs captured), warm (launch
     counters and ``COUNTERS`` set to 0 just before it, the peak device
     memory reset); then on the card and the CPU at ``CPU_ROWS_SCHEMA``.
+    The sketch grouping (``P14_ONE_RUN``) runs once, with the counters set
+    to 0 before it: its cold SF1 run was cut for the script's budget.
     Fails unless the rows equal the numpy oracle's, the card's rows at
     ``CPU_ROWS_SCHEMA`` the CPU run's there, the insert launched once per
     join build and grouped page, nothing fell back, the per-day grouping took the insert
@@ -2316,11 +2342,13 @@ def run_p14_phase(device, schema: str = "sf1") -> dict:
         runner = sql_runner(device, "pallas", schema)
         RESIDENT_CACHE.clear()
         capture = KernelCapture()
-        t0 = time.perf_counter()
-        with capture:
-            runner.execute(sql)
-            sync()
-        cold_s = time.perf_counter() - t0
+        cold_s = None
+        if label not in P14_ONE_RUN:
+            t0 = time.perf_counter()
+            with capture:
+                runner.execute(sql)
+                sync()
+            cold_s = time.perf_counter() - t0
         before = {k: METRICS.counter_value(k) for k in COUNTERS + extra}
         ph.insert_table.launches = 0
         ph.probe_table.launches = 0
@@ -2367,7 +2395,8 @@ def run_p14_phase(device, schema: str = "sf1") -> dict:
         log(f"{kind} {label} {schema}: {len(res.rows)} rows equal to the numpy oracle; at "
             f"{CPU_ROWS_SCHEMA} the card's rows equal the CPU run's ({cpu_s:.2f}s on the "
             f"host); drivers per pipeline {res.drivers}; "
-            f"cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s; launches {launches}; join "
+            f"cold wall {'not run' if cold_s is None else f'{cold_s:.4f}s'}, warm wall "
+            f"{warm_s:.4f}s; launches {launches}; join "
             f"builds {int(builds)}, grouped pages {int(pages)}; epilogue rows "
             f"{int(delta['join.unmatched_build_rows'])}, spilled folds "
             f"{int(delta['agg.spilled_folds'])}, expansion chunks "
@@ -4626,6 +4655,120 @@ def run_federation_phase(device, q3_rows=None, schema: str = "sf1") -> dict:
     return out
 
 
+# phase 21: the mesh of logical workers on the one card, and the queries'
+# schemas. Q5 runs at Q5_SCHEMA, as in phases 8-11: at SF1 its
+# customer-supplier join expands to ~6.9e9 rows, which the distributed plan
+# repartitions on (l_orderkey, c_custkey) before the orders join
+DIST_WORKERS = 4
+DIST_QUERIES = (1, 3, 5, 9)
+DIST_SCHEMA = {5: Q5_SCHEMA}
+
+
+def run_distributed_phase(device, records: dict, card: str = "", schema: str = "sf1") -> dict:
+    """SQL Q1, Q3, Q5 and Q9 through ``DistributedQueryRunner`` on
+    ``DIST_WORKERS`` logical workers of ``device`` under the session
+    defaults with ``hash_kernels="pallas"``: a cold run (resident cache
+    cleared first), then a warm run with the launch counters and
+    ``COUNTERS`` set to 0 just before it and read just after. Fails unless
+    the rows equal phase 11's (``records``) at the same schema, no exchange
+    took a page from host memory, the insert launched once per worker's
+    join build and grouped page, a worker that built a table probed it
+    with the kernel, and nothing fell back; then Q3 under the barrier
+    exchange must give equal rows. Returns the records, keyed ``DIST Q3``."""
+    import torch
+
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.parallel.mesh import MeshContext
+    from presto_tpu_torch.parallel.runner import EXCHANGE_STATS, DistributedQueryRunner
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    mesh = MeshContext([device] * DIST_WORKERS)
+
+    def runner(s, **props):
+        return DistributedQueryRunner(
+            mesh, Session(catalog="tpch", schema=s,
+                          properties={"hash_kernels": "pallas", **props}), device=device)
+
+    def timed(r, sql):
+        t0 = time.perf_counter()
+        res = r.execute(sql)
+        sync()
+        return res, time.perf_counter() - t0
+
+    out = {}
+    uploads0 = EXCHANGE_STATS["host_uploads"]
+    for q in DIST_QUERIES:
+        qschema = DIST_SCHEMA.get(q, schema)
+        want = records[q]
+        if want.get("schema", schema) != qschema:
+            raise AssertionError(f"DIST Q{q}: phase 11 ran at {want.get('schema')}, not "
+                                 f"{qschema}")
+        r = runner(qschema)
+        RESIDENT_CACHE.clear()
+        cold, cold_s = timed(r, QUERIES[q])
+        before = {k: METRICS.counter_value(k) for k in COUNTERS}
+        uploads = EXCHANGE_STATS["host_uploads"]
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        res, warm_s = timed(r, QUERIES[q])
+        launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
+        uploads = EXCHANGE_STATS["host_uploads"] - uploads
+        for label, rows in (("cold", cold.rows), ("warm", res.rows)):
+            if not same_rows(rows, want["rows"]):
+                raise AssertionError(f"DIST Q{q} {qschema}: the {label} run's rows differ from "
+                                     f"phase 11's:\n{rows}\n{want['rows']}")
+        builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
+        if uploads:
+            raise AssertionError(f"DIST Q{q}: {uploads} pages reached an exchange from host "
+                                 "memory")
+        if on_card and launches["insert"] != builds + pages:
+            raise AssertionError(f"DIST Q{q}: insert launches {launches['insert']} != join "
+                                 f"builds {builds} + grouped pages {pages}")
+        if on_card and builds and not launches["probe"]:
+            raise AssertionError(f"DIST Q{q}: {builds} tables built, none probed by the kernel")
+        if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+            raise AssertionError(f"DIST Q{q}: a fallback: {delta}")
+        ex = res.stats["exchange"]
+        out[f"DIST Q{q}"] = {"rows": res.rows, "launches": launches, "cold_s": cold_s,
+                             "warm_s": warm_s, "exchange": ex}
+        log(f"DIST Q{q} {qschema} on {DIST_WORKERS} workers ({card}): {len(res.rows)} rows "
+            f"equal to phase 11's; cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s; "
+            f"{ex['exchanges']} exchanges, {ex.get('chunks', 0)} chunks, "
+            f"{ex.get('pages', 0)} pages, {ex.get('rows', 0)} rows delivered, carry "
+            f"{ex.get('carry_rows', 0)}; host_uploads {uploads}; warm launches {launches}; "
+            f"join builds {int(builds)}, grouped pages {int(pages)}")
+        for e in ex.get("per_exchange", []):
+            role = f" {e['skew_role']}" if "skew_role" in e else ""
+            log(f"  exchange f{e['fragment']} {e['kind']}{role}: chunks {e['chunks']}, rows "
+                f"{e['rows_out']}, partition_rows {e['partition_rows']}, hot keys "
+                f"{e['hot_keys']}, replicated {e['replicated_rows']}, dispatch "
+                f"{e['dispatch_s']}s, stall {e['stall_s']}s")
+    barrier, barrier_s = timed(runner(DIST_SCHEMA.get(3, schema), streaming_exchange=False),
+                               QUERIES[3])
+    if not same_rows(barrier.rows, out["DIST Q3"]["rows"]):
+        raise AssertionError(f"DIST Q3: barrier rows differ from streaming:\n{barrier.rows}\n"
+                             f"{out['DIST Q3']['rows']}")
+    if EXCHANGE_STATS["host_uploads"] != uploads0:
+        raise AssertionError(f"DIST: {EXCHANGE_STATS['host_uploads'] - uploads0} host uploads")
+    launched = {k: r["launches"] for k, r in out.items()}
+    if on_card and not (sum(v["insert"] for v in launched.values())
+                        and sum(v["probe"] for v in launched.values())):
+        raise AssertionError(f"DIST: a kernel never launched: {launched}")
+    bex = barrier.stats["exchange"]
+    log(f"DIST Q3 barrier exchange ({card}): rows equal to the streaming run's; wall "
+        f"{barrier_s:.4f}s; {bex['exchanges']} exchanges; host_uploads "
+        f"{EXCHANGE_STATS['host_uploads'] - uploads0} over the phase")
+    for rec in out.values():
+        rec.pop("rows")
+    return out
+
+
 def check_probe_at(device, label: str, slot_keys, slot_rows, keys, mask, trips,
                    reps: int = 20, plain_reps: int = 3) -> dict:
     """The probe against its plain version, bit for bit, at one captured
@@ -4780,6 +4923,8 @@ def main() -> int:
         phase_done(f"19 warehouse connectors (Parquet and ORC at {HIVE_FORMAT_SCHEMA})")
         federation_records = run_federation_phase(device, records[3]["rows"])
         phase_done("20 federated catalogs, access control")
+        dist_records = run_distributed_phase(device, records, card)
+        phase_done(f"21 distributed TPC-H on {DIST_WORKERS} workers (Q5 at {Q5_SCHEMA})")
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -4809,7 +4954,9 @@ def main() -> int:
                     **{f"SQL {label}": rec["launches"][k]
                        for label, rec in warehouse_records.items()},
                     **{f"SQL {label}": rec["launches"][k]
-                       for label, rec in federation_records.items()}}}
+                       for label, rec in federation_records.items()},
+                    **{f"SQL {label}": rec["launches"][k]
+                       for label, rec in dist_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -40,11 +40,17 @@ the 22 TPC-H queries, on an explicit ``device``:
   filtered scan the filter's column ranges (``_extract_constraint``), which
   its connector's split manager and page sources may prune with.
 - A VALUES list (``SELECT`` without ``FROM``) is one literal host page,
-  scanned once.
+  scanned once, by worker 0.
 - UNION [ALL], INTERSECT, EXCEPT and grouping sets plan as a UnionNode:
   each branch drains, in one driver, into a page buffer, and a replay scan
   reads the buffers once every branch has finished. Branch dictionaries
   are unified first (a minority branch remaps its codes on the device).
+- Distributed (``n_workers`` > 1, the mesh runner's fragments): one planner
+  per fragment, shared by every worker. Worker w of n reads splits w, w+n,
+  ... onto its own device (``devices``); a ``RemoteSourceNode`` plans into a
+  ``RemoteSourceSlot`` that the runner fills (barrier mode) or attaches a
+  streaming exchange to; PARTIAL and FINAL aggregation steps carry the
+  intermediate state columns the exchange planner named.
 
 Fusion, coalescing, the scan pipeline and parallel drivers are on by
 default, as in the reference; turned off, the port runs the reference's
@@ -67,6 +73,8 @@ from ..ops.aggregates import AggregateCall, resolve_aggregate
 from ..ops.expressions import (Constant, ExpressionCompiler, InputLayout, RowExpression,
                                SymbolRef, input_ref, resolve_symbols, symbol_ref, symbols_in)
 from ..ops.filter_project import FilterProjectOperatorFactory, PageProcessor
+from ..ops.hash_agg import FINAL as OP_FINAL
+from ..ops.hash_agg import PARTIAL as OP_PARTIAL
 from ..ops.hash_agg import SINGLE, HashAggregationOperatorFactory
 from ..ops.hash_join import (ANTI, FULL, INNER, LEFT, SEMI, JoinBuildOperatorFactory,
                              LookupJoinOperatorFactory, join_strategy)
@@ -80,7 +88,9 @@ from ..sql.planner.plan import (AggregationNode, EnforceSingleRowNode, FilterNod
                                 LimitNode, OutputNode, PlanNode, ProjectNode, SemiJoinNode,
                                 SortNode, Symbol, TableScanNode, TopNNode, UnionNode,
                                 ValuesNode)
-from ..sql.planner.plan import SINGLE as P_SINGLE
+from ..sql.planner.plan import RemoteSourceNode
+from ..sql.planner.plan import FINAL as P_FINAL
+from ..sql.planner.plan import PARTIAL as P_PARTIAL
 from ..types import BIGINT, BOOLEAN, Type, is_string
 from ..utils.testing import PageConsumerFactory
 from .driver import Driver
@@ -202,21 +212,19 @@ def _extract_constraint(filter_parts, scan: TableScanNode) -> Constraint:
         if domains else Constraint.all()
 
 
-# the port plans one local task, so every operator belongs to worker 0
-_WORKER = 0
-
-
 class _ReplaySource(ConnectorPageSource):
-    """A union's output: the pages of each branch buffer, in branch order,
-    read when the scan first asks (after every branch ended). It has no
-    ``cache_token``, so its pages never enter the resident cache."""
+    """A union's output on one worker: the pages of each branch buffer, in
+    branch order, read when the scan first asks (after every branch
+    ended). It has no ``cache_token``, so its pages never enter the
+    resident cache."""
 
-    def __init__(self, buffers: List[PageConsumerFactory]):
+    def __init__(self, buffers: List[PageConsumerFactory], worker: int):
         self.buffers = buffers
+        self.worker = worker
 
     def __iter__(self):
         for b in self.buffers:
-            yield from b.pages_for(_WORKER)
+            yield from b.pages_for(self.worker)
 
 
 @dataclasses.dataclass
@@ -243,6 +251,48 @@ class Chain:
         return [(self.symbols[idx[n]].type, self.dicts[idx[n]]) for n in names]
 
 
+class RemoteSourceSlot:
+    """A fragment's exchange endpoint: the barrier runner deposits each
+    worker's routed pages here after the collective ran; the streaming
+    runner attaches its ``StreamingExchange`` (``stream``) before the
+    drivers exist, and consumers then read the exchange's per-worker queue."""
+
+    def __init__(self, fragment_id: int):
+        self.fragment_id = fragment_id
+        self._pages_by_worker: Dict[int, List[Page]] = {}
+        self.stream = None
+
+    def set_pages(self, worker: int, pages: List[Page]) -> None:
+        self._pages_by_worker[worker] = list(pages)
+
+    def pages(self, worker: int) -> List[Page]:
+        return self._pages_by_worker.get(worker, [])
+
+    def make_source(self, worker: int) -> ConnectorPageSource:
+        return FixedPageSource(self.pages(worker))
+
+
+class RemoteSourceOperatorFactory(TableScanOperatorFactory):
+    """Exchange endpoint factory. The mode is decided when the drivers are
+    created, after the runner wired the slot: with a streaming exchange
+    attached, each consumer is a ``StreamingExchangeSource`` over its
+    worker's chunk queue; otherwise the scan replays the deposited pages."""
+
+    def __init__(self, operator_id: int, slot: RemoteSourceSlot, types: List[Type], device):
+        super().__init__(operator_id, lambda w: [slot.make_source(w)], types, None, device)
+        self.name = "RemoteSource"
+        self.slot = slot
+
+    def create_operator(self, worker: int = 0):
+        stream = self.slot.stream
+        if stream is not None:
+            from ..parallel.streaming_exchange import StreamingExchangeSource
+
+            return StreamingExchangeSource(self.context(worker), stream.out_buffer(worker),
+                                           list(self._types))
+        return super().create_operator(worker)
+
+
 @dataclasses.dataclass
 class LocalExecutionPlan:
     pipelines: List[List[object]]   # factory chains, dependency order
@@ -254,11 +304,15 @@ class LocalExecutionPlan:
     segment_decisions: List[dict] = dataclasses.field(default_factory=list)
     # the output columns' dictionaries (a CTAS copies them for its table)
     output_dicts: List[Optional[Dictionary]] = dataclasses.field(default_factory=list)
+    # producer fragment id -> the exchange endpoint of its RemoteSourceNode
+    remote_slots: Dict[int, RemoteSourceSlot] = dataclasses.field(default_factory=dict)
 
-    def create_drivers(self) -> List[Driver]:
-        """``parallel_drivers`` drivers per pipeline (one unless the head
-        scan was cut for parallelism), in dependency order."""
-        return [Driver([f.create_operator() for f in chain])
+    def create_drivers(self, worker: int = 0) -> List[Driver]:
+        """One driver set for ``worker``: ``parallel_drivers`` drivers per
+        pipeline (one unless the head scan was cut for parallelism), in
+        dependency order. The factories are shared by every worker;
+        per-worker state (splits, lookup sources, sinks) keys off the index."""
+        return [Driver([f.create_operator(worker) for f in chain])
                 for chain in self.pipelines
                 for _ in range(getattr(chain[0], "parallel_drivers", 1))]
 
@@ -266,15 +320,33 @@ class LocalExecutionPlan:
 class LocalExecutionPlanner:
     """Plans one query on ``device`` (default ``"cuda"``; raises without CUDA).
     ``bucket_filter``: grouped execution's lifespan, whose scans keep only
-    the splits of that bucket (``exec/grouped.py``)."""
+    the splits of that bucket (``exec/grouped.py``).
+
+    Distributed: one planner per fragment, shared by its workers.
+    ``n_workers`` scopes the scans (worker w of n reads splits w, w+n, ...),
+    ``devices`` places worker w's scans and builds on ``devices[w]`` (and
+    ``device`` becomes the first of them), ``remote_dicts`` holds each
+    planned producer fragment's output dictionaries, ``remote_roots`` each
+    fragment's plan (a build key's uniqueness proof follows a remote source
+    into its producer), and ``pool_key`` is the query's one fairness slot
+    on the shared pools."""
 
     def __init__(self, metadata: MetadataManager, session: Session, device="cuda",
-                 bucket_filter: Optional[int] = None):
+                 bucket_filter: Optional[int] = None, n_workers: int = 1,
+                 devices: Optional[Sequence] = None,
+                 remote_dicts: Optional[Dict[int, List[Optional[Dictionary]]]] = None,
+                 pool_key: Optional[str] = None,
+                 remote_roots: Optional[Dict[int, PlanNode]] = None):
         session.check_supported()
         self.bucket_filter = bucket_filter
         self.metadata = metadata
         self.session = session
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in devices] if devices is not None else None
+        self.device = self.devices[0] if self.devices else resolve_device(device)
+        self.n_workers = n_workers
+        self.remote_dicts = remote_dicts or {}
+        self.remote_roots = remote_roots or {}
+        self.remote_slots: Dict[int, RemoteSourceSlot] = {}
         cap = session.get("page_capacity")
         self.page_capacity = int(cap) if cap else default_page_capacity(self.device)
         self.hash_kernels = str(session.get("hash_kernels"))
@@ -284,8 +356,9 @@ class LocalExecutionPlanner:
         # fairness slot on the shared scan pool).
         threads = session.get("scan_reader_threads")
         rows = session.get("scan_target_page_rows")
-        pool_key = None
-        if bool(session.get("shared_pools")):
+        if not bool(session.get("shared_pools")):
+            pool_key = None
+        elif pool_key is None:
             from .shared_pools import next_query_key
 
             pool_key = next_query_key()
@@ -308,13 +381,18 @@ class LocalExecutionPlanner:
         self._memory_ctx = memory
         self._revoke_check = revoke_check
 
-    def plan(self, root: OutputNode) -> LocalExecutionPlan:
+    def plan(self, root: OutputNode, sink_factory=None) -> LocalExecutionPlan:
+        """``sink_factory``: a callable (types, dicts) -> OperatorFactory in
+        place of the page-buffer sink (a streaming exchange's sink)."""
         chain = self.visit(root.source)
         # final projection into the user's column order
         if [s.name for s in root.symbols] != [s.name for s in chain.symbols]:
             chain = self._append_project(
                 chain, [(s, symbol_ref(s.name, s.type)) for s in root.symbols])
-        sink = PageConsumerFactory(next(self._ids), [s.type for s in chain.symbols])
+        if sink_factory is not None:
+            sink = sink_factory([s.type for s in chain.symbols], list(chain.dicts))
+        else:
+            sink = PageConsumerFactory(next(self._ids), [s.type for s in chain.symbols])
         self._add_pipeline(chain.factories + [sink])
         # fusion first: a fused factory forwards the memory to its terminal
         decisions = self._fuse_pipelines()
@@ -325,10 +403,12 @@ class LocalExecutionPlanner:
                     fac.memory_ctx = mem
                     fac.revoke_check = self._revoke_check
                     fac.spill_manager = getattr(mem, "spill", None)
+                fac.devices = self.devices
                 if isinstance(fac, TableScanOperatorFactory) and fac.scan_options is None:
                     fac.scan_options = self.scan_options
         return LocalExecutionPlan(self.pipelines, sink, root.column_names,
-                                  [s.type for s in chain.symbols], decisions, list(chain.dicts))
+                                  [s.type for s in chain.symbols], decisions, list(chain.dicts),
+                                  self.remote_slots)
 
     # --------------------------------------------------- driver parallelism
 
@@ -439,9 +519,16 @@ class LocalExecutionPlanner:
 
     @staticmethod
     def _segment_output_types(last) -> List[Type]:
-        """Output types of a segment: those of its last member."""
+        """Output types of a segment: those of its last member (a PARTIAL
+        aggregation's are its keys and state columns)."""
         if isinstance(last, HashAggregationOperatorFactory):
-            return list(last.key_types) + [c.function.output_type for c in last.calls]
+            out = list(last.key_types)
+            for c in last.calls:
+                if last.step == OP_PARTIAL:
+                    out.extend(c.function.intermediate_types)
+                else:
+                    out.append(c.function.output_type)
+            return out
         if isinstance(last, TopNOperatorFactory):
             return list(last.types)
         if isinstance(last, FilterProjectOperatorFactory):
@@ -489,9 +576,11 @@ class LocalExecutionPlanner:
         processor = PageProcessor(layout, and_all(filter_parts),
                                   [mapping[s.name] for s in out_symbols])
         if isinstance(cur, TableScanNode):
-            sources = self._page_sources(cur, _extract_constraint(filter_parts, cur))
-            fac = TableScanOperatorFactory(next(self._ids), sources,
-                                           processor.output_types, processor, self.device)
+            sources, per_worker = self._page_sources(cur,
+                                                     _extract_constraint(filter_parts, cur))
+            fac = TableScanOperatorFactory(next(self._ids), sources, processor.output_types,
+                                           processor, self.device,
+                                           sources_per_worker=per_worker)
             return Chain([fac], list(out_symbols), processor.output_dicts)
         fac = FilterProjectOperatorFactory(next(self._ids), processor)
         return Chain(base.factories + [fac], list(out_symbols), processor.output_dicts)
@@ -502,9 +591,10 @@ class LocalExecutionPlanner:
                            [meta.column(col.name).dictionary for _, col in node.assignments])
 
     def _page_sources(self, node: TableScanNode, constraint: Constraint):
-        """One source over every split of the table (one scan driver).
-        ``constraint`` carries the scan filter's column ranges to the split
-        manager and the page sources, which may prune with them (file
+        """-> (callable worker -> [page source], splits per worker): the
+        splits dealt round-robin over the fragment's workers, one
+        concatenated source (one driver) each. ``constraint`` carries the scan filter's column ranges to the
+        split manager and the page sources, which may prune with them (file
         statistics, range pre-filters)."""
         conn = self.metadata.connector(node.table.connector_id)
         splits = conn.split_manager().get_splits(node.table, constraint, 8)
@@ -512,18 +602,34 @@ class LocalExecutionPlanner:
             splits = [s for s in splits if s.bucket == self.bucket_filter]
         cols = [c for _, c in node.assignments]
         provider = conn.page_source_provider()
-        return [ConcatPageSource(provider.create_page_source(s, cols, self.page_capacity,
-                                                             constraint)
-                                 for s in splits)]
+        count = self.n_workers
+
+        def for_worker(w: int):
+            mine = [s for i, s in enumerate(splits) if i % count == w]
+            return [ConcatPageSource(provider.create_page_source(s, cols, self.page_capacity,
+                                                                 constraint)
+                                     for s in mine)]
+        return for_worker, -(-len(splits) // max(count, 1))
 
     def visit_TableScanNode(self, node: TableScanNode) -> Chain:
         processor = PageProcessor(self._scan_layout(node), None,
                                   [input_ref(i, s.type)
                                    for i, (s, _) in enumerate(node.assignments)])
-        fac = TableScanOperatorFactory(next(self._ids),
-                                       self._page_sources(node, Constraint.all()),
-                                       processor.output_types, processor, self.device)
+        sources, per_worker = self._page_sources(node, Constraint.all())
+        fac = TableScanOperatorFactory(next(self._ids), sources, processor.output_types,
+                                       processor, self.device, sources_per_worker=per_worker)
         return Chain([fac], [s for s, _ in node.assignments], processor.output_dicts)
+
+    def visit_RemoteSourceNode(self, node) -> Chain:
+        """A producer fragment's routed pages on each worker: the endpoint of
+        the exchange the runner runs between fragments."""
+        slot = self.remote_slots.get(node.fragment_id)
+        if slot is None:
+            slot = self.remote_slots[node.fragment_id] = RemoteSourceSlot(node.fragment_id)
+        fac = RemoteSourceOperatorFactory(next(self._ids), slot,
+                                          [s.type for s in node.symbols], self.device)
+        dicts = self.remote_dicts.get(node.fragment_id, [None] * len(node.symbols))
+        return Chain([fac], list(node.symbols), list(dicts))
 
     def visit_ValuesNode(self, node: ValuesNode) -> Chain:
         """One literal host page of the rows; the scan uploads it once."""
@@ -547,8 +653,11 @@ class LocalExecutionPlanner:
             blocks.append(b)
             dicts.append(b.dictionary)
         page = Page(tuple(blocks), torch.arange(cap) < len(node.rows))
-        fac = TableScanOperatorFactory(next(self._ids), [FixedPageSource([page])],
-                                       [s.type for s in node.symbols], None, self.device)
+        # the rows exist once: only worker 0 emits them (a multi-worker
+        # fragment would otherwise repeat them once per worker)
+        fac = TableScanOperatorFactory(
+            next(self._ids), lambda w: [FixedPageSource([page] if w == 0 else [])],
+            [s.type for s in node.symbols], None, self.device)
         return Chain([fac], list(node.symbols), dicts)
 
     # ------------------------------------------------------------- joins
@@ -692,7 +801,13 @@ class LocalExecutionPlanner:
 
     def _keys_unique(self, node: PlanNode, keys: List[Symbol]) -> bool:
         """Conservative uniqueness proof for the build keys, from the
-        connector's unique column sets."""
+        connector's unique column sets. An exchange moves each row to one
+        worker, or every row to each worker, so a remote source is unique
+        where its producer fragment is; a PARTIAL aggregation's groups are
+        not (each worker emits its own)."""
+        if isinstance(node, RemoteSourceNode):
+            root = self.remote_roots.get(node.fragment_id)
+            return root is not None and self._keys_unique(root, keys)
         names = {k.name for k in keys}
         if isinstance(node, TableScanNode):
             by_symbol = {s.name: c.name for s, c in node.assignments}
@@ -715,7 +830,7 @@ class LocalExecutionPlanner:
         if isinstance(node, SemiJoinNode):
             return self._keys_unique(node.source, keys)
         if isinstance(node, AggregationNode):
-            return {k.name for k in node.keys} <= names
+            return node.step != P_PARTIAL and {k.name for k in node.keys} <= names
         if isinstance(node, EnforceSingleRowNode):
             return True
         return False
@@ -723,10 +838,12 @@ class LocalExecutionPlanner:
     # ------------------------------------------------------- aggregation
 
     def visit_AggregationNode(self, node: AggregationNode) -> Chain:
-        if node.step != P_SINGLE:
-            raise NotImplementedError(
-                f"{node.step} aggregation steps are not ported to presto_tpu_torch")
+        """SINGLE, PARTIAL or FINAL. A FINAL call reads the state columns
+        the exchange planner named (``intermediate_symbols``); a PARTIAL one
+        emits them, and a min/max state over a dictionary column keeps the
+        dictionary on its first state column for the FINAL step."""
         src = self.visit(node.source)
+        step = node.step
         key_ch = [src.channel(k.name) for k in node.keys]
         key_types = [k.type for k in node.keys]
         key_dicts = [src.dicts[c] for c in key_ch]
@@ -742,9 +859,21 @@ class LocalExecutionPlanner:
         calls = []
         out_dicts = list(key_dicts)
         out_syms = list(node.keys)
-        for sym, ac in node.aggregations:
+        for i, (sym, ac) in enumerate(node.aggregations):
             fn = resolve_aggregate(ac.name, [a.type for a in ac.args], ac.distinct,
                                    getattr(ac, "params", ()))
+            if step == P_FINAL:
+                inter_ch = [src.channel(s.name) for s in node.intermediate_symbols[i]]
+                out_dict = src.dicts[inter_ch[0]] \
+                    if ac.name in ("min", "max", "arbitrary", "any_value") and inter_ch \
+                    and src.dicts[inter_ch[0]] is not None else None
+                if fn.output_dict is not None:
+                    out_dict = fn.output_dict
+                calls.append(AggregateCall(fn, [], None, intermediate_channels=inter_ch,
+                                           output_dictionary=out_dict))
+                out_syms.append(sym)
+                out_dicts.append(out_dict)
+                continue
             arg_ch = [src.channel(a.name) for a in ac.args]
             mask_ch = src.channel(ac.filter.name) if ac.filter is not None else None
             # min/max/arbitrary and min_by/max_by over a dictionary column
@@ -756,12 +885,18 @@ class LocalExecutionPlanner:
             if fn.output_dict is not None:
                 out_dict = fn.output_dict
             calls.append(AggregateCall(fn, arg_ch, mask_ch, output_dictionary=out_dict))
-            out_syms.append(sym)
-            out_dicts.append(out_dict)
+            if step == P_PARTIAL:
+                isyms = node.intermediate_symbols[i]
+                out_syms.extend(isyms)
+                out_dicts.extend(out_dict if j == 0 else None for j in range(len(isyms)))
+            else:
+                out_syms.append(sym)
+                out_dicts.append(out_dict)
         # hash_kernels -> the grouping builder's insert-or-accumulate mode
         hash_grouping = {"pallas": "force", "auto": "auto"}.get(self.hash_kernels, "off")
+        op_step = {P_PARTIAL: OP_PARTIAL, P_FINAL: OP_FINAL}.get(step, SINGLE)
         fac = HashAggregationOperatorFactory(
-            next(self._ids), key_ch, key_types, key_dicts, calls, SINGLE,
+            next(self._ids), key_ch, key_types, key_dicts, calls, op_step,
             self.page_capacity, max_groups=int(self.session.get("max_groups")),
             device=self.device, key_domains=key_domains, hash_grouping=hash_grouping)
         return Chain(src.factories + [fac], out_syms, out_dicts)
@@ -858,14 +993,16 @@ class LocalExecutionPlanner:
             self.pipelines.append(facs + [buf])
             buffers.append(buf)
 
-        def all_branches_done() -> bool:
-            return all(b.consumers_by_worker.get(_WORKER)
-                       and all(c.is_finished() for c in b.consumers_by_worker[_WORKER])
-                       for b in buffers)
+        def ready(w: int):
+            def all_branches_done() -> bool:
+                return all(b.consumers_by_worker.get(w)
+                           and all(c.is_finished() for c in b.consumers_by_worker[w])
+                           for b in buffers)
+            return all_branches_done
 
-        fac = TableScanOperatorFactory(next(self._ids), [_ReplaySource(buffers)],
+        fac = TableScanOperatorFactory(next(self._ids), lambda w: [_ReplaySource(buffers, w)],
                                        [s.type for s in node.symbols], None, self.device,
-                                       ready=all_branches_done)
+                                       ready=ready)
         return Chain([fac], list(node.symbols), dicts)
 
     @staticmethod

@@ -1,9 +1,11 @@
-"""Process-wide shared worker pool for the scan pipeline's stages.
+"""Process-wide shared worker pools: the scan stages and the exchange pumps.
 
 Counterpart of ``presto_tpu/exec/shared_pools.py``. Every scan pipeline's
-reader, decode and upload stages run on :data:`SCAN_POOL`, a pool sized once
-per process whose threads are reused across queries, so N concurrent
-queries cost O(pool) threads instead of O(N * stages).
+reader, decode and upload stages run on :data:`SCAN_POOL`, and every
+streaming exchange's pump (``parallel/streaming_exchange.py``) on
+:data:`EXCHANGE_POOL`: pools sized once per process whose threads are
+reused across queries, so N concurrent queries cost O(pool) threads instead
+of O(N * stages).
 
 - Work is submitted as generators: each ``next()`` advances a stage by one
   bounded step (one chunk read, one upload). A stage that cannot progress
@@ -23,8 +25,8 @@ The submitting thread's flight recorder (``utils/trace.py``) rides with
 each generator, and a worker binds it around every step it takes for that
 generator, recording a ``pool`` span ``<pool>_step``; ``PoolClient.steps``
 counts the steps taken for a client (live progress reads it). The
-reference's streaming-exchange pool, lock-sanitizer hooks, size override
-and metric gauges are not ported.
+reference's lock-sanitizer hooks, size override and metric gauges are not
+ported.
 """
 from __future__ import annotations
 
@@ -162,6 +164,8 @@ class SharedWorkerPool:
 # the process-wide scan pool; its threads start at the first query that
 # uses it
 SCAN_POOL = SharedWorkerPool("scan", max(4, min(8, os.cpu_count() or 4)))
+# the streaming exchanges' pumps, sized as the reference's
+EXCHANGE_POOL = SharedWorkerPool("exchange", 4)
 
 _QUERY_KEYS = itertools.count(1)
 

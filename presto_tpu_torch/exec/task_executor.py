@@ -20,7 +20,9 @@ The first error any driver raises is recorded and raised in the caller
 once every runner thread has left; the other drivers are not run further
 (the caller closes them). When every unfinished driver is parked, none is
 running and no callback clears, nothing can unblock them: the run stops
-with an error instead of waiting forever.
+with an error instead of waiting forever. ``external``, when given, says
+whether a party outside the run (a streaming exchange's pump) may still
+unblock a parked driver; while it does, the run keeps polling.
 
 The calling thread's flight recorder (``utils/trace.py``) is captured when
 the run is made and bound in every runner thread, which records one
@@ -33,7 +35,7 @@ import heapq
 import itertools
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 from ..utils import trace
 from .driver import Driver, ProcessState
@@ -49,10 +51,11 @@ class TaskExecutor:
         self.n_threads = max(1, int(n_threads))
         self.quantum_ns = quantum_ns
 
-    def execute(self, drivers: Sequence[Driver]) -> None:
+    def execute(self, drivers: Sequence[Driver],
+                external: Optional[Callable[[], bool]] = None) -> None:
         if not drivers:
             return
-        run = _Run(list(drivers), self.quantum_ns)
+        run = _Run(list(drivers), self.quantum_ns, external)
         n = min(self.n_threads, len(drivers))
         if n == 1:
             run.runner_loop()
@@ -74,8 +77,10 @@ class TaskExecutor:
 class _Run:
     """The state of one execute() call."""
 
-    def __init__(self, drivers: List[Driver], quantum_ns: int):
+    def __init__(self, drivers: List[Driver], quantum_ns: int,
+                 external: Optional[Callable[[], bool]] = None):
         self.quantum_ns = quantum_ns
+        self.external = external
         self.cv = threading.Condition()
         self.ready: List = []            # heap of (consumed_ns, seq, driver)
         self.blocked: List = []          # [(driver, consumed_ns, unblock callback)]
@@ -115,7 +120,7 @@ class _Run:
                     consumed, _, d = heapq.heappop(self.ready)
                     self.running += 1
                     return d, consumed
-                if self.running == 0:
+                if self.running == 0 and not (self.external is not None and self.external()):
                     self.error = RuntimeError(
                         f"{len(self.blocked)} driver(s) blocked with no runnable "
                         "driver left")

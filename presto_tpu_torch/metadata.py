@@ -95,6 +95,26 @@ class Session:
         # sink each) when the source is at least K times this many rows
         "scaled_writers": True,
         "writer_min_rows_per_driver": 1 << 20,
+        # --- the multi-worker engine (parallel/, sql/planner/add_exchanges.py)
+        # BROADCAST | PARTITIONED | AUTOMATIC: AUTOMATIC replicates a join's
+        # build when the cost model says so, a build of at most
+        # broadcast_join_threshold_rows estimated rows
+        "join_distribution_type": "AUTOMATIC",
+        "broadcast_join_threshold_rows": 1 << 15,
+        # NONE | AUTOMATIC: accepted and read by nothing, as in the reference
+        "join_reordering_strategy": "AUTOMATIC",
+        # fragments exchange fixed-capacity chunks while producers run
+        # (parallel/streaming_exchange.py); False = the stage-barrier
+        # exchange, the differential oracle
+        "streaming_exchange": True,
+        # rows of a worker's chunk (pow2-rounded) and the in-flight bytes of
+        # one exchange; 0 = the engine defaults (2^16 rows, 256 MiB; the
+        # reference's chunk is 2^12 rows)
+        "exchange_chunk_rows": 0,
+        "exchange_inflight_bytes": 0,
+        # a partitioned INNER join's exchanges split a hot build key
+        # round-robin and replicate it on the probe side
+        "skew_aware_exchange": True,
     }
 
     def get(self, name: str, default=None):

@@ -72,7 +72,7 @@ def build_q3(schema: str = "sf1", page_capacity: int = 1 << 20, device="cuda",
                                   page_capacity)
     cpred = call("equal", BOOLEAN, input_ref(1, VARCHAR), constant("BUILDING", VARCHAR))
     cproc = PageProcessor(clayout, cpred, [input_ref(0, BIGINT)])
-    cscan = TableScanOperatorFactory(0, [csrc], cproc.output_types, cproc, device)
+    cscan = TableScanOperatorFactory(0, lambda w: [csrc], cproc.output_types, cproc, device)
     cbuild = JoinBuildOperatorFactory(1, [0], [], [], strategy="sorted", unique=False,
                                       device=device)
     d1 = Driver([cscan.create_operator(), cbuild.create_operator()])
@@ -86,7 +86,7 @@ def build_q3(schema: str = "sf1", page_capacity: int = 1 << 20, device="cuda",
     oproc = PageProcessor(olayout, opred,
                           [input_ref(0, BIGINT), input_ref(1, BIGINT),
                            input_ref(2, DATE), input_ref(3, oprio)])
-    oscan = TableScanOperatorFactory(2, [osrc], oproc.output_types, oproc, device)
+    oscan = TableScanOperatorFactory(2, lambda w: [osrc], oproc.output_types, oproc, device)
     osemi = LookupJoinOperatorFactory(
         3, cbuild.lookup_factory, [1], [0, 1, 2, 3],
         [(BIGINT, None), (BIGINT, None), (DATE, None), (oprio, None)],
@@ -105,7 +105,7 @@ def build_q3(schema: str = "sf1", page_capacity: int = 1 << 20, device="cuda",
     revenue = call("multiply", DecimalType(18, 4), input_ref(2, DEC),
                    call("subtract", DEC, constant(100, DEC), input_ref(3, DEC)))
     lproc = PageProcessor(llayout, lpred, [input_ref(0, BIGINT), revenue])
-    lscan = TableScanOperatorFactory(5, [lsrc], lproc.output_types, lproc, device)
+    lscan = TableScanOperatorFactory(5, lambda w: [lsrc], lproc.output_types, lproc, device)
     ljoin = LookupJoinOperatorFactory(
         6, obuild.lookup_factory, [0], [0, 1],
         [(BIGINT, None), (DecimalType(18, 4), None)],

@@ -26,6 +26,7 @@ port's own; the reference has none.
 """
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -150,8 +151,8 @@ class CoalesceOperatorFactory(OperatorFactory):
         super().__init__(operator_id, "Coalesce")
         self.types = types
 
-    def create_operator(self) -> CoalesceOperator:
-        return CoalesceOperator(self.context(), self.types)
+    def create_operator(self, worker: int = 0) -> CoalesceOperator:
+        return CoalesceOperator(self.context(worker), self.types)
 
 
 class DictionaryRemapOperator(Operator):
@@ -207,20 +208,31 @@ class DictionaryRemapOperator(Operator):
 
 class DictionaryRemapOperatorFactory(OperatorFactory):
     """``remaps``: one int32 host array (old code -> union code) or None per
-    channel, copied to ``device`` (default ``"cuda"``; raises without CUDA)
-    once here, not once per page; ``target_dicts``: the union dictionary
-    per channel (None = keep)."""
+    channel, copied to each worker's device (default ``"cuda"``; raises
+    without CUDA) once, not once per page; ``target_dicts``: the union
+    dictionary per channel (None = keep)."""
 
     def __init__(self, operator_id: int, types: List[Type],
                  remaps: Sequence[Optional[np.ndarray]], target_dicts=None, device="cuda"):
         super().__init__(operator_id, "DictionaryRemap")
-        device = resolve_device(device)
+        self.device = resolve_device(device)
         self.types = types
         self.remaps = [None if r is None
-                       else torch.from_numpy(np.ascontiguousarray(r, dtype=np.int32)).to(device)
+                       else torch.from_numpy(np.ascontiguousarray(r, dtype=np.int32)).to(self.device)
                        for r in remaps]
+        self._by_device = {self.device: self.remaps}
+        self._lock = threading.Lock()
         self.target_dicts = target_dicts
 
-    def create_operator(self) -> DictionaryRemapOperator:
-        return DictionaryRemapOperator(self.context(), self.types, self.remaps,
+    def remaps_on(self, device) -> List[Optional[torch.Tensor]]:
+        """The remap tables on ``device`` (a worker's), copied on first use."""
+        with self._lock:
+            if device not in self._by_device:
+                self._by_device[device] = [None if r is None else r.to(device)
+                                           for r in self.remaps]
+            return self._by_device[device]
+
+    def create_operator(self, worker: int = 0) -> DictionaryRemapOperator:
+        return DictionaryRemapOperator(self.context(worker), self.types,
+                                       self.remaps_on(self.worker_device(worker)),
                                        self.target_dicts)

@@ -112,6 +112,7 @@ class CollectAggregationBuilder:
     """Keeps all input rows; one sorted pass at finish (module doc)."""
 
     compact_table = True
+    from_intermediate = False
 
     def __init__(self, key_types: Sequence[Type], calls: Sequence[AggregateCall],
                  device="cuda"):

@@ -110,5 +110,5 @@ class FilterProjectOperatorFactory(OperatorFactory):
         super().__init__(operator_id, "FilterProject")
         self.processor = processor
 
-    def create_operator(self) -> Operator:
-        return FilterProjectOperator(self.context(), self.processor)
+    def create_operator(self, worker: int = 0) -> Operator:
+        return FilterProjectOperator(self.context(worker), self.processor)

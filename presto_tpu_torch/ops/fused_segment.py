@@ -99,14 +99,15 @@ class FusedSegmentOperatorFactory(OperatorFactory):
         self.compiles = 0        # compositions this factory made (cache misses)
         self.probe_launches = 0  # probe-kernel launches inside the segment
 
-    def create_operator(self) -> "FusedSegmentOperator":
+    def create_operator(self, worker: int = 0) -> "FusedSegmentOperator":
         tf = self.terminal_factory
         if tf is not None:
             # the terminal's builder is the segment's only revocable state
             tf.memory_ctx = self.memory_ctx
             tf.revoke_check = self.revoke_check
             tf.spill_manager = self.spill_manager
-        return FusedSegmentOperator(self.context(), self)
+            tf.devices = self.devices
+        return FusedSegmentOperator(self.context(worker), self)
 
     def note_pages(self, n: int, probe_launches: int) -> None:
         with self._lock:
@@ -131,8 +132,8 @@ class _AggTerminal:
     computes the page's contribution, which this absorbs into the
     operator's builder (its state and result building unchanged)."""
 
-    def __init__(self, factory: HashAggregationOperatorFactory):
-        self.op = factory.create_operator()
+    def __init__(self, factory: HashAggregationOperatorFactory, worker: int):
+        self.op = factory.create_operator(worker)
         self.builder = self.op.builder
         if isinstance(self.builder, GroupedAggregationBuilder):
             self.mode = "grouped"
@@ -193,8 +194,8 @@ class _TopNTerminal:
     """Terminal around a real TopNOperator: the composed function merges the
     page into the N-row buffer, which it takes as an argument."""
 
-    def __init__(self, factory: TopNOperatorFactory):
-        self.op = factory.create_operator()
+    def __init__(self, factory: TopNOperatorFactory, worker: int):
+        self.op = factory.create_operator(worker)
 
     def variant(self) -> str:
         return "topn"
@@ -255,9 +256,9 @@ class FusedSegmentOperator(Operator):
         tf = factory.terminal_factory
         self._terminal = None
         if isinstance(tf, HashAggregationOperatorFactory):
-            self._terminal = _AggTerminal(tf)
+            self._terminal = _AggTerminal(tf, context.worker)
         elif isinstance(tf, TopNOperatorFactory):
-            self._terminal = _TopNTerminal(tf)
+            self._terminal = _TopNTerminal(tf, context.worker)
         self._pending: Optional[Page] = None
         self._fused = None
         self._in_key = None
@@ -275,10 +276,11 @@ class FusedSegmentOperator(Operator):
             if not isinstance(mf, LookupJoinOperatorFactory) or st["source"] is not None:
                 continue
             lf = mf.lookup_factory
-            if lf.done():
-                st["source"] = lf.get()
+            w = self.context.worker
+            if lf.done(w):
+                st["source"] = lf.get(w)
                 continue
-            return lf.done
+            return lambda: lf.done(w)
         return None
 
     def needs_input(self) -> bool:

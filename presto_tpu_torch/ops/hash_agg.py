@@ -1,4 +1,4 @@
-"""Aggregation of the PyTorch port, SINGLE step: three builders.
+"""Aggregation of the PyTorch port: three builders, three steps.
 
 Counterpart of ``presto_tpu/ops/hash_agg.py``; ``make_builder`` picks the
 builder as the reference does (a GROUP BY with a collecting aggregate takes
@@ -49,8 +49,14 @@ sorted, partially reduced PCOL runs, one per partition; the partition count
 grows with the observed rows (``_adapt_disk_parts``). ``finish`` then
 merges partition by partition (``_merge_disk``), so the host holds one
 partition at a time. A sketch grouping (a vector state, under the wide cap)
-keeps its partials in host RAM, as in the reference. The PARTIAL/FINAL
-steps are not ported yet.
+keeps its partials in host RAM, as in the reference.
+
+Steps, as the reference wires them: SINGLE consumes rows and emits final
+values; PARTIAL consumes rows and emits ``[keys..., state columns...]``
+(each call's ``intermediate_types``); FINAL consumes those state columns
+(``AggregateCall.intermediate_channels``) and emits final values. A FINAL
+builder reads state columns as its contributions (``from_intermediate``);
+the GLOBAL builder fills a dead row's with the state's identity.
 """
 from __future__ import annotations
 
@@ -68,7 +74,7 @@ from .aggregates import ACARRY, AMAX, AMIN, MAX, MIN, SUM, AggregateCall
 from .operator import Operator, OperatorContext, OperatorFactory, timed
 from .sorting import lexsort_fast
 
-SINGLE = "single"
+PARTIAL, FINAL, SINGLE = "partial", "final", "single"
 
 
 def _builder_key(tag, b, input_dicts) -> tuple:
@@ -78,6 +84,7 @@ def _builder_key(tag, b, input_dicts) -> tuple:
             tuple(t.name for t in getattr(b, "key_types", ())),
             getattr(b, "_key_channels", None),
             tuple(getattr(b, "domains", ())),
+            b.from_intermediate,
             tuple(kernel_cache.dict_key(d) for d in input_dicts),
             tuple(kernel_cache.agg_call_key(c) for c in b.calls))
 
@@ -227,12 +234,16 @@ def _null_safe_keys(page: Page, key_channels) -> Tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
-def _call_contributions(calls, page: Page):
+def _call_contributions(calls, page: Page, from_intermediate: bool = False):
     """Per-row state contributions for every call; a NULL input row
-    contributes nothing (only a NULL ordering value, for min_by/max_by)."""
+    contributes nothing (only a NULL ordering value, for min_by/max_by).
+    ``from_intermediate`` (a FINAL step): the state columns themselves."""
     datas = tuple(b.data for b in page.blocks)
     contribs = []
     for call in calls:
+        if from_intermediate:
+            contribs.extend(datas[ch] for ch in call.intermediate_channels)
+            continue
         fn = call.function
         args = tuple(_ordering_codes(call, ai, page.blocks[c])
                      for ai, c in enumerate(call.input_channels))
@@ -370,6 +381,7 @@ class GroupedAggregationBuilder:
     table, with the reference's one-shot strategy pick from the first page."""
 
     compact_table = True  # finish() returns a prefix-valid table
+    from_intermediate = False
 
     def __init__(self, key_types: Sequence[Type], calls: Sequence[AggregateCall],
                  max_groups: int = 1 << 20, device="cuda", hash_grouping: str = "off"):
@@ -421,7 +433,7 @@ class GroupedAggregationBuilder:
 
     def _page_partial(self, page: Page, out_groups: int):
         keys = _null_safe_keys(page, self._key_channels)
-        contribs = _call_contributions(self.calls, page)
+        contribs = _call_contributions(self.calls, page, self.from_intermediate)
         return sort_group_reduce(keys, page.mask, tuple(contribs), self.kinds,
                                  self.identities, out_groups, self.widths)
 
@@ -429,7 +441,7 @@ class GroupedAggregationBuilder:
         """Defer mode: per-row keys and contributions, no per-page reduction;
         the fold takes this (keys, contribs, mask) triple like a partial."""
         keys = _null_safe_keys(page, self._key_channels)
-        return keys, tuple(_call_contributions(self.calls, page)), page.mask
+        return keys, tuple(_call_contributions(self.calls, page, self.from_intermediate)), page.mask
 
     def _full_groups(self, capacity: int) -> int:
         return capacity if self._wide_cap is None else min(capacity, self._wide_cap)
@@ -533,7 +545,7 @@ class GroupedAggregationBuilder:
 
         mask = page.mask
         keys = _null_safe_keys(page, self._key_channels)
-        contribs = _call_contributions(self.calls, page)
+        contribs = _call_contributions(self.calls, page, self.from_intermediate)
         comps = torch.stack([k.to(torch.int64) for k in keys]).contiguous()
         slot_comps, slot_rows, gid, stats = ph.insert_table(comps, mask.contiguous(), slots)
         # masked and overflowed rows -> the trash segment (an overflow also
@@ -833,6 +845,7 @@ class DirectAggregationBuilder:
     its NULL group). Its table has holes: ``valid`` marks the groups seen."""
 
     compact_table = False
+    from_intermediate = False
 
     def __init__(self, key_types: Sequence[Type], domains: Sequence[int],
                  calls: Sequence[AggregateCall], device="cuda"):
@@ -865,7 +878,7 @@ class DirectAggregationBuilder:
                 code = torch.where(page.blocks[ch].nulls, base, code)
             gid = gid * dom + code
         gid = torch.where(mask, gid, self.D)  # dead rows -> the trash segment
-        contribs = _call_contributions(self.calls, page)
+        contribs = _call_contributions(self.calls, page, self.from_intermediate)
         parts = _reduce_all(contribs, self.kinds, self.identities, self.widths, gid, self.D)
         hits = _segment_reduce(SUM, mask.to(torch.int32), gid, self.D + 1)[:self.D]
         return tuple(_merge_tables(self.kinds, table, parts)), seen | (hits > 0)
@@ -914,6 +927,7 @@ class GlobalAggregationBuilder:
     """No GROUP BY: one scalar (or (width,) vector) state per state column."""
 
     compact_table = True
+    from_intermediate = False
 
     def __init__(self, calls: Sequence[AggregateCall], device="cuda"):
         self.calls = list(calls)
@@ -935,7 +949,12 @@ class GlobalAggregationBuilder:
         """One page folded into the state: a new state. An AMIN/AMAX pair
         takes the page's first extreme row (argmin/argmax) and replaces the
         state only when strictly better, so an earlier page keeps a tie."""
-        contribs = _call_contributions(self.calls, page)
+        contribs = _call_contributions(self.calls, page, self.from_intermediate)
+        if self.from_intermediate:
+            # a dead row's state columns are padding: the identity instead
+            contribs = [torch.where(page.mask if c.dim() == 1 else page.mask[:, None], c,
+                                    torch.tensor(col.identity, dtype=c.dtype, device=c.device))
+                        for c, col in zip(contribs, self.state_cols)]
         new = []
         i = 0
         while i < len(self.kinds):
@@ -988,10 +1007,21 @@ DIRECT_DOMAIN_LIMIT = 1 << 16
 
 
 def make_builder(key_types, key_domains, calls, max_groups: int = 1 << 20,
-                 device="cuda", hash_grouping: str = "off"):
+                 device="cuda", hash_grouping: str = "off", from_intermediate: bool = False):
     """The reference's strategy pick: GLOBAL without keys, DIRECT when every
     key has a known small domain, GROUPED otherwise; COLLECT whenever a
-    call is a collecting aggregate (``ops/collect_agg.py``)."""
+    call is a collecting aggregate (``ops/collect_agg.py``).
+    ``from_intermediate``: a FINAL step's builder, fed state columns."""
+    b = _make_builder(key_types, key_domains, calls, max_groups, device, hash_grouping)
+    if from_intermediate:
+        if not isinstance(b, (GroupedAggregationBuilder, DirectAggregationBuilder,
+                              GlobalAggregationBuilder)):
+            raise ValueError("collect aggregates are single-phase (splittable=False)")
+        b.from_intermediate = True
+    return b
+
+
+def _make_builder(key_types, key_domains, calls, max_groups, device, hash_grouping):
     from .collect_agg import COLLECT_NAMES, CollectAggregationBuilder
 
     if any(c.function.name in COLLECT_NAMES for c in calls):
@@ -1010,11 +1040,12 @@ def make_builder(key_types, key_domains, calls, max_groups: int = 1 << 20,
 
 
 class HashAggregationOperator(Operator):
-    """SINGLE-step aggregation: consumes rows, emits final values."""
+    """Steps: PARTIAL emits [keys..., state columns...]; FINAL consumes
+    those; SINGLE does both."""
 
     def __init__(self, context: OperatorContext, builder, key_channels: List[int],
                  key_types: List[Type], key_dicts, calls: List[AggregateCall],
-                 output_capacity: int):
+                 output_capacity: int, step: str = SINGLE):
         super().__init__(context)
         self.builder = builder.set_channels(key_channels)
         # the grouped builder's disk rung takes the query's SpillManager
@@ -1024,11 +1055,18 @@ class HashAggregationOperator(Operator):
         self.key_dicts = key_dicts
         self.calls = calls
         self.output_capacity = output_capacity
+        self.step = step
         self._result_pages: Optional[List[Page]] = None
 
     @property
     def output_types(self) -> List[Type]:
-        return list(self.key_types) + [c.function.output_type for c in self.calls]
+        out = list(self.key_types)
+        for c in self.calls:
+            if self.step == PARTIAL:
+                out.extend(c.function.intermediate_types)
+            else:
+                out.append(c.function.output_type)
+        return out
 
     @timed("add_input_ns")
     def add_input(self, page: Page) -> None:
@@ -1089,8 +1127,13 @@ class HashAggregationOperator(Operator):
         si = 0
         for call in self.calls:
             ncols = len(call.function.state)
-            out = call.function.final_map(states[si: si + ncols])
+            group_states = states[si: si + ncols]
             si += ncols
+            if self.step == PARTIAL:
+                for it, st in zip(call.function.intermediate_types, group_states):
+                    out_cols.append((it, st, None, None))
+                continue
+            out = call.function.final_map(group_states)
             nulls = None
             if isinstance(out, tuple):  # (data, null_mask) contract
                 out, nulls = out
@@ -1122,7 +1165,7 @@ def _slice_pad(a: torch.Tensor, lo: int, cap: int) -> torch.Tensor:
 class HashAggregationOperatorFactory(OperatorFactory):
     """``key_domains`` (one size per key, or None) and ``hash_grouping``
     (off | auto | force) steer ``make_builder`` as the reference's planner
-    steers it; the builder works on ``device``."""
+    steers it; the builder works on the worker's device."""
 
     def __init__(self, operator_id: int, key_channels, key_types,
                  key_dicts: Sequence[Optional[Dictionary]], calls, step: str,
@@ -1130,8 +1173,9 @@ class HashAggregationOperatorFactory(OperatorFactory):
                  key_domains: Optional[Sequence[Optional[int]]] = None,
                  hash_grouping: str = "off"):
         super().__init__(operator_id, f"HashAggregation({step})")
-        if step != SINGLE:
-            raise NotImplementedError(f"aggregation step {step} is not ported yet")
+        if step not in (PARTIAL, FINAL, SINGLE):
+            raise ValueError(f"unknown aggregation step {step!r}")
+        self.step = step
         self.key_channels = list(key_channels)
         self.key_types = list(key_types)
         self.key_dicts = list(key_dicts)
@@ -1142,9 +1186,11 @@ class HashAggregationOperatorFactory(OperatorFactory):
         self.key_domains = key_domains
         self.hash_grouping = hash_grouping
 
-    def create_operator(self) -> Operator:
+    def create_operator(self, worker: int = 0) -> Operator:
         builder = make_builder(self.key_types, self.key_domains, self.calls,
-                               self.max_groups, self.device, self.hash_grouping)
-        return HashAggregationOperator(self.context(), builder, self.key_channels,
+                               self.max_groups, self.worker_device(worker),
+                               self.hash_grouping,
+                               from_intermediate=self.step == FINAL)
+        return HashAggregationOperator(self.context(worker), builder, self.key_channels,
                                        self.key_types, self.key_dicts, self.calls,
-                                       self.page_capacity)
+                                       self.page_capacity, self.step)

@@ -3,7 +3,12 @@
 Counterpart of ``presto_tpu/ops/hash_join.py`` for INNER, LEFT and FULL joins on
 any number of keys, with unique or duplicate build keys, and the SEMI and
 ANTI probes (null-aware for IN / NOT IN), exact-key or with a join filter.
-Two build strategies:
+Three build strategies:
+
+0. DENSE: a unique single-key build scatters its row ids into an int32
+   table over ``[dense_min, dense_max]`` (``_build_dense``); the probe is
+   one gather (``probe_match_dense``). The SQL planner never picks it:
+   only direct operator construction does, as in the reference.
 
 1. SORTED: build rows sorted by their int64 combined key; the probe
    binary-searches the sorted keys and verifies the true keys
@@ -38,14 +43,15 @@ and then the NULL-key rows with NULL probe columns
 (``_emit_unmatched_build``). Such a probe runs on one driver.
 
 A build row's id is its position in the concatenation of the compacted
-build pages, as in the reference. Under memory pressure one revocation
+build pages, as in the reference. One factory serves every worker of a
+distributed fragment: each worker's build drivers publish that worker's
+lookup source, which only that worker's probes read. Under memory pressure one revocation
 walks the reference's ladder: a build moves its device pages to host RAM
 and, when the query has a disk tier, writes the host pages' live rows as
 PCOL runs (``_spill_host_to_disk``; a page with a dtype PCOL cannot store
 stays in RAM). ``_build`` reads the runs back to host pages and re-admits
 every host page to the build's device before the table is built, so the
-insert kernel always sees card tensors. The dense strategy (and the probe
-stage's DENSE branch) is not ported yet; INNER/LEFT join filters
+insert kernel always sees card tensors. INNER/LEFT join filters
 are never planned (the optimizer moves a one-sided residual into a filter
 and refuses a two-sided one on an outer join).
 """
@@ -106,7 +112,7 @@ def combined_key(keys: Sequence[torch.Tensor]) -> torch.Tensor:
 
 @dataclasses.dataclass
 class LookupSource:
-    kind: str                             # "sorted" | "pallas"
+    kind: str                             # "dense" | "sorted" | "pallas"
     key_arrays: Tuple[torch.Tensor, ...]  # true build key columns (compacted)
     payload: Tuple[torch.Tensor, ...]     # build output columns (compacted)
     payload_meta: List[Tuple[Type, Optional[Dictionary]]]
@@ -118,6 +124,9 @@ class LookupSource:
     ph_keys: Optional[torch.Tensor] = None  # (slots,) int64 stored keys
     ph_rows: Optional[torch.Tensor] = None  # (slots,) int32 row idx, -1 empty
     ph_trips: int = 0                       # probe trip count (pow2)
+    # dense: table[key - base] is the build row, -1 for none
+    table: Optional[torch.Tensor] = None    # (domain,) int32
+    base: int = 0
     # exact multi-key packing (per key column, host ints): when the build
     # keys' live ranges fit 62 bits the combined key is a bijective pack
     pack_offsets: Optional[Tuple[int, ...]] = None
@@ -157,22 +166,31 @@ class LookupSource:
 
 
 class LookupSourceFactory:
-    """A future the probes block on: set once by the build, then read by
-    every probe driver (the source is immutable once set)."""
+    """A future per worker that the probes block on: set once by that
+    worker's build, then read by every probe driver of the worker (the
+    source is immutable once set)."""
 
     def __init__(self):
-        self._event = threading.Event()
-        self._source: Optional[LookupSource] = None
+        self._lock = threading.Lock()
+        self._slots = {}  # worker -> [Event, LookupSource]
 
-    def set(self, source: LookupSource) -> None:
-        self._source = source
-        self._event.set()
+    def _slot(self, worker: int):
+        with self._lock:
+            slot = self._slots.get(worker)
+            if slot is None:
+                slot = self._slots[worker] = [threading.Event(), None]
+            return slot
 
-    def done(self) -> bool:
-        return self._event.is_set()
+    def set(self, source: LookupSource, worker: int = 0) -> None:
+        slot = self._slot(worker)
+        slot[1] = source
+        slot[0].set()
 
-    def get(self) -> LookupSource:
-        return self._source
+    def done(self, worker: int = 0) -> bool:
+        return self._slot(worker)[0].is_set()
+
+    def get(self, worker: int = 0) -> LookupSource:
+        return self._slot(worker)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +292,26 @@ def _plan_packing(keys, mask):
     return tuple(offsets), tuple(reversed(shifts)), tuple(widths)
 
 
+def _dense_kernel(key: torch.Tensor, mask: torch.Tensor, base: int, domain: int) -> torch.Tensor:
+    """Row id per key slot over ``[base, base + domain)``; a dead row, or a
+    key outside the domain, writes the trash slot past the end, which is
+    sliced off (the reference's scatter with ``mode="drop"``)."""
+    idx = key.to(torch.int64) - base
+    idx = torch.where(mask & (idx >= 0) & (idx < domain), idx, domain)
+    table = torch.full((domain + 1,), -1, dtype=torch.int32, device=key.device)
+    rows = torch.arange(key.shape[0], dtype=torch.int32, device=key.device)
+    table[idx] = rows
+    return table[:domain]
+
+
+def _build_dense(keys, payload, mask, payload_meta, base: int, domain: int,
+                 unique: bool) -> "LookupSource":
+    """DENSE unique build: one int32 row table over the key domain."""
+    return LookupSource(kind="dense", key_arrays=keys, payload=payload,
+                        payload_meta=payload_meta, unique=unique,
+                        table=_dense_kernel(keys[0], mask, base, domain), base=base)
+
+
 def _build_sorted(keys, payload, mask, payload_meta, unique: bool) -> "LookupSource":
     """SORTED build: a multi-key build packs its keys when they fit and
     mixes them otherwise, then the combined keys are sorted, stably."""
@@ -302,6 +340,8 @@ class JoinBuildOperator(Operator):
         # match nothing but come out unmatched); masked here, not synced
         self._null_key_pages: List[Page] = []
         self._null_keys_on_host = 0  # how many of them a revocation moved
+        # this worker's device: revoked pages come back here
+        self.device = factory.worker_device(context.worker)
 
     @property
     def output_types(self) -> List[Type]:
@@ -397,11 +437,11 @@ class JoinBuildOperator(Operator):
         if self._host_pages:
             # re-admit revoked pages to the build's device: on the card the
             # kernels must never see host tensors
-            dev = self.f.device
+            dev = self.device
             self._pages = [upload_page(p, dev) for p in self._host_pages] + self._pages
             self._host_pages = []
         if not self._pages:
-            dev = self.f.device
+            dev = self.device
             return LookupSource(
                 kind="sorted",
                 key_arrays=tuple(torch.zeros(1, dtype=torch.int64, device=dev)
@@ -415,7 +455,10 @@ class JoinBuildOperator(Operator):
                 payload_nulls=tuple(None for _ in self.f.payload_meta))
         keys, payload, pnulls, mask = _concat_parts(self._pages, kc)
         src = None
-        if self.f.strategy == "pallas":
+        if self.f.strategy == "dense":
+            src = _build_dense(keys, payload, mask, self.f.payload_meta, self.f.dense_min,
+                               self.f.dense_max - self.f.dense_min + 1, self.f.unique)
+        elif self.f.strategy == "pallas":
             src = self._build_pallas(keys, payload, mask)
         if src is None:
             src = _build_sorted(keys, payload, mask, self.f.payload_meta, self.f.unique)
@@ -485,15 +528,28 @@ class JoinBuildOperatorFactory(OperatorFactory):
                  payload_channels: List[int],
                  payload_meta: List[Tuple[Type, Optional[Dictionary]]],
                  strategy: str = "sorted", unique: bool = False,
-                 device="cuda", track_unmatched: bool = False):
+                 device="cuda", track_unmatched: bool = False,
+                 dense_min: int = 0, dense_max: int = 0):
         super().__init__(operator_id, "JoinBuild")
         # FULL joins keep the NULL-key build rows and the live row count for
         # the probe's unmatched-build epilogue
         self.track_unmatched = track_unmatched
-        if strategy not in ("sorted", "pallas"):
+        if strategy not in ("dense", "sorted", "pallas"):
             raise ValueError(
-                f"unknown join build strategy {strategy!r}; hash_kernels "
-                "picks it (sorted | pallas | auto)")
+                f"unknown join build strategy {strategy!r}; the planner "
+                "selects it from the `hash_kernels` session property "
+                "(sorted | pallas | auto)")
+        if strategy == "dense" and not unique:
+            # one row id per key slot: a duplicate key would keep one row
+            raise ValueError(
+                "dense join strategy requires unique build keys; use "
+                "strategy='sorted' (the `hash_kernels=sorted` session "
+                "default) for duplicate-key builds")
+        if strategy == "dense" and len(key_channels) != 1:
+            raise ValueError(
+                "dense join strategy requires a single key channel; the "
+                "`hash_kernels` session property only routes single-key "
+                "builds off the sorted path")
         if strategy == "pallas" and (not unique or len(key_channels) != 1 or track_unmatched):
             # the open-addressing table stores one row per key slot, and has
             # no sorted_row order for the FULL join's unmatched epilogue
@@ -506,29 +562,32 @@ class JoinBuildOperatorFactory(OperatorFactory):
         self.payload_meta = payload_meta
         self.strategy = strategy
         self.unique = unique
+        self.dense_min = int(dense_min)
+        self.dense_max = int(dense_max)
         self.device = torch.device(device)
         self.lookup_factory = LookupSourceFactory()
         self._builders_lock = threading.Lock()
-        self._created: List[JoinBuildOperator] = []
-        self._finished = 0
+        self._created = {}   # worker -> [JoinBuildOperator]
+        self._finished = {}  # worker -> count
 
-    def create_operator(self) -> JoinBuildOperator:
-        op = JoinBuildOperator(self.context(), self)
+    def create_operator(self, worker: int = 0) -> JoinBuildOperator:
+        op = JoinBuildOperator(self.context(worker), self)
         with self._builders_lock:
-            self._created.append(op)
+            self._created.setdefault(worker, []).append(op)
         return op
 
     def _builder_done(self, op: JoinBuildOperator) -> None:
-        """Called by each build driver's finish(). The last to finish takes
-        its siblings' collected pages and null-key state, builds the lookup
-        source and publishes it (the plan creates every driver before any
-        runs, so the count is final). With one build driver this is the
-        plain build."""
+        """Called by each build driver's finish(). The worker's last to
+        finish takes its siblings' collected pages and null-key state,
+        builds the worker's lookup source and publishes it (the plan creates
+        every driver before any runs, so the count is final). With one build
+        driver this is the plain build."""
+        w = op.context.worker
         with self._builders_lock:
-            self._finished += 1
-            if self._finished < len(self._created):
+            self._finished[w] = self._finished.get(w, 0) + 1
+            if self._finished[w] < len(self._created[w]):
                 return
-            for o in self._created:
+            for o in self._created[w]:
                 if o is op:
                     continue
                 op._pages.extend(o._pages)
@@ -543,7 +602,7 @@ class JoinBuildOperatorFactory(OperatorFactory):
                 o._disk_runs = []
             source = op._build()
             op._pages, op._null_key_pages = [], []  # consumed into the lookup source
-            self.lookup_factory.set(source)
+            self.lookup_factory.set(source, w)
 
 
 def pallas_join_eligible(join_type: str, key_channels, unique: bool) -> bool:
@@ -588,7 +647,7 @@ class ProbeStageConfig:
     """Static config of a page-local probe stage; the tensors it reads from
     the build side are the aux of :func:`probe_stage_aux`."""
 
-    kind: str                              # "sorted" | "pallas"
+    kind: str                              # "dense" | "sorted" | "pallas"
     join_type: str                         # INNER | LEFT | SEMI | ANTI
     probe_key_channels: Tuple[int, ...]
     probe_output_channels: Tuple[int, ...]
@@ -626,7 +685,9 @@ def probe_stage_cfg(f: "LookupJoinOperatorFactory", src: LookupSource) -> ProbeS
 def probe_stage_aux(src: LookupSource):
     """Every tensor the stage reads from the build side, ``has_null_key`` as
     a 0-d bool tensor beside the build's keys."""
-    if src.kind == "pallas":
+    if src.kind == "dense":
+        match = (src.table, src.base)
+    elif src.kind == "pallas":
         match = (src.ph_keys, src.ph_rows)
     else:
         match = (src.sorted_key, src.sorted_row, tuple(src.key_arrays))
@@ -657,7 +718,10 @@ def apply_probe_stage(page: Page, aux, cfg: ProbeStageConfig) -> Page:
     for c in cfg.probe_key_channels:
         if page.blocks[c].nulls is not None:
             probe_mask = probe_mask & ~page.blocks[c].nulls
-    if cfg.kind == "pallas":
+    if cfg.kind == "dense":
+        table, base = match
+        row = probe_match_dense(table, base, probe_keys[0], probe_mask)
+    elif cfg.kind == "pallas":
         ph_keys, ph_rows = match
         row = probe_match_pallas(ph_keys, ph_rows, probe_keys[0], probe_mask,
                                  cfg.pallas_trips)
@@ -690,6 +754,16 @@ def emit_matches(page: Page, row, probe_mask, aux, cfg: ProbeStageConfig) -> Pag
 # ---------------------------------------------------------------------------
 # probe
 # ---------------------------------------------------------------------------
+
+def probe_match_dense(table, base: int, probe_keys, probe_mask):
+    """DENSE unique build: one gather, the build row per probe row (-1: no
+    match)."""
+    domain = table.shape[0]
+    idx = probe_keys.to(torch.int64) - base
+    in_range = (idx >= 0) & (idx < domain) & probe_mask
+    row = table[torch.where(in_range, idx, 0)]
+    return torch.where(in_range, row, -1)
+
 
 def probe_match_pallas(ph_keys, ph_rows, probe_keys, probe_mask, trips: int):
     """PALLAS unique build: fixed-trip open-addressing scan (the probe kernel)."""
@@ -818,10 +892,11 @@ class LookupJoinOperator(Operator):
         if self._source is not None:
             return None
         lf = self.f.lookup_factory
-        if lf.done():
-            self._source = lf.get()
+        w = self.context.worker
+        if lf.done(w):
+            self._source = lf.get(w)
             return None
-        return lf.done
+        return lambda: lf.done(w)
 
     def needs_input(self) -> bool:
         return (not self._finishing and self._source is not None
@@ -830,6 +905,10 @@ class LookupJoinOperator(Operator):
     @timed("add_input_ns")
     def add_input(self, page: Page) -> None:
         self.context.record_input(page, page.capacity)
+        if self._source is None:  # a caller that drives without is_blocked
+            w = self.context.worker
+            assert self.f.lookup_factory.done(w), "probe received input before build finished"
+            self._source = self.f.lookup_factory.get(w)
         src = self._source
         jt = self.f.join_type
         probe_keys = tuple(page.blocks[c].data for c in self.f.probe_key_channels)
@@ -844,7 +923,7 @@ class LookupJoinOperator(Operator):
                                         device=page.device)
         if jt in (SEMI, ANTI) and (self.f.filter_fn is not None or not src.exact_keys):
             self._outputs.append(self._semi_expanded(page, probe_keys, probe_mask))
-        elif jt in (SEMI, ANTI) or (src.unique and src.exact_keys):
+        elif jt in (SEMI, ANTI) or (src.unique and (src.kind == "dense" or src.exact_keys)):
             cfg, aux = self._stage(src)
             if self._stage_eligible(src):
                 self._outputs.append(apply_probe_stage(page, aux, cfg))
@@ -873,6 +952,8 @@ class LookupJoinOperator(Operator):
 
     @staticmethod
     def _match_rows(src: LookupSource, probe_keys, probe_mask):
+        if src.kind == "dense":
+            return probe_match_dense(src.table, src.base, probe_keys[0], probe_mask)
         if src.kind == "pallas":
             return probe_match_pallas(src.ph_keys, src.ph_rows, probe_keys[0],
                                       probe_mask, src.ph_trips)
@@ -1108,5 +1189,5 @@ class LookupJoinOperatorFactory(OperatorFactory):
         self.output_types = [t for (t, _) in probe_output_meta] + \
                             [t for (t, _) in build_output_meta]
 
-    def create_operator(self) -> LookupJoinOperator:
-        return LookupJoinOperator(self.context(), self)
+    def create_operator(self, worker: int = 0) -> LookupJoinOperator:
+        return LookupJoinOperator(self.context(worker), self)

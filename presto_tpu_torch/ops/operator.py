@@ -62,8 +62,12 @@ class OperatorStats:
 class OperatorContext:
     def __init__(self, operator_id: int, name: str,
                  memory: Optional[MemoryTrackingContext] = None,
-                 revoke_check: Optional[Callable[[], bool]] = None, spill=None):
+                 revoke_check: Optional[Callable[[], bool]] = None, spill=None,
+                 worker: int = 0):
         self.stats = OperatorStats(operator_id, name)
+        # the logical worker this operator runs for (the distributed runner
+        # plans one factory list per fragment and creates drivers per worker)
+        self.worker = worker
         self.memory = memory or MemoryTrackingContext(
             AggregatedMemoryContext(), AggregatedMemoryContext(), AggregatedMemoryContext())
         # the pressure probe: operators revoke their own state, on their own
@@ -156,7 +160,16 @@ class Operator(abc.ABC):
 
 
 class OperatorFactory(abc.ABC):
-    """One per plan node; creates the per-driver operator instances."""
+    """One per plan node; creates the per-driver operator instances. One
+    factory serves every worker of its fragment: ``worker`` selects the
+    worker-scoped state (splits, lookup sources, exchange buffers).
+
+    A factory that allocates on a device sets ``device``; the distributed
+    planner sets ``devices``, and worker w's operators then work on
+    ``devices[w]`` (``worker_device``)."""
+
+    device = None
+    devices: Optional[List] = None
 
     def __init__(self, operator_id: int, name: str):
         self.operator_id = operator_id
@@ -167,13 +180,20 @@ class OperatorFactory(abc.ABC):
         self.spill_manager = None  # exec/spill.SpillManager (the disk tier)
 
     @abc.abstractmethod
-    def create_operator(self) -> Operator:
+    def create_operator(self, worker: int = 0) -> Operator:
         ...
 
-    def context(self) -> OperatorContext:
+    def worker_device(self, worker: int = 0):
+        """The device worker ``worker``'s operators allocate on."""
+        if self.devices is not None:
+            return self.devices[worker % len(self.devices)]
+        return self.device
+
+    def context(self, worker: int = 0) -> OperatorContext:
         mem = self.memory_ctx.fork() if self.memory_ctx is not None else None
         return OperatorContext(self.operator_id, self.name, memory=mem,
-                               revoke_check=self.revoke_check, spill=self.spill_manager)
+                               revoke_check=self.revoke_check, spill=self.spill_manager,
+                               worker=worker)
 
 
 def timed(stats_field: str):

@@ -27,7 +27,7 @@ Counterpart of ``presto_tpu/ops/scan.py`` ``TableScanOperator``:
 from __future__ import annotations
 
 import threading
-from typing import Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional
 
 import torch
 
@@ -226,16 +226,23 @@ class TableScanOperator(Operator):
 
 
 class TableScanOperatorFactory(OperatorFactory):
-    """Each create_operator() call consumes the next unclaimed page source.
-    ``set_parallelism(n)`` deals the splits into n sources, one per
-    driver; ``parallel_drivers`` is the driver count the plan creates.
-    ``ready``, when given, is the poll every scan of the factory waits on."""
+    """Each create_operator(worker) call consumes the next unclaimed page
+    source of that worker. ``page_sources`` maps a worker to its sources (a
+    worker's splits, or its exchange pages); ``sources_per_worker`` is the
+    count of splits one worker scans, the most drivers the scan can feed.
+    ``set_parallelism(n)`` deals each worker's splits into n sources, one
+    per driver; ``parallel_drivers`` is the driver count the plan creates
+    per worker. ``ready``, when given, maps a worker to the poll its scans
+    wait on. Worker w's pages go to ``worker_device(w)``."""
 
-    def __init__(self, operator_id: int, page_sources, types: List[Type],
-                 processor: Optional[PageProcessor], device: torch.device, ready=None):
+    def __init__(self, operator_id: int, page_sources: Callable[[int], list],
+                 types: List[Type], processor: Optional[PageProcessor], device: torch.device,
+                 ready=None, sources_per_worker: int = 1):
         super().__init__(operator_id, "TableScan")
         self._ready = ready
-        self._sources = list(page_sources)
+        self._sources_fn = page_sources
+        self.sources_per_worker = max(1, sources_per_worker)
+        self._remaining: dict = {}
         self._types = types
         self._processor = processor
         self.device = torch.device(device)
@@ -245,24 +252,28 @@ class TableScanOperatorFactory(OperatorFactory):
         # a filter runs in the scan: a join after it may coalesce its pages
         self.has_filter = processor is not None and processor.filter is not None
 
-    def _leaves(self) -> List[ConnectorPageSource]:
-        out = []
-        for s in self._sources:
-            out.extend(s.sources if isinstance(s, ConcatPageSource) else [s])
-        return out
-
-    @property
-    def sources_per_worker(self) -> int:
-        """The splits one worker scans: the most drivers this scan can feed."""
-        return max(1, len(self._leaves()))
-
     def set_parallelism(self, n: int) -> None:
-        """Deal the splits round-robin into ``n`` concatenated sources, so
-        ``n`` drivers each scan a share (split g goes to driver g mod n)."""
-        leaves = self._leaves()
-        self._sources = [ConcatPageSource(leaves[g::n]) for g in range(n)]
+        """Deal each worker's splits round-robin into ``n`` concatenated
+        sources, so ``n`` drivers each scan a share (split g goes to driver
+        g mod n)."""
+        base = self._sources_fn
 
-    def create_operator(self) -> Operator:
-        return TableScanOperator(self.context(), self._sources.pop(0), self._types,
-                                 self._processor, self.device, self.scan_options,
-                                 ready=self._ready)
+        def dealt(w):
+            leaves = _leaves(base(w))
+            return [ConcatPageSource(leaves[g::n]) for g in range(n)]
+        self._sources_fn = dealt
+
+    def create_operator(self, worker: int = 0) -> Operator:
+        if worker not in self._remaining:
+            self._remaining[worker] = list(self._sources_fn(worker))
+        return TableScanOperator(self.context(worker), self._remaining[worker].pop(0),
+                                 self._types, self._processor, self.worker_device(worker),
+                                 self.scan_options,
+                                 ready=self._ready(worker) if self._ready else None)
+
+
+def _leaves(sources) -> List[ConnectorPageSource]:
+    out = []
+    for s in sources:
+        out.extend(s.sources if isinstance(s, ConcatPageSource) else [s])
+    return out

@@ -74,5 +74,6 @@ class EnforceSingleRowOperatorFactory(OperatorFactory):
         self.dicts = list(dicts) if dicts is not None else [None] * len(self.types)
         self.device = resolve_device(device)
 
-    def create_operator(self) -> EnforceSingleRowOperator:
-        return EnforceSingleRowOperator(self.context(), self.types, self.dicts, self.device)
+    def create_operator(self, worker: int = 0) -> EnforceSingleRowOperator:
+        return EnforceSingleRowOperator(self.context(worker), self.types, self.dicts,
+                                        self.worker_device(worker))

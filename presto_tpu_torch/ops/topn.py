@@ -118,8 +118,8 @@ class TopNOperatorFactory(OperatorFactory):
         self.orders = orders
         self.types = types
 
-    def create_operator(self) -> TopNOperator:
-        return TopNOperator(self.context(), self.n, self.orders, self.types)
+    def create_operator(self, worker: int = 0) -> TopNOperator:
+        return TopNOperator(self.context(worker), self.n, self.orders, self.types)
 
 
 def _concat_pages(pages: Sequence[Page]) -> Page:
@@ -198,8 +198,8 @@ class OrderByOperatorFactory(OperatorFactory):
         self.orders = orders
         self.types = types
 
-    def create_operator(self) -> OrderByOperator:
-        return OrderByOperator(self.context(), self.orders, self.types)
+    def create_operator(self, worker: int = 0) -> OrderByOperator:
+        return OrderByOperator(self.context(worker), self.orders, self.types)
 
 
 class LimitOperator(Operator):
@@ -245,5 +245,5 @@ class LimitOperatorFactory(OperatorFactory):
         self.limit = limit
         self.types = types
 
-    def create_operator(self) -> LimitOperator:
-        return LimitOperator(self.context(), self.limit, self.types)
+    def create_operator(self, worker: int = 0) -> LimitOperator:
+        return LimitOperator(self.context(worker), self.limit, self.types)

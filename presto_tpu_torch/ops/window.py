@@ -382,5 +382,5 @@ class WindowOperatorFactory(OperatorFactory):
     def call_channels_static(self):
         return [(name, len(chs), fm, sd, off) for (name, chs, fm, sd, off) in self.call_channels]
 
-    def create_operator(self) -> WindowOperator:
-        return WindowOperator(self.context(), self)
+    def create_operator(self, worker: int = 0) -> WindowOperator:
+        return WindowOperator(self.context(worker), self)

@@ -109,8 +109,8 @@ class TableWriterOperatorFactory(OperatorFactory):
         self._casts = casts
         self.sinks: List[ConnectorPageSink] = []
 
-    def create_operator(self) -> TableWriterOperator:
+    def create_operator(self, worker: int = 0) -> TableWriterOperator:
         sink = self._provider.create_page_sink(self._handle)
         self.sinks.append(sink)
-        return TableWriterOperator(self.context(), sink, self._remaps,
+        return TableWriterOperator(self.context(worker), sink, self._remaps,
                                    self._column_dicts, self._casts)

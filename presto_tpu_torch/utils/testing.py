@@ -3,8 +3,9 @@
 
 The sink is also a UNION branch's buffer: the planner's replay scan reads
 ``pages_for(worker)`` once every consumer of that worker
-(``consumers_by_worker``) has finished. The port plans one local task, so
-every operator is created for worker 0."""
+(``consumers_by_worker``) has finished, and the barrier mesh runner routes
+each worker's pages from it. A local query creates every operator for
+worker 0."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional
@@ -48,7 +49,7 @@ class PageConsumerFactory(OperatorFactory):
         self.consumers_by_worker: Dict[int, List[PageConsumerOperator]] = {}
 
     def create_operator(self, worker: int = 0) -> PageConsumerOperator:
-        op = PageConsumerOperator(self.context(), self.types)
+        op = PageConsumerOperator(self.context(worker), self.types)
         self.consumers.append(op)
         self.consumers_by_worker.setdefault(worker, []).append(op)
         return op

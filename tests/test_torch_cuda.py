@@ -537,3 +537,58 @@ def test_grouped_query_on_the_card_equals_the_cpu_run(cuda, tmp_path):
         runs[str(dev)] = r.execute(sql).rows
         assert r.last_grouped == 4
     assert runs[str(cuda)] == runs["cpu"] and len(runs["cpu"]) == 10
+
+
+def test_dense_join_on_the_card_equals_the_cpu_run(cuda):
+    """The DENSE build and probe (plain PyTorch, no hand kernel) on the card
+    give the CPU run's rows and row table."""
+    from presto_tpu_torch.block import page_from_arrays
+    from presto_tpu_torch.ops import hash_join as hj
+    from presto_tpu_torch.types import DOUBLE
+
+    rng = np.random.RandomState(16)
+    bkeys = rng.choice(np.arange(-50, 200), size=90, replace=False).astype(np.int64)
+    bvals = rng.randint(-1000, 1000, size=90).astype(np.int64)
+    pkeys = rng.randint(-80, 260, size=200).astype(np.int64)
+    pw = rng.rand(200)
+    runs = {}
+    for dev in ("cpu", cuda):
+        bf = hj.JoinBuildOperatorFactory(0, [0], [1], [(BIGINT, None)], strategy="dense",
+                                         unique=True, dense_min=int(bkeys.min()),
+                                         dense_max=int(bkeys.max()), device=dev)
+        b = bf.create_operator()
+        b.add_input(page_from_arrays([BIGINT, BIGINT], [bkeys, bvals], device=dev))
+        b.finish()
+        pf = hj.LookupJoinOperatorFactory(1, bf.lookup_factory, [0], [0, 1],
+                                          [(BIGINT, None), (DOUBLE, None)], [0],
+                                          [(BIGINT, None)], hj.LEFT)
+        j = pf.create_operator()
+        j.add_input(page_from_arrays([BIGINT, DOUBLE], [pkeys, pw], device=dev))
+        rows = []
+        while (o := j.get_output()) is not None:
+            rows.extend(o.to_pylists())
+        runs[str(dev)] = (rows, bf.lookup_factory.get().table.cpu().numpy())
+    assert runs[str(cuda)][0] == runs["cpu"][0] and len(runs["cpu"][0]) == 200
+    np.testing.assert_array_equal(runs[str(cuda)][1], runs["cpu"][1])
+
+
+def test_distributed_q3_on_four_workers_of_the_card(cuda):
+    """Q3 at ``tiny`` through ``DistributedQueryRunner`` on
+    ``MeshContext([cuda] * 4)`` gives the port's local rows, the join builds
+    on the insert kernel and the probes on the probe kernel, and no page
+    reaches an exchange from host memory."""
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.parallel.mesh import MeshContext
+    from presto_tpu_torch.parallel.runner import EXCHANGE_STATS, DistributedQueryRunner
+    from presto_tpu_torch.runner import LocalQueryRunner
+
+    session = Session(catalog="tpch", schema="tiny", properties={"hash_kernels": "pallas"})
+    want = LocalQueryRunner(session, device="cpu").execute(QUERIES[3]).rows
+    r = DistributedQueryRunner(MeshContext([cuda] * 4), session, device=cuda)
+    uploads = EXCHANGE_STATS["host_uploads"]
+    ph.insert_table.launches = ph.probe_table.launches = 0
+    got = r.execute(QUERIES[3]).rows
+    assert got == want and len(want) == 10
+    assert ph.insert_table.launches >= 8 and ph.probe_table.launches >= 1
+    assert EXCHANGE_STATS["host_uploads"] == uploads

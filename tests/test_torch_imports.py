@@ -1,5 +1,5 @@
 """presto_tpu_torch, chip_smoke.py and the measurement scripts
-port_walls.py and file_walls.py import neither jax nor presto_tpu, nor
+port_walls.py, file_walls.py and dist_walls.py import neither jax nor presto_tpu, nor
 pyarrow or zstandard (the card's machine has neither: the file
 formats import ``zstandard`` only where a zstd page is met)."""
 import os
@@ -19,7 +19,7 @@ names = ['presto_tpu_torch'] + [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import importlib.util
-for script in ('chip_smoke', 'port_walls', 'file_walls'):
+for script in ('chip_smoke', 'port_walls', 'file_walls', 'dist_walls'):
     spec = importlib.util.spec_from_file_location(script, script + '.py')
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
@@ -58,6 +58,14 @@ def test_port_imports_no_jax_and_no_reference():
             "presto_tpu_torch.connectors.dbapi", "presto_tpu_torch.connectors.remote",
             "presto_tpu_torch.security", "presto_tpu_torch.transaction",
             "presto_tpu_torch.spi.eventlistener"} <= set(res["modules"])
+    # the multi-worker engine: the mesh, the exchanges, the stage programs,
+    # the distributed planning and the runner
+    assert {"presto_tpu_torch.parallel", "presto_tpu_torch.parallel.mesh",
+            "presto_tpu_torch.parallel.exchange", "presto_tpu_torch.parallel.distributed",
+            "presto_tpu_torch.parallel.streaming_exchange", "presto_tpu_torch.parallel.runner",
+            "presto_tpu_torch.sql.planner.add_exchanges",
+            "presto_tpu_torch.sql.planner.fragmenter",
+            "presto_tpu_torch.models.kernels"} <= set(res["modules"])
 
 
 def test_native_library_is_the_ports_own():

@@ -309,7 +309,7 @@ def test_parallel_build_uses_multiple_drivers():
     assert builds and any(getattr(p[0], "parallel_drivers", 1) > 1 for p in builds)
     ep.create_drivers()
     fac = next(p[-1] for p in builds if getattr(p[0], "parallel_drivers", 1) > 1)
-    assert len(fac._created) > 1  # several build operators, one lookup source
+    assert len(fac._created[0]) > 1  # several build operators, one lookup source
 
 
 def test_full_join_probe_stays_single_driver():
@@ -380,7 +380,7 @@ def test_parallel_build_merges_every_driver_under_contention():
         op.add_input(_page(list(range(i * 10, i * 10 + 10))))
     published = []
     set_source = fac.lookup_factory.set
-    fac.lookup_factory.set = lambda src: (published.append(src), set_source(src))
+    fac.lookup_factory.set = lambda src, w=0: (published.append(src), set_source(src, w))
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:

@@ -162,8 +162,8 @@ def test_show_statements_match_reference(stmt):
     assert got.rows == want.rows and got.column_names == want.column_names
 
 
-@pytest.mark.parametrize("prop,value", [("streaming_exchange", True),
-                                        ("join_distribution_type", "BROADCAST")])
+@pytest.mark.parametrize("prop,value", [("exchange_spool_bytes", 1 << 20),
+                                        ("query_retry_attempts", 3)])
 def test_unported_session_property_raises_naming_itself(prop, value):
     session = Session(catalog="tpch", schema="tiny", properties={prop: value})
     with pytest.raises(NotImplementedError, match=prop):
