@@ -257,7 +257,28 @@ Phases, each of which must pass:
    table; then Q3 under ``streaming_exchange=False`` with equal rows.
    Prints ``DIST`` lines: walls, exchanges, chunks, pages, per-exchange
    ``partition_rows`` and the warm run's launches;
-22. print the kernels line (JSON, with each kernel's warm-run launches per
+22. the cluster (``run_cluster_phase``): a ``ClusterQueryRunner`` and
+   ``CLUSTER_WORKERS`` in-process ``WorkerServer``s on the one card, real
+   HTTP over loopback, the workers announcing every second as the
+   reference's test fixture does. TPC-H Q1 and Q3 at SF1, Q5 at
+   ``Q5_SCHEMA`` and Q9 at ``tiny`` (``CLUSTER_SCHEMA``) with
+   ``hash_kernels="pallas"``, a cold and a warm run each, rows equal to
+   phase 11's (Q9's to the single-node run and the numpy oracle at its
+   scale); the warm run's launches
+   per worker (a kernel call is the worker's whose task runs the calling
+   driver) and, for Q3, insert launches equal to the join builds plus
+   grouped pages, a probe per worker that built, and the probe held
+   bit-identical at the shape of a page received over the wire. The merge
+   path (``CLUSTER_MERGE_SQL``, ORDER BY without LIMIT) at SF1 through
+   ``MergingRemoteSource`` against a numpy oracle and the single-node run.
+   Then a fault run at ``CLUSTER_FAULT_SCHEMA`` on two workers: one is
+   stopped mid-Q3 (after its leaf task served a chunk) under
+   ``retry_policy="TASK"``; the rows equal the single-node run's, the
+   recovery is journaled, and ``torch.cuda.memory_allocated()`` after the
+   run, every task ended, is no more than before it. Prints ``CLUSTER``
+   lines: walls, tasks per fragment, ``exchange.frames``/``bytes``/
+   ``rows``, launches per worker, the card;
+23. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
    ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``, phase 16 as
@@ -265,8 +286,8 @@ Phases, each of which must pass:
    phase 17 as ``SQL TRACE q3``, counted on the cold traced run, and ``SQL
    SPILL q18 disk``, phase 18 as ``SQL FILE pcol q3 mixed``, phase 19 as
    ``SQL HIVE q3 grouped unfused`` and ``SQL RAPTOR q6``, phase 20 as
-   ``SQL FED kafka stream join``, phase 21 as ``SQL DIST Q3``), the card
-   line, and last the result line.
+   ``SQL FED kafka stream join``, phase 21 as ``SQL DIST Q3``, phase 22
+   as ``SQL CLUSTER Q3``), the card line, and last the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -4769,6 +4790,380 @@ def run_distributed_phase(device, records: dict, card: str = "", schema: str = "
     return out
 
 
+# phase 22: the cluster on the one card. Q5 runs at Q5_SCHEMA, as in phase
+# 21; Q9 at tiny: at SF1 it took 28.3-30.3 s a run on four HTTP workers,
+# which put the phase past its 90 s (PERF.md section 6); the fault run
+# at CLUSTER_FAULT_SCHEMA on two workers
+CLUSTER_WORKERS = 4
+CLUSTER_QUERIES = (1, 3, 9, 5)
+CLUSTER_SCHEMA = {5: Q5_SCHEMA, 9: "tiny"}
+CLUSTER_MERGE_SQL = ("select o_orderkey, o_totalprice from orders where o_totalprice > "
+                     "150000.0 order by o_totalprice desc, o_orderkey")
+CLUSTER_FAULT_SCHEMA = "tiny"
+CLUSTER_FAULT_WORKERS = 2
+CLUSTER_EXCHANGE = ("exchange.frames", "exchange.bytes", "exchange.rows")
+
+
+class CardCluster:
+    """A ClusterQueryRunner and ``n`` in-process WorkerServers on
+    ``device``, the workers announced every second (the reference's test
+    fixture); ``close()`` stops every thread and server it started."""
+
+    def __init__(self, device, n: int, schema: str, **props):
+        import threading
+
+        from presto_tpu_torch.cluster import ClusterQueryRunner, WorkerServer
+        from presto_tpu_torch.metadata import Session
+
+        self.runner = ClusterQueryRunner(
+            Session(catalog="tpch", schema=schema, properties={"hash_kernels": "pallas", **props}),
+            min_workers=n, worker_wait_s=30.0, device=device)
+        self.workers = [WorkerServer(port=0, device=device).start() for _ in range(n)]
+        self.stopped = set()
+        for w in self.workers:
+            self.runner.nodes.announce(w.node_id, w.uri)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._keep_alive, name="cluster-announce",
+                                        daemon=True)
+        self._thread.start()
+
+    def _keep_alive(self):
+        while not self._stop.wait(1.0):
+            for w in self.workers:
+                if w.node_id not in self.stopped:
+                    self.runner.nodes.announce(w.node_id, w.uri)
+            for node_id in list(self.stopped):
+                self.runner.nodes.remove(node_id)
+
+    def stop_worker(self, w) -> None:
+        self.stopped.add(w.node_id)
+        w.stop()
+        self.runner.nodes.remove(w.node_id)
+
+    def session(self, schema: str, **props):
+        from presto_tpu_torch.metadata import Session
+
+        return Session(catalog="tpch", schema=schema,
+                       properties={"hash_kernels": "pallas", **props})
+
+    def join_tasks(self, timeout_s: float = 120.0) -> None:
+        for w in self.workers:
+            if not w.join_tasks(timeout_s):
+                raise AssertionError(f"CLUSTER: a task of {w.node_id} did not end in "
+                                     f"{timeout_s}s")
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(10.0)
+        self.runner.detector.stop()
+        if self.runner.memory_manager is not None:
+            self.runner.memory_manager.stop()
+        for w in self.workers:
+            if w.node_id not in self.stopped:
+                w.stop()
+        self.join_tasks()
+
+
+class WorkerLaunches:
+    """While on, counts each kernel's launches per worker: a launch is the
+    worker's whose task runs the driver that makes it (the task executor's
+    drivers are tagged with their task's thread, the caller's stack names
+    its driver). The wrappers' own counters keep counting."""
+
+    def __init__(self, workers):
+        self.workers = workers
+        self.counts = {}
+
+    def __enter__(self):
+        import threading
+
+        from presto_tpu_torch.cluster import task as ctask
+        from presto_tpu_torch.exec.driver import Driver
+        from presto_tpu_torch.ops import pallas_hash as ph
+
+        self.ph, self.ctask = ph, ctask
+        self.insert, self.probe, self.executor = ph.insert_table, ph.probe_table, ctask.TaskExecutor
+        owner = {}  # id(driver) -> task id
+
+        class Tagged(self.executor):
+            def execute(self, drivers, external=None):
+                name = threading.current_thread().name
+                for d in drivers:
+                    owner[id(d)] = name[len("task-"):]
+                return super().execute(drivers, external)
+
+        def worker_of() -> str:
+            f = sys._getframe(2)
+            while f is not None:
+                d = f.f_locals.get("self")
+                if isinstance(d, Driver) and id(d) in owner:
+                    tid = owner[id(d)]
+                    for w in self.workers:
+                        if tid in w.tasks.tasks:
+                            return w.node_id
+                    return "?"
+                f = f.f_back
+            return "coordinator"
+
+        def counted(kernel, fn):
+            def wrapper(*args, **kw):
+                if kernel == "insert" or args[2].shape[0]:  # an empty probe launches nothing
+                    key = (worker_of(), kernel)
+                    self.counts[key] = self.counts.get(key, 0) + 1
+                return fn(*args, **kw)
+            wrapper.launches = fn.launches
+            return wrapper
+
+        ctask.TaskExecutor = Tagged
+        ph.insert_table = counted("insert", self.insert)
+        ph.probe_table = counted("probe", self.probe)
+        return self
+
+    def per_worker(self) -> dict:
+        out = {}
+        for (w, kernel), n in sorted(self.counts.items()):
+            out.setdefault(w, {"insert": 0, "probe": 0})[kernel] = n
+        return out
+
+    def __exit__(self, *exc):
+        self.insert.launches = self.ph.insert_table.launches
+        self.probe.launches = self.ph.probe_table.launches
+        self.ph.insert_table, self.ph.probe_table = self.insert, self.probe
+        self.ctask.TaskExecutor = self.executor
+        return False
+
+
+def oracle_merge(schema: str):
+    """``CLUSTER_MERGE_SQL`` in numpy over the port's generator."""
+    from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
+
+    o = _table("orders", SCHEMAS[schema], ["o_orderkey", "o_totalprice"])
+    key, price = o["o_orderkey"].astype(np.int64), o["o_totalprice"].astype(np.int64)
+    keep = price > 150000_00
+    order = np.lexsort((key[keep], -price[keep]))
+    return [[int(k), Decimal(int(p)) / 100]
+            for k, p in zip(key[keep][order], price[keep][order])]
+
+
+def _tasks_per_fragment(cluster, sql: str) -> dict:
+    from presto_tpu_torch.sql.planner.fragmenter import SINGLE_PART
+
+    n = len(cluster.workers) - len(cluster.stopped)
+    return {f.id: 1 if f.partitioning == SINGLE_PART else n
+            for f in cluster.runner.plan_sql(sql).fragments}
+
+
+def run_cluster_phase(device, records: dict, card: str = "", schema: str = "sf1") -> dict:
+    """Phase 22 (see the module docstring); returns the records, keyed
+    ``CLUSTER Q3``."""
+    import torch
+
+    from presto_tpu_torch.cluster import exchange_client, faults
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.utils.events import JOURNAL
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def timed(r, sql):
+        t0 = time.perf_counter()
+        res = r.execute(sql)
+        sync()
+        return res, time.perf_counter() - t0
+
+    def exchange_counts():
+        return {k: METRICS.counter_value(k) for k in CLUSTER_EXCHANGE}
+
+    out = {}
+    cluster = CardCluster(device, CLUSTER_WORKERS, schema)
+    try:
+        r = cluster.runner
+        for q in CLUSTER_QUERIES:
+            qschema = CLUSTER_SCHEMA.get(q, schema)
+            want = records[q]
+            if want.get("schema", schema) != qschema:
+                # phase 11 ran it at another scale: the single-node run and
+                # the numpy oracle at this one
+                want = {"rows": sql_runner(device, "pallas", qschema).execute(QUERIES[q]).rows}
+                oracle = (JOIN_ORACLES.get(q) or SQL_ORACLES.get(q))(qschema)[0]
+                if not same_rows(want["rows"], oracle):
+                    raise AssertionError(f"CLUSTER Q{q} {qschema}: the single-node rows differ "
+                                         f"from the numpy oracle's")
+            r.local.session = cluster.session(qschema)
+            RESIDENT_CACHE.clear()
+            cold, cold_s = timed(r, QUERIES[q])
+            before = {k: METRICS.counter_value(k) for k in COUNTERS}
+            ex0 = exchange_counts()
+            ph.insert_table.launches = 0
+            ph.probe_table.launches = 0
+            with WorkerLaunches(cluster.workers) as per, KernelCapture() as capture:
+                res, warm_s = timed(r, QUERIES[q])
+            launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+            delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
+            ex = {k: int(v - ex0[k]) for k, v in exchange_counts().items()}
+            for label, rows in (("cold", cold.rows), ("warm", res.rows)):
+                if not same_rows(rows, want["rows"]):
+                    raise AssertionError(f"CLUSTER Q{q} {qschema}: the {label} run's rows "
+                                         f"differ from phase 11's:\n{rows}\n{want['rows']}")
+            builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
+            by_worker = per.per_worker()
+            if on_card and launches["insert"] != builds + pages:
+                raise AssertionError(f"CLUSTER Q{q}: insert launches {launches['insert']} != "
+                                     f"join builds {builds} + grouped pages {pages}")
+            if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+                raise AssertionError(f"CLUSTER Q{q}: a fallback: {delta}")
+            if on_card and sum(v["insert"] for v in by_worker.values()) != launches["insert"]:
+                raise AssertionError(f"CLUSTER Q{q}: per-worker inserts {by_worker} do not add "
+                                     f"up to {launches}")
+            if on_card and any(v["insert"] and not v["probe"] for v in by_worker.values()):
+                raise AssertionError(f"CLUSTER Q{q}: a worker built a table and never probed "
+                                     f"it: {by_worker}")
+            rec = {"rows": res.rows, "launches": launches, "per_worker": by_worker,
+                   "cold_s": cold_s, "warm_s": warm_s, "exchange": ex,
+                   "tasks": _tasks_per_fragment(cluster, QUERIES[q])}
+            if q == 3:
+                if on_card and not (launches["insert"] and launches["probe"]):
+                    raise AssertionError(f"CLUSTER Q3: a kernel never launched: {launches}")
+                if capture.probe_args is None:
+                    raise AssertionError("CLUSTER Q3: no probe of a received page captured")
+                rec["probe"] = check_probe_at(device, "phase 22 Q3 (a page received over "
+                                              "HTTP)", *capture.probe_args)
+            out[f"CLUSTER Q{q}"] = rec
+            log(f"CLUSTER Q{q} {qschema} on {CLUSTER_WORKERS} workers ({card}): "
+                f"{len(res.rows)} rows equal to phase 11's; cold wall {cold_s:.4f}s, warm wall "
+                f"{warm_s:.4f}s; tasks per fragment {rec['tasks']}; warm exchange.frames "
+                f"{ex['exchange.frames']}, exchange.bytes {ex['exchange.bytes']}, "
+                f"exchange.rows {ex['exchange.rows']}; warm launches {launches}, per worker "
+                f"{by_worker}; join builds {int(builds)}, grouped pages {int(pages)}")
+
+        # the merge path: ORDER BY without LIMIT, each worker sorts its rows
+        # and the root task merges their streams
+        r.local.session = cluster.session(schema)
+        merges = []
+        merge_iter = exchange_client.MergingRemoteSource.__iter__
+
+        def counting_iter(src):
+            merges.append(len(src.locations))
+            return merge_iter(src)
+        exchange_client.MergingRemoteSource.__iter__ = counting_iter
+        try:
+            cold, cold_s = timed(r, CLUSTER_MERGE_SQL)
+            ex0 = exchange_counts()
+            ph.insert_table.launches = 0
+            ph.probe_table.launches = 0
+            res, warm_s = timed(r, CLUSTER_MERGE_SQL)
+            launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+            ex = {k: int(v - ex0[k]) for k, v in exchange_counts().items()}
+        finally:
+            exchange_client.MergingRemoteSource.__iter__ = merge_iter
+        if not merges:
+            raise AssertionError("CLUSTER merge: no MergingRemoteSource ran")
+        oracle = oracle_merge(schema)
+        single = sql_runner(device, "pallas", schema).execute(CLUSTER_MERGE_SQL).rows
+        for label, rows in (("cold", cold.rows), ("warm", res.rows)):
+            if not same_rows(rows, oracle) or not same_rows(rows, single):
+                raise AssertionError(f"CLUSTER merge {schema}: the {label} run's rows differ "
+                                     f"from the oracle's or the single-node run's")
+        out["CLUSTER merge"] = {"launches": launches, "cold_s": cold_s,
+                                "warm_s": warm_s, "exchange": ex,
+                                "tasks": _tasks_per_fragment(cluster, CLUSTER_MERGE_SQL)}
+        log(f"CLUSTER merge {schema} on {CLUSTER_WORKERS} workers ({card}): {len(res.rows)} rows "
+            f"equal to the numpy oracle's and the single-node run's, in order; "
+            f"MergingRemoteSource over {merges[0]} streams ({len(merges)} merges in 2 runs); "
+            f"cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s; warm launches {launches}; tasks "
+            f"per fragment {out['CLUSTER merge']['tasks']}; warm exchange.frames "
+            f"{ex['exchange.frames']}, exchange.bytes {ex['exchange.bytes']}, exchange.rows "
+            f"{ex['exchange.rows']}")
+    finally:
+        cluster.close()
+
+    # the fault run: a worker stopped mid-Q3 under the TASK policy
+    fschema = CLUSTER_FAULT_SCHEMA
+    want = sql_runner(device, "pallas", fschema).execute(QUERIES[3]).rows
+    fault_props = {"retry_policy": "TASK", "exchange_flush_rows": 256,
+                   "remote_task_error_budget_s": 1.0,
+                   "retry_initial_delay_s": 0.01, "retry_max_delay_s": 0.05}
+    cluster = CardCluster(device, CLUSTER_FAULT_WORKERS, fschema, **fault_props)
+    try:
+        r = cluster.runner
+        warm = r.execute(QUERIES[3])  # every lazily made device table exists after it
+        if not same_rows(warm.rows, want):
+            raise AssertionError("CLUSTER fault: the clean run's rows differ")
+        cluster.join_tasks()
+        gc.collect()
+        sync()
+        mem0 = torch.cuda.memory_allocated(device) if on_card else 0
+        sub = r.plan_sql(QUERIES[3])
+        from presto_tpu_torch.cluster.scheduler import _remote_source_ids
+
+        leaf = next(f.id for f in sub.fragments
+                    if not _remote_source_ids(f.root) and f.id != sub.root_fragment.id)
+        victim = min(cluster.workers, key=lambda w: w.node_id)
+        stopped = []
+
+        def scheduled() -> bool:
+            scheds = list(r._schedulers.values())
+            return bool(scheds) and all(len(s.stages) == len(s.subplan.fragments)
+                                        for s in scheds)
+
+        def stop(ctx):
+            # mid-stream (a chunk served and acked) and after every task
+            # exists, so the recovery is the in-place one
+            token = int(ctx["path"].partition("?")[0].rstrip("/").rsplit("/", 1)[-1])
+            if token < 1 or stopped or not scheduled():
+                return
+            stopped.append(token)
+            cluster.stop_worker(victim)
+            raise faults.InjectedDisconnect("worker killed")
+
+        inj = faults.FaultInjector(seed=22)
+        inj.add("worker.results", faults.CALLBACK, node_id=victim.node_id,
+                task_re=rf"\.{leaf}\.0$", times=None, callback=stop)
+        faults.install(inj)
+        seq0 = JOURNAL.last_seq()
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        try:
+            res, wall = timed(r, QUERIES[3])
+        finally:
+            faults.clear()
+        launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        if not stopped:
+            raise AssertionError("CLUSTER fault: the worker was never stopped")
+        if not same_rows(res.rows, want):
+            raise AssertionError(f"CLUSTER fault: rows differ:\n{res.rows}\n{want}")
+        retries = JOURNAL.events(since=seq0, kind="task.retry")
+        qretries = JOURNAL.events(since=seq0, kind="query.retry")
+        if not (retries or qretries):
+            raise AssertionError("CLUSTER fault: no recovery journaled")
+        cluster.join_tasks()
+        gc.collect()
+        sync()
+        mem1 = torch.cuda.memory_allocated(device) if on_card else 0
+        if mem1 > mem0:
+            raise AssertionError(f"CLUSTER fault: {mem1 - mem0} bytes of device memory left "
+                                 f"behind ({mem0} before, {mem1} after)")
+        out["CLUSTER fault"] = {"launches": launches, "wall_s": wall,
+                                "memory_before": mem0, "memory_after": mem1,
+                                "stats": res.stats}
+        log(f"CLUSTER fault {fschema} on {CLUSTER_FAULT_WORKERS} workers ({card}): "
+            f"{victim.node_id} stopped at its leaf task's chunk {stopped[0]} under "
+            f"retry_policy TASK; {len(res.rows)} rows equal to the single-node run's; wall "
+            f"{wall:.4f}s; query_attempts {res.stats['query_attempts']}, task_retries "
+            f"{res.stats['task_retries']}; journaled {len(retries)} task.retry "
+            f"({sorted({e.get('retry_kind') for e in retries})}), {len(qretries)} query.retry; "
+            f"torch.cuda.memory_allocated {mem0} before, {mem1} after, every task ended; "
+            f"launches {launches} (the stopped worker's and its replacements')")
+    finally:
+        cluster.close()
+    for rec in out.values():
+        rec.pop("rows", None)
+    return out
+
+
 def check_probe_at(device, label: str, slot_keys, slot_rows, keys, mask, trips,
                    reps: int = 20, plain_reps: int = 3) -> dict:
     """The probe against its plain version, bit for bit, at one captured
@@ -4925,6 +5320,9 @@ def main() -> int:
         phase_done("20 federated catalogs, access control")
         dist_records = run_distributed_phase(device, records, card)
         phase_done(f"21 distributed TPC-H on {DIST_WORKERS} workers (Q5 at {Q5_SCHEMA})")
+        cluster_records = run_cluster_phase(device, records, card)
+        phase_done(f"22 the cluster: {CLUSTER_WORKERS} HTTP workers (Q5 at {Q5_SCHEMA}, Q9 at "
+                   f"{CLUSTER_SCHEMA[9]}, the fault run at {CLUSTER_FAULT_SCHEMA})")
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -4956,7 +5354,9 @@ def main() -> int:
                     **{f"SQL {label}": rec["launches"][k]
                        for label, rec in federation_records.items()},
                     **{f"SQL {label}": rec["launches"][k]
-                       for label, rec in dist_records.items()}}}
+                       for label, rec in dist_records.items()},
+                    **{f"SQL {label}": rec["launches"][k]
+                       for label, rec in cluster_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

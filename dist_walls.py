@@ -157,14 +157,18 @@ class StackSampler:
         self.counts: dict = {}
         self.n = 0
         self._me = set()
-        t = threading.Thread(target=self._run, args=(period_s,), daemon=True,
-                             name="dist-walls-sampler")
-        t.start()
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, args=(period_s,), daemon=True,
+                                        name="dist-walls-sampler")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._done.set()
+        self._thread.join(5.0)
 
     def _run(self, period_s: float) -> None:
         self._me.add(threading.get_ident())
-        while True:
-            time.sleep(period_s)
+        while not self._done.wait(period_s):
             names = {t.ident: t.name for t in threading.enumerate()}
             for ident, frame in sys._current_frames().items():
                 if ident in self._me or names.get(ident, "").startswith("dist-walls"):

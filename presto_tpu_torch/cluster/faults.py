@@ -1,8 +1,9 @@
 """Deterministic, seedable fault injection: the port's copy of
 ``presto_tpu/cluster/faults.py``, whole, with the same fire points, kinds
-and spec grammar. The port has no cluster tier yet; today only the disk
-rung (``exec/spill.py``) calls :func:`fire`, at ``spill.write`` and
-``spill.read``.
+and spec grammar. The cluster tier fires its points from the worker's
+HTTP handlers (``worker.*``), the remote-task client, exchange client and
+announcer (``client.*``) and the task runtime (``worker.task_run``); the
+disk rung (``exec/spill.py``) fires ``spill.write`` and ``spill.read``.
 
 Every retry path in cluster/ exists to survive a fault that unit tests cannot
 produce on demand — a worker dying mid-query, a dropped connection, a 5xx

@@ -255,11 +255,19 @@ class RemoteSourceSlot:
     """A fragment's exchange endpoint: the barrier runner deposits each
     worker's routed pages here after the collective ran; the streaming
     runner attaches its ``StreamingExchange`` (``stream``) before the
-    drivers exist, and consumers then read the exchange's per-worker queue."""
+    drivers exist, and consumers then read the exchange's per-worker queue.
+
+    The cluster's hooks (``cluster/task.py``): a task plugs an HTTP page
+    source in as ``source_factory`` (worker -> ConnectorPageSource), and
+    ``plan_subplan`` sets ``merge_orderings`` ([(channel, descending,
+    nulls_first)]) on a MERGE input, whose source is then a merging one.
+    The mesh runner sets neither."""
 
     def __init__(self, fragment_id: int):
         self.fragment_id = fragment_id
         self._pages_by_worker: Dict[int, List[Page]] = {}
+        self.source_factory = None
+        self.merge_orderings = None
         self.stream = None
 
     def set_pages(self, worker: int, pages: List[Page]) -> None:
@@ -269,6 +277,8 @@ class RemoteSourceSlot:
         return self._pages_by_worker.get(worker, [])
 
     def make_source(self, worker: int) -> ConnectorPageSource:
+        if self.source_factory is not None:
+            return self.source_factory(worker)
         return FixedPageSource(self.pages(worker))
 
 
@@ -629,7 +639,12 @@ class LocalExecutionPlanner:
         fac = RemoteSourceOperatorFactory(next(self._ids), slot,
                                           [s.type for s in node.symbols], self.device)
         dicts = self.remote_dicts.get(node.fragment_id, [None] * len(node.symbols))
-        return Chain([fac], list(node.symbols), list(dicts))
+        out = Chain([fac], list(node.symbols), list(dicts))
+        if node.fragment_id not in self.remote_dicts:
+            # the producer's dictionaries are unknown here: a None entry
+            # may hide live codes (read by the UNION's unification)
+            out.unreliable_dicts = True
+        return out
 
     def visit_ValuesNode(self, node: ValuesNode) -> Chain:
         """One literal host page of the rows; the scan uploads it once."""
@@ -1015,6 +1030,16 @@ class LocalExecutionPlanner:
         - two real dictionaries merge, in branch order, and a branch whose
           values are not the union's prefix remaps its codes;
         - distinct virtual (formatted) dictionaries cannot merge."""
+        # adopting a sibling's dictionary is safe only for provably dead
+        # codes (a grouping set's NULL constants); a remote source with
+        # unknown producer dictionaries may carry live ones
+        for ch in chains:
+            if getattr(ch, "unreliable_dicts", False) and any(
+                    ch.dicts[c] is None and any(o.dicts[c] is not None for o in chains)
+                    for c in range(ncols)):
+                raise NotImplementedError(
+                    "UNION dictionary unification over a remote source "
+                    "with unknown dictionaries")
         dicts: List[Optional[Dictionary]] = []
         remaps: List[List[Optional[np.ndarray]]] = [[None] * ncols for _ in chains]
         for c in range(ncols):

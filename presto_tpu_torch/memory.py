@@ -144,6 +144,12 @@ class MemoryPool:
                 totals[q] = totals.get(q, 0) + b
             return totals
 
+    def revocable_by_query(self) -> Dict[str, int]:
+        """{query id: revocable bytes}: what a worker's status reports, so
+        the cluster's memory manager can revoke before it kills."""
+        with self._lock:
+            return dict(self._revocable)
+
     def spill_by_query(self) -> Dict[str, int]:
         """{query id: bytes on disk}: the disk rung's ledger."""
         with self._lock:

@@ -115,6 +115,35 @@ class Session:
         # a partitioned INNER join's exchanges split a hot build key
         # round-robin and replicate it on the probe side
         "skew_aware_exchange": True,
+        # --- the cluster (cluster/): coordinator and HTTP workers
+        # NONE fails fast; QUERY re-plans and re-runs the whole query on a
+        # retryable failure, excluding failed nodes; TASK also re-places
+        # failed task creates and recovers failed tasks in place
+        "retry_policy": "NONE",
+        "query_retry_attempts": 2,      # extra attempts after the first
+        "task_retry_attempts": 2,       # in-place recoveries per task (TASK)
+        "retry_initial_delay_s": 0.1,   # jittered exponential backoff floor
+        "retry_max_delay_s": 2.0,       # ... and ceiling
+        # transient-failure budgets: one remote-task create, one exchange
+        # source before it is declared dead
+        "remote_task_error_budget_s": 10.0,
+        "exchange_error_budget_s": 60.0,
+        # deterministic fault-injection spec (cluster/faults.py); "" = off
+        "fault_injection": "",
+        "fault_seed": 0,
+        # per-task bound on the acked-frame replay spool (cluster/buffers.py),
+        # reserved in the shared pool under the query id; 0 = no spool (a
+        # mid-stream TASK recovery then escalates to a query retry)
+        "exchange_spool_bytes": 64 << 20,
+        # rows a task's sink accumulates per consumer before it flushes one
+        # frame (one replayable chunk); None = 2^14
+        "exchange_flush_rows": None,
+        # straggler speculation: a duplicate of a task running past
+        # max(speculation_min_wall_s, multiplier x its finished siblings'
+        # median wall); the first copy to finish wins
+        "speculative_execution": False,
+        "speculation_min_wall_s": 5.0,
+        "speculation_multiplier": 2.0,
     }
 
     def get(self, name: str, default=None):

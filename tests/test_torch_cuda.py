@@ -592,3 +592,43 @@ def test_distributed_q3_on_four_workers_of_the_card(cuda):
     assert got == want and len(want) == 10
     assert ph.insert_table.launches >= 8 and ph.probe_table.launches >= 1
     assert EXCHANGE_STATS["host_uploads"] == uploads
+
+
+def test_cluster_q3_on_two_workers_of_the_card(cuda):
+    """Q3 at ``tiny`` through a ``ClusterQueryRunner`` and two HTTP
+    ``WorkerServer``s on the card gives the port's local rows, with both
+    kernels launched by the workers' tasks."""
+    import threading
+
+    from presto_tpu_torch.cluster import ClusterQueryRunner, WorkerServer
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.runner import LocalQueryRunner
+
+    session = Session(catalog="tpch", schema="tiny", properties={"hash_kernels": "pallas"})
+    want = LocalQueryRunner(session, device=cuda).execute(QUERIES[3]).rows
+    runner = ClusterQueryRunner(session, min_workers=2, worker_wait_s=10.0, device=cuda)
+    workers = [WorkerServer(port=0, device=cuda).start() for _ in range(2)]
+    stop = threading.Event()
+
+    def keep_alive():
+        while not stop.wait(1.0):
+            for w in workers:
+                runner.nodes.announce(w.node_id, w.uri)
+    for w in workers:
+        runner.nodes.announce(w.node_id, w.uri)
+    t = threading.Thread(target=keep_alive, daemon=True)
+    t.start()
+    try:
+        ph.insert_table.launches = ph.probe_table.launches = 0
+        got = runner.execute(QUERIES[3]).rows
+        assert got == want and len(want) == 10
+        assert ph.insert_table.launches >= 4 and ph.probe_table.launches >= 1
+    finally:
+        stop.set()
+        t.join(5.0)
+        runner.detector.stop()
+        for w in workers:
+            w.stop()
+        for w in workers:
+            assert w.join_tasks(60.0)

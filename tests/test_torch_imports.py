@@ -1,5 +1,6 @@
 """presto_tpu_torch, chip_smoke.py and the measurement scripts
-port_walls.py, file_walls.py and dist_walls.py import neither jax nor presto_tpu, nor
+port_walls.py, file_walls.py, dist_walls.py and cluster_walls.py import neither jax
+nor presto_tpu, nor
 pyarrow or zstandard (the card's machine has neither: the file
 formats import ``zstandard`` only where a zstd page is met)."""
 import os
@@ -19,7 +20,7 @@ names = ['presto_tpu_torch'] + [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import importlib.util
-for script in ('chip_smoke', 'port_walls', 'file_walls', 'dist_walls'):
+for script in ('chip_smoke', 'port_walls', 'file_walls', 'dist_walls', 'cluster_walls'):
     spec = importlib.util.spec_from_file_location(script, script + '.py')
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
@@ -66,6 +67,11 @@ def test_port_imports_no_jax_and_no_reference():
             "presto_tpu_torch.sql.planner.add_exchanges",
             "presto_tpu_torch.sql.planner.fragmenter",
             "presto_tpu_torch.models.kernels"} <= set(res["modules"])
+    # the cluster: every module of presto_tpu/cluster/
+    assert {f"presto_tpu_torch.cluster.{m}" for m in (
+        "retry", "codec", "serde", "buffers", "discovery", "exchange_client", "task",
+        "worker", "scheduler", "coordinator", "memory_manager", "autoscaler",
+        "faults")} <= set(res["modules"])
 
 
 def test_native_library_is_the_ports_own():

@@ -162,12 +162,24 @@ def test_show_statements_match_reference(stmt):
     assert got.rows == want.rows and got.column_names == want.column_names
 
 
-@pytest.mark.parametrize("prop,value", [("exchange_spool_bytes", 1 << 20),
-                                        ("query_retry_attempts", 3)])
+@pytest.mark.parametrize("prop,value", [("exchange_spool_megabytes", 1),
+                                        ("query_retries", 3)])
 def test_unported_session_property_raises_naming_itself(prop, value):
+    """Since the port has the cluster's keys, the two packages' keys are the
+    same, so a key outside them stands for one the port lacks."""
     session = Session(catalog="tpch", schema="tiny", properties={prop: value})
     with pytest.raises(NotImplementedError, match=prop):
         LocalQueryRunner(session, device="cpu").execute(QUERIES[6])
+
+
+@pytest.mark.parametrize("prop,value", [("exchange_spool_bytes", 1 << 20),
+                                        ("query_retry_attempts", 3)])
+def test_cluster_properties_run_locally(prop, value):
+    """The cluster's keys run on the local runner, which reads none of them,
+    with the reference's rows, as in the reference."""
+    session = Session(catalog="tpch", schema="tiny", properties={prop: value})
+    got = LocalQueryRunner(session, device="cpu").execute(QUERIES[6]).rows
+    assert_same_rows(got, _ref_rows(6, {prop: value}))
 
 
 @pytest.mark.parametrize("prop,value", [
