@@ -235,9 +235,11 @@ Phases, each of which must pass:
    ``hash_kernels="pallas"``: a sqlite file behind ``sqlite_connector``
    (CTAS of ``orders`` and ``customer``, Q3 over them beside ``tpch``'s
    ``lineitem`` with the rows sqlite returned after the pushed-down
-   ``o_orderdate``, the per-day grouping), the ``orders`` topic as JSON
-   partition logs behind a ``KafkaConnector`` (the stream join with
-   ``tpch``'s ``customer``, the decode's seconds, messages per
+   ``o_orderdate``, the per-day grouping; the steps of ``FED_ONE_RUN``
+   run once), the ``orders`` topic at
+   ``KAFKA_SCHEMA`` (``tiny``; SF1's decode is ``federation_walls.py``'s)
+   as JSON partition logs behind a ``KafkaConnector`` (the stream join with
+   ``tpch``'s ``customer`` at that scale, the decode's seconds, messages per
    ``_partition_id``; the insert held bit-identical at the ``customer``
    build, the probe at the first topic page), a ``RemoteTestingService``
    behind a ``RemoteConnector`` whose first endpoint is closed (Q3 with the
@@ -251,7 +253,8 @@ Phases, each of which must pass:
    four logical workers on the one card, under the session defaults
    (streaming exchange, skew-aware) with ``hash_kernels="pallas"``: a cold
    and a warm run each, rows equal to phase 11's for the same query (Q5 at
-   ``Q5_SCHEMA``, ``DIST_SCHEMA``), no page reaching an exchange from host
+   ``Q5_SCHEMA``; Q9 at ``tiny``, against the single-node run and the
+   numpy oracle there; ``DIST_SCHEMA``), no page reaching an exchange from host
    memory (``host_uploads`` 0), insert launches equal to the workers' join
    builds plus grouped pages, and a probe launch wherever a worker built a
    table; then Q3 under ``streaming_exchange=False`` with equal rows.
@@ -269,8 +272,10 @@ Phases, each of which must pass:
    driver) and, for Q3, insert launches equal to the join builds plus
    grouped pages, a probe per worker that built, and the probe held
    bit-identical at the shape of a page received over the wire. The merge
-   path (``CLUSTER_MERGE_SQL``, ORDER BY without LIMIT) at SF1 through
-   ``MergingRemoteSource`` against a numpy oracle and the single-node run.
+   path (``CLUSTER_MERGE_SQL``, ORDER BY without LIMIT) at
+   ``CLUSTER_MERGE_SCHEMA`` (``tiny``; SF1's runs are ``cluster_walls.py
+   --queries merge``) through ``MergingRemoteSource`` against a numpy
+   oracle and the single-node run.
    Then a fault run at ``CLUSTER_FAULT_SCHEMA`` on two workers: one is
    stopped mid-Q3 (after its leaf task served a chunk) under
    ``retry_policy="TASK"``; the rows equal the single-node run's, the
@@ -278,7 +283,30 @@ Phases, each of which must pass:
    run, every task ended, is no more than before it. Prints ``CLUSTER``
    lines: walls, tasks per fragment, ``exchange.frames``/``bytes``/
    ``rows``, launches per worker, the card;
-23. print the kernels line (JSON, with each kernel's warm-run launches per
+23. the server (``run_server_phase``): a ``PrestoTpuServer`` over a
+   ``LocalQueryRunner`` on the card with ``hash_kernels="pallas"``, behind
+   a ``ResourceGroupManager`` of hard concurrency
+   ``SERVER_HARD_CONCURRENCY``, ``page_rows`` ``SERVER_PAGE_ROWS``: (a)
+   TPC-H Q1, Q3, Q6 at SF1 through ``StatementClient``, cold (resident
+   cache cleared) and warm, rows equal to phase 11's after the JSON round
+   trip, warm Q3's launches phase 11's with two join builds and no
+   fallback; (b) ``SERVER_CONCURRENT`` dbapi connections submitting Q3 at
+   once, each with Q3's rows, at least two ``query.queued`` admissions in
+   ``GET /v1/events``, two inserts a query; (c) ``SERVER_FETCH_SQL``
+   (over ``SERVER_FETCH_MIN_ROWS`` rows) paged through ``nextUri``, the
+   ``Verifier`` with the in-process rows as control and the server as
+   test reporting MATCH; (d) a failing statement's payload with the
+   engine's ``errorType`` and its black box at ``GET
+   /v1/query/{id}/trace``; (f) Q6 through a ``ProxyServer``, every
+   ``nextUri`` on the proxy; then (e) a ``PrestoTpuServer`` over a
+   ``ClusterQueryRunner`` with ``SERVER_CLUSTER_WORKERS``
+   ``WorkerServer``s announcing over ``POST /v1/announcement``: Q1 at SF1
+   and Q3 at ``tiny`` through the client with the single-node rows, ``GET
+   /v1/cluster`` and ``/v1/cluster/metrics`` over both workers, ``PUT
+   /v1/cluster/drain/{node}`` (DRAINED and out of discovery), Q1 on the
+   other worker; (g) ``torch.cuda.memory_allocated()`` equal before the
+   phase's servers and after they all stopped. Prints ``SERVER`` lines;
+24. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
    ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``, phase 16 as
@@ -287,7 +315,8 @@ Phases, each of which must pass:
    SPILL q18 disk``, phase 18 as ``SQL FILE pcol q3 mixed``, phase 19 as
    ``SQL HIVE q3 grouped unfused`` and ``SQL RAPTOR q6``, phase 20 as
    ``SQL FED kafka stream join``, phase 21 as ``SQL DIST Q3``, phase 22
-   as ``SQL CLUSTER Q3``), the card line, and last the result line.
+   as ``SQL CLUSTER Q3``, phase 23 as ``SERVER Q3`` and ``SERVER
+   concurrent Q3``), the card line, and last the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -3492,6 +3521,9 @@ FILE_YEARS = tuple(range(1992, 1999))
 # decoding), so it runs at tiny, against the port's CPU run too; RCFile
 # decodes its text cells one at a time in Python, in both packages
 ORC_SCHEMA = "tiny"
+# steps run once, still at SF1, their one wall logged as cold and warm:
+# the orders CTAS (3.4 s a run) and Parquet Q1 (2.8-3.0 s)
+FILE_ONE_RUN = ("ctas orders", "parquet q1")
 RC_SCHEMA = "tiny"
 
 
@@ -3589,8 +3621,9 @@ def run_file_phase(device, schema: str = "sf1") -> dict:
       scanned against numpy; an INSERT is refused.
 
     Each step runs cold and warm (the warm launch counters set to 0 just
-    before it) and prints a ``FILE`` line. Returns the records whose
-    launches the kernels line reports."""
+    before it), but the steps of ``FILE_ONE_RUN`` run once, and prints a
+    ``FILE`` line. Returns the records whose launches the kernels line
+    reports."""
     import functools
     import shutil
     import tempfile
@@ -3631,13 +3664,15 @@ def run_file_phase(device, schema: str = "sf1") -> dict:
         sync()
         return res, time.perf_counter() - t0
 
-    def step(label, sql, r=None, setup=None, splits=None):
+    def step(label, sql, r=None, setup=None, splits=None, once=False):
         """A cold run, then ``setup`` and the warm run, counters zeroed;
-        ``splits``: (catalog, table) whose kept splits the warm run logs."""
+        ``splits``: (catalog, table) whose kept splits the warm run logs.
+        ``once``: one run only (``FILE_ONE_RUN``), counted as both."""
         r = r or runner
-        res, cold_s = timed_run(r, sql)
-        if setup is not None:
-            setup()
+        if not once:
+            res, cold_s = timed_run(r, sql)
+            if setup is not None:
+                setup()
         before = {k: METRICS.counter_value(k) for k in COUNTERS + (
             "pcol.native_opens", "pcol.numpy_opens")}
         ph.insert_table.launches = 0
@@ -3647,6 +3682,8 @@ def run_file_phase(device, schema: str = "sf1") -> dict:
                 res, warm_s = timed_run(r, sql)
         else:
             res, warm_s = timed_run(r, sql)
+        if once:
+            cold_s = warm_s
         launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
         delta = {k: METRICS.counter_value(k) - v for k, v in before.items()}
         if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
@@ -3684,7 +3721,8 @@ def run_file_phase(device, schema: str = "sf1") -> dict:
             n_want = n_li if t == "lineitem" else g.table_row_count(t, sf)
             writers = runner._scaled_writer_count(runner.plan_sql(src))
             step(f"ctas {t}", f"create table wh.default.{t} as {src}",
-                 setup=lambda t=t: runner.execute(f"drop table wh.default.{t}"))
+                 setup=lambda t=t: runner.execute(f"drop table wh.default.{t}"),
+                 once=f"ctas {t}" in FILE_ONE_RUN)
             rec = out[f"ctas {t}"]
             if rec["rows"] != [[n_want]]:
                 raise AssertionError(f"FILE ctas {t}: {rec['rows']} rows, want {n_want}")
@@ -3807,7 +3845,8 @@ def run_file_phase(device, schema: str = "sf1") -> dict:
                       f"{rec['bytes']} bytes ({n_want / rec['warm_s']:.0f} rows/s warm)", sch)
             for q in (1, 6):
                 sql = QUERIES[q].replace("from lineitem", f"from {cat}.default.lineitem")
-                rec = step(f"{name} q{q}", sql, r=r, splits=(cat, "lineitem"))
+                rec = step(f"{name} q{q}", sql, r=r, splits=(cat, "lineitem"),
+                           once=f"{name} q{q}" in FILE_ONE_RUN)
                 if not same_rows(rec["rows"], oracle(q, sch)):
                     raise AssertionError(f"FILE {name} q{q}: rows differ:\n{rec['rows'][:3]}")
                 if sch != schema:
@@ -4306,11 +4345,19 @@ FED_TYPES = {"o_orderkey": "bigint", "o_custkey": "bigint", "o_orderdate": "date
              "c_nationkey": "bigint", "c_acctbal": "decimal(12,2)", "n_nationkey": "bigint",
              "n_name": "varchar", "n_regionkey": "bigint"}
 KAFKA_PARTITIONS = 8  # tpch's split ranges of orders, one log each
+# the topic's scale: the decode of SF1's 1.5 M messages (~20 s) lives in
+# ``federation_walls.py --steps kafka``
+KAFKA_SCHEMA = "tiny"
 FED_DAYS_SQL = ("select o_orderdate, count(*), sum(o_totalprice) from {} "
                 "group by o_orderdate order by o_orderdate")
 FED_STREAM_SQL = ("select c_mktsegment, count(*), sum(o_totalprice) from {} join "
                   "tpch.{}.customer on o_custkey = c_custkey group by c_mktsegment "
                   "order by c_mktsegment")
+# host-bound steps run once, still at SF1, their one wall logged as cold
+# and warm (``federation_walls.py --steps ctas,q3,perday`` times them in
+# rounds): 25.1 s of the phase in two runs each
+FED_ONE_RUN = ("FED dbapi ctas orders", "FED dbapi q3", "FED dbapi per-day",
+               "FED acl analyst q3", "FED acl cte shadow")
 REMOTE_ROWS_PER_BATCH = 4096
 REMOTE_SPLITS = 3
 
@@ -4423,9 +4470,10 @@ def run_federation_phase(device, q3_rows=None, schema: str = "sf1") -> dict:
       numpy Q3; the rows sqlite returned after the pushed-down
       ``o_orderdate``); the per-day grouping over ``ext.main.orders`` (rows
       equal to the same over ``tpch``).
-    - kafka: the ``orders`` topic as ``KAFKA_PARTITIONS`` JSON logs
-      (tpch's split ranges, one poison line each); the stream join with
-      ``tpch``'s ``customer`` (rows equal to the same over ``tpch``, the
+    - kafka: the ``orders`` topic at ``KAFKA_SCHEMA`` (``tiny`` when the
+      phase runs at SF1) as ``KAFKA_PARTITIONS`` JSON logs (tpch's split
+      ranges, one poison line each); the stream join with ``tpch``'s
+      ``customer`` at the same scale (rows equal to the same over ``tpch``, the
       poison rows' NULL keys joining nothing), the decode's seconds, the
       messages per ``_partition_id`` and the NULL keys. The insert is held
       bit-identical at the ``customer`` build, the probe at the first
@@ -4487,10 +4535,13 @@ def run_federation_phase(device, q3_rows=None, schema: str = "sf1") -> dict:
 
     def step(label, sql, r, setup=None, capture=None, user=None, log_sources=None):
         """A cold run, then ``setup`` and the warm run, the launch counters
-        set to 0 just before it, ``capture`` and the page-source log on."""
-        _res, cold_s = timed_run(r, sql, user)
-        if setup is not None:
-            setup()
+        set to 0 just before it, ``capture`` and the page-source log on; a
+        step of ``FED_ONE_RUN`` runs once, counted as both."""
+        once = label in FED_ONE_RUN
+        if not once:
+            _res, cold_s = timed_run(r, sql, user)
+            if setup is not None:
+                setup()
         before = {k: METRICS.counter_value(k) for k in COUNTERS}
         requests = (svc.request_count, dict(svc.calls)) if svc is not None else None
         ph.insert_table.launches = 0
@@ -4498,6 +4549,8 @@ def run_federation_phase(device, q3_rows=None, schema: str = "sf1") -> dict:
         slog = SourceLog(log_sources) if log_sources is not None else None
         with capture or contextlib.nullcontext(), slog or contextlib.nullcontext():
             res, warm_s = timed_run(r, sql, user)
+        if once:
+            cold_s = warm_s
         delta = {k: METRICS.counter_value(k) - v for k, v in before.items()}
         if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
             raise AssertionError(f"FEDERATION {label}: a fallback: {delta}")
@@ -4563,11 +4616,14 @@ def run_federation_phase(device, q3_rows=None, schema: str = "sf1") -> dict:
         expect("FED dbapi per-day", want_days)
         line("FED dbapi per-day", f"; {len(want_days)} groups")
 
-        # 2. kafka: the orders topic, decoded, joined with tpch's customer
+        # 2. kafka: the orders topic at KAFKA_SCHEMA, decoded, joined with
+        # tpch's customer at the same scale
+        kschema = KAFKA_SCHEMA if schema == "sf1" else schema
         t0 = time.perf_counter()
-        n_msgs, n_bytes = _write_topic(log_dir, sf)
+        n_msgs, n_bytes = _write_topic(log_dir, SCHEMAS[kschema])
         write_s = time.perf_counter() - t0
-        step_rows = -(-n_orders // KAFKA_PARTITIONS)
+        k_orders = g.table_row_count("orders", SCHEMAS[kschema])
+        step_rows = -(-k_orders // KAFKA_PARTITIONS)
         topic_key = SchemaTableName("default", "orders")
         meta = kafka.metadata()
         decode_s = []
@@ -4580,9 +4636,9 @@ def run_federation_phase(device, q3_rows=None, schema: str = "sf1") -> dict:
             finally:
                 decode_s.append(time.perf_counter() - t)
         meta.topic_data = timed_topic_data
-        stream_sql = FED_STREAM_SQL.format("kafka.default.orders", schema)
-        want_stream = runner.execute(FED_STREAM_SQL.format(f"tpch.{schema}.orders",
-                                                           schema)).rows
+        stream_sql = FED_STREAM_SQL.format("kafka.default.orders", kschema)
+        want_stream = runner.execute(FED_STREAM_SQL.format(f"tpch.{kschema}.orders",
+                                                           kschema)).rows
         capture = KernelCapture()
         try:
             rec = step("FED kafka stream join", stream_sql, runner, capture=capture)
@@ -4602,12 +4658,13 @@ def run_federation_phase(device, q3_rows=None, schema: str = "sf1") -> dict:
                                "kafka.default.orders group by _partition_id order by 1").rows
         nulls = runner.execute("select count(*) from kafka.default.orders "
                                "where o_orderkey is null").rows
-        want_parts = [[p, min(step_rows, n_orders - p * step_rows) + 1,
-                       min(step_rows, n_orders - p * step_rows)]
+        want_parts = [[p, min(step_rows, k_orders - p * step_rows) + 1,
+                       min(step_rows, k_orders - p * step_rows)]
                       for p in range(KAFKA_PARTITIONS)]
         if parts != want_parts or nulls != [[KAFKA_PARTITIONS]]:
             raise AssertionError(f"FEDERATION kafka: per partition {parts}, NULL keys {nulls}")
-        line("FED kafka stream join", f"; {n_msgs} messages ({n_bytes} bytes in "
+        line("FED kafka stream join", f"; the topic at {kschema}: {n_msgs} messages "
+             f"({n_bytes} bytes in "
              f"{KAFKA_PARTITIONS} logs, written in {write_s:.4f}s); the cold run's decode "
              f"{rec['decode_s']:.4f}s ({n_msgs / rec['decode_s']:.0f} messages/s); per partition "
              f"{[r[1] for r in parts]} messages, {nulls[0][0]} NULL keys (the poison lines)")
@@ -4682,7 +4739,8 @@ def run_federation_phase(device, q3_rows=None, schema: str = "sf1") -> dict:
 # repartitions on (l_orderkey, c_custkey) before the orders join
 DIST_WORKERS = 4
 DIST_QUERIES = (1, 3, 5, 9)
-DIST_SCHEMA = {5: Q5_SCHEMA}
+# Q9 at SF1 (cold 11.7 s, warm 9.9 s) is ``dist_walls.py --query 9``
+DIST_SCHEMA = {5: Q5_SCHEMA, 9: "tiny"}
 
 
 def run_distributed_phase(device, records: dict, card: str = "", schema: str = "sf1") -> dict:
@@ -4727,8 +4785,13 @@ def run_distributed_phase(device, records: dict, card: str = "", schema: str = "
         qschema = DIST_SCHEMA.get(q, schema)
         want = records[q]
         if want.get("schema", schema) != qschema:
-            raise AssertionError(f"DIST Q{q}: phase 11 ran at {want.get('schema')}, not "
-                                 f"{qschema}")
+            # phase 11 ran it at another scale: the single-node run and the
+            # numpy oracle at this one
+            want = {"rows": sql_runner(device, "pallas", qschema).execute(QUERIES[q]).rows}
+            oracle = (JOIN_ORACLES.get(q) or SQL_ORACLES.get(q))(qschema)[0]
+            if not same_rows(want["rows"], oracle):
+                raise AssertionError(f"DIST Q{q} {qschema}: the single-node rows differ from "
+                                     f"the numpy oracle's")
         r = runner(qschema)
         RESIDENT_CACHE.clear()
         cold, cold_s = timed(r, QUERIES[q])
@@ -4759,7 +4822,7 @@ def run_distributed_phase(device, records: dict, card: str = "", schema: str = "
         out[f"DIST Q{q}"] = {"rows": res.rows, "launches": launches, "cold_s": cold_s,
                              "warm_s": warm_s, "exchange": ex}
         log(f"DIST Q{q} {qschema} on {DIST_WORKERS} workers ({card}): {len(res.rows)} rows "
-            f"equal to phase 11's; cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s; "
+            f"equal to the single-node run's; cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s; "
             f"{ex['exchanges']} exchanges, {ex.get('chunks', 0)} chunks, "
             f"{ex.get('pages', 0)} pages, {ex.get('rows', 0)} rows delivered, carry "
             f"{ex.get('carry_rows', 0)}; host_uploads {uploads}; warm launches {launches}; "
@@ -4799,6 +4862,8 @@ CLUSTER_QUERIES = (1, 3, 9, 5)
 CLUSTER_SCHEMA = {5: Q5_SCHEMA, 9: "tiny"}
 CLUSTER_MERGE_SQL = ("select o_orderkey, o_totalprice from orders where o_totalprice > "
                      "150000.0 order by o_totalprice desc, o_orderkey")
+# the merge query's scale (SF1's runs: ``cluster_walls.py --queries merge``)
+CLUSTER_MERGE_SCHEMA = "tiny"
 CLUSTER_FAULT_SCHEMA = "tiny"
 CLUSTER_FAULT_WORKERS = 2
 CLUSTER_EXCHANGE = ("exchange.frames", "exchange.bytes", "exchange.rows")
@@ -5040,8 +5105,9 @@ def run_cluster_phase(device, records: dict, card: str = "", schema: str = "sf1"
                 f"{by_worker}; join builds {int(builds)}, grouped pages {int(pages)}")
 
         # the merge path: ORDER BY without LIMIT, each worker sorts its rows
-        # and the root task merges their streams
-        r.local.session = cluster.session(schema)
+        # and the root task merges their streams (at CLUSTER_MERGE_SCHEMA)
+        mschema = CLUSTER_MERGE_SCHEMA if schema == "sf1" else schema
+        r.local.session = cluster.session(mschema)
         merges = []
         merge_iter = exchange_client.MergingRemoteSource.__iter__
 
@@ -5061,16 +5127,16 @@ def run_cluster_phase(device, records: dict, card: str = "", schema: str = "sf1"
             exchange_client.MergingRemoteSource.__iter__ = merge_iter
         if not merges:
             raise AssertionError("CLUSTER merge: no MergingRemoteSource ran")
-        oracle = oracle_merge(schema)
-        single = sql_runner(device, "pallas", schema).execute(CLUSTER_MERGE_SQL).rows
+        oracle = oracle_merge(mschema)
+        single = sql_runner(device, "pallas", mschema).execute(CLUSTER_MERGE_SQL).rows
         for label, rows in (("cold", cold.rows), ("warm", res.rows)):
             if not same_rows(rows, oracle) or not same_rows(rows, single):
-                raise AssertionError(f"CLUSTER merge {schema}: the {label} run's rows differ "
+                raise AssertionError(f"CLUSTER merge {mschema}: the {label} run's rows differ "
                                      f"from the oracle's or the single-node run's")
         out["CLUSTER merge"] = {"launches": launches, "cold_s": cold_s,
                                 "warm_s": warm_s, "exchange": ex,
                                 "tasks": _tasks_per_fragment(cluster, CLUSTER_MERGE_SQL)}
-        log(f"CLUSTER merge {schema} on {CLUSTER_WORKERS} workers ({card}): {len(res.rows)} rows "
+        log(f"CLUSTER merge {mschema} on {CLUSTER_WORKERS} workers ({card}): {len(res.rows)} rows "
             f"equal to the numpy oracle's and the single-node run's, in order; "
             f"MergingRemoteSource over {merges[0]} streams ({len(merges)} merges in 2 runs); "
             f"cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s; warm launches {launches}; tasks "
@@ -5161,6 +5227,379 @@ def run_cluster_phase(device, records: dict, card: str = "", schema: str = "sf1"
         cluster.close()
     for rec in out.values():
         rec.pop("rows", None)
+    return out
+
+
+SERVER_QUERIES = (1, 3, 6)
+SERVER_CONCURRENT = 4       # dbapi connections submitting Q3 at once
+SERVER_HARD_CONCURRENCY = 2  # the resource group's running limit
+SERVER_PAGE_ROWS = 1000
+SERVER_FETCH_SQL = ("select o_orderkey, o_custkey, o_orderdate, o_totalprice from orders "
+                    "where o_orderdate < date '1993-01-01'")
+SERVER_FETCH_MIN_ROWS = 100_000
+SERVER_FAIL_SQL = "select no_such_column from nation"
+SERVER_CLUSTER_WORKERS = 2
+SERVER_CLUSTER_Q3_SCHEMA = "tiny"
+
+
+def same_json_rows(got, want_rows) -> bool:
+    """``got`` (rows after the JSON round trip) equal the in-process rows
+    ``want_rows`` as the protocol renders them (``_to_json_row``)."""
+    from presto_tpu_torch.server.protocol import QueryManager
+
+    return same_rows(got, [QueryManager._to_json_row(r) for r in want_rows])
+
+
+class CountingClient:
+    """A ``StatementClient`` that counts its requests and the pages that
+    carried rows, and checks every ``nextUri`` against ``base``."""
+
+    def __init__(self, server: str, sql: str, base: Optional[str] = None, **kw):
+        from presto_tpu_torch.client import StatementClient
+
+        outer = self
+        self.requests = self.pages = 0
+        self.next_uris = []
+        self.base = base
+
+        class _Client(StatementClient):
+            def _request(self, method, url, body=None):
+                payload = super()._request(method, url, body)
+                outer.requests += 1
+                outer.pages += bool(payload.get("data"))
+                if payload.get("nextUri"):
+                    outer.next_uris.append(payload["nextUri"])
+                return payload
+        self.client = _Client(server, sql, poll_interval_s=0.01, **kw)
+
+    def rows(self) -> list:
+        rows = list(self.client.rows())
+        if self.base is not None:
+            bad = [u for u in self.next_uris if not u.startswith(self.base)]
+            if bad or not self.next_uris:
+                raise AssertionError(f"SERVER: nextUri not on {self.base}: {bad[:3]} "
+                                     f"({len(self.next_uris)} in all)")
+        return rows
+
+
+def _http_json(url: str, method: str = "GET", data: Optional[bytes] = None):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"X-Presto-User": "chip-smoke"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, json.loads(r.read() or b"null")
+
+
+def run_server_phase(device, records: dict, card: str = "", schema: str = "sf1") -> dict:
+    """Phase 23: the server (see the module docstring). Returns the records
+    whose launches the kernels line reports, keyed ``SERVER ...``."""
+    import threading
+
+    import torch
+
+    from presto_tpu_torch.client import dbapi
+    from presto_tpu_torch.cluster import ClusterQueryRunner, WorkerServer
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.runner import LocalQueryRunner
+    from presto_tpu_torch.server import PrestoTpuServer
+    from presto_tpu_torch.server.proxy import ProxyServer
+    from presto_tpu_torch.server.resource_groups import GroupSpec, ResourceGroupManager
+    from presto_tpu_torch.utils.events import JOURNAL
+    from presto_tpu_torch.utils.metrics import METRICS
+    from presto_tpu_torch.verifier import MATCH, Verifier
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+
+    def zero():
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        return {k: METRICS.counter_value(k) for k in COUNTERS}
+
+    def read(before):
+        sync()
+        launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        return launches, {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
+
+    def memory() -> int:
+        RESIDENT_CACHE.clear()
+        gc.collect()
+        sync()
+        return torch.cuda.memory_allocated(device) if on_card else 0
+
+    def want_rows(q: int, qschema: str):
+        rec = records.get(q)
+        if rec is not None and rec.get("schema", "sf1") == qschema:
+            return rec["rows"]
+        return sql_runner(device, "pallas", qschema).execute(QUERIES[q]).rows
+
+    # want rows first: the in-process runs must not count in (g)
+    wants = {q: want_rows(q, schema) for q in SERVER_QUERIES}
+    want_q3_tiny = want_rows(3, SERVER_CLUSTER_Q3_SCHEMA)
+    control = sql_runner(device, "pallas", schema)
+    want_fetch = control.execute(SERVER_FETCH_SQL).rows
+    try:
+        control.execute(SERVER_FAIL_SQL)
+        raise AssertionError("SERVER: the failing statement ran in-process")
+    except AssertionError:
+        raise
+    except Exception as e:  # noqa: BLE001 - the engine's own error type
+        want_error = type(e).__name__
+    del control
+    mem0 = memory()
+    seq0 = JOURNAL.last_seq()
+    revoked0 = METRICS.counter_value("memory.revoked_bytes")
+
+    rg = ResourceGroupManager(GroupSpec("root", hard_concurrency_limit=SERVER_HARD_CONCURRENCY,
+                                        max_queued=100))
+    runner = LocalQueryRunner(Session(catalog="tpch", schema=schema,
+                                      properties={"hash_kernels": "pallas"}), device=device)
+    server = PrestoTpuServer(runner, port=0, page_rows=SERVER_PAGE_ROWS, resource_groups=rg)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+    proxy = cluster_server = None
+    workers = []
+    try:
+        # (a) Q1, Q3, Q6 through the client, cold then warm
+        for q in SERVER_QUERIES:
+            RESIDENT_CACHE.clear()
+            t0 = time.perf_counter()
+            cold = CountingClient(base, QUERIES[q]).rows()
+            cold_s = time.perf_counter() - t0
+            before = zero()
+            t0 = time.perf_counter()
+            warm = CountingClient(base, QUERIES[q]).rows()
+            warm_s = time.perf_counter() - t0
+            launches, delta = read(before)
+            for label, rows in (("cold", cold), ("warm", warm)):
+                if not same_json_rows(rows, wants[q]):
+                    raise AssertionError(f"SERVER Q{q}: the {label} rows differ from phase "
+                                         f"11's:\n{rows}\n{wants[q]}")
+            if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+                raise AssertionError(f"SERVER Q{q}: a fallback: {delta}")
+            if q == 3:
+                phase11 = records[3]["launches"]
+                if on_card and (launches != phase11 or delta["pallas.join_builds"] != 2):
+                    raise AssertionError(f"SERVER Q3: warm launches {launches} (phase 11's "
+                                         f"{phase11}), join builds {delta['pallas.join_builds']}")
+            out[f"SERVER Q{q}"] = {"launches": launches, "cold_s": cold_s, "warm_s": warm_s}
+            log(f"SERVER Q{q} {schema} ({card}): {len(warm)} rows equal to phase 11's after the "
+                f"JSON round trip; cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s (in-process "
+                f"phase 11: cold {records[q].get('cold_s', float('nan')):.4f}s, warm "
+                f"{records[q].get('warm_s', float('nan')):.4f}s); warm launches {launches}; join "
+                f"builds {int(delta['pallas.join_builds'])}, grouped pages "
+                f"{int(delta['pallas.agg_pages'])}")
+
+        # (b) four dbapi connections submit Q3 at once through the resource group
+        seq_b = JOURNAL.last_seq()
+        results, errors = {}, []
+        barrier = threading.Barrier(SERVER_CONCURRENT)
+
+        def submit(i):
+            try:
+                conn = dbapi.connect(host="127.0.0.1", port=server.port, user=f"tenant{i}",
+                                     catalog="tpch", schema=schema)
+                cur = conn.cursor()
+                barrier.wait(timeout=60)
+                results[i] = cur.execute(QUERIES[3]).fetchall()
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+        before = zero()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submit, args=(i,)) for i in range(SERVER_CONCURRENT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        conc_s = time.perf_counter() - t0
+        launches, delta = read(before)
+        if errors or len(results) != SERVER_CONCURRENT:
+            raise AssertionError(f"SERVER concurrent Q3: {errors or results.keys()}")
+        for i, rows in results.items():
+            if not same_json_rows([list(r) for r in rows], wants[3]):
+                raise AssertionError(f"SERVER concurrent Q3: connection {i}'s rows differ")
+        _st, evts = _http_json(f"{base}/v1/events?since={seq_b}&kind=query.")
+        queued = [e for e in evts["events"] if e["kind"] == "query.queued"]
+        promoted = [e for e in evts["events"] if e["kind"] == "query.admitted"
+                    and e.get("promoted")]
+        if len(queued) < 2:
+            raise AssertionError(f"SERVER concurrent Q3: {len(queued)} queued admissions")
+        if on_card and launches["insert"] != 2 * SERVER_CONCURRENT:
+            raise AssertionError(f"SERVER concurrent Q3: insert launches {launches}")
+        out["SERVER concurrent Q3"] = {"launches": launches, "wall_s": conc_s}
+        log(f"SERVER concurrent Q3 {schema} ({card}): {SERVER_CONCURRENT} dbapi connections at "
+            f"once, hard concurrency {SERVER_HARD_CONCURRENCY}; every connection got Q3's rows; "
+            f"wall {conc_s:.4f}s; GET /v1/events: {len(queued)} query.queued, {len(promoted)} "
+            f"promoted admissions (queued for "
+            f"{[e.get('queued_s') for e in promoted]}s); launches {launches}")
+
+        # (c) one statement of >= 100,000 rows through nextUri paging, and
+        # the verifier: the in-process runner as control, the server as test
+        fetch = {}
+
+        def served(sql):
+            c = CountingClient(base, sql)
+            t0 = time.perf_counter()
+            rows = c.rows()
+            fetch.update(wall_s=time.perf_counter() - t0, requests=c.requests,
+                         pages=c.pages, rows=len(rows))
+            return rows
+        # the control's rows as the protocol renders them: DECIMAL and DATE
+        # travel as text
+        from presto_tpu_torch.server.protocol import QueryManager
+
+        control_rows = [QueryManager._to_json_row(r) for r in want_fetch]
+        before = zero()
+        verdict = Verifier(control=lambda sql: control_rows, test=served).verify(
+            "fetch", SERVER_FETCH_SQL)
+        launches, _delta = read(before)
+        if verdict.status != MATCH or fetch["rows"] != len(want_fetch) \
+                or (schema == "sf1" and fetch["rows"] < SERVER_FETCH_MIN_ROWS):
+            raise AssertionError(f"SERVER fetch: {verdict}, {fetch}, {len(want_fetch)} in-process")
+        out["SERVER fetch"] = {"launches": launches, **fetch}
+        log(f"SERVER fetch {schema} ({card}): {fetch['rows']} rows in {fetch['pages']} pages of "
+            f"{SERVER_PAGE_ROWS} through {fetch['requests']} requests, wall "
+            f"{fetch['wall_s']:.4f}s ({fetch['rows'] / fetch['wall_s']:.0f} rows/s); the "
+            f"verifier (in-process control, server as test): {verdict.status}")
+
+        # (d) a failing statement: the engine's errorType, and its forensic
+        _st, payload = _http_json(f"{base}/v1/statement", "POST", SERVER_FAIL_SQL.encode())
+        qid = payload["id"]
+        while payload.get("nextUri"):
+            time.sleep(0.01)
+            _st, payload = _http_json(payload["nextUri"])
+        err = payload.get("error") or {}
+        if payload["stats"]["state"] != "FAILED" or err.get("errorType") != want_error:
+            raise AssertionError(f"SERVER failure: {payload}, want errorType {want_error}")
+        _st, forensic = _http_json(f"{base}/v1/query/{qid}/trace")
+        if not (isinstance(forensic.get("traceEvents"), list)
+                and forensic.get("otherData", {}).get("coarse") is True):
+            raise AssertionError("SERVER failure: /v1/query/{id}/trace served no forensic")
+        log(f"SERVER failure ({card}): errorType {err['errorType']} (the engine's), "
+            f"GET /v1/query/{qid}/trace served the black box: "
+            f"{len(forensic['traceEvents'])} events")
+
+        # (f) Q6 through the proxy in front of (a)
+        proxy = ProxyServer(base, port=0).start()
+        pbase = f"http://127.0.0.1:{proxy.port}"
+        before = zero()
+        c = CountingClient(pbase, QUERIES[6], base=pbase)
+        rows = c.rows()
+        launches, _delta = read(before)
+        if not same_json_rows(rows, wants[6]):
+            raise AssertionError("SERVER proxy Q6: rows differ from phase 11's")
+        out["SERVER proxy Q6"] = {"launches": launches}
+        log(f"SERVER proxy Q6 ({card}): rows equal to phase 11's; {len(c.next_uris)} nextUri, "
+            f"every one on the proxy; {c.requests} requests")
+        proxy.stop()
+        proxy = None
+    finally:
+        if proxy is not None:
+            proxy.stop()
+        server.stop()
+    revoked = METRICS.counter_value("memory.revoked_bytes") - revoked0
+    spills = JOURNAL.events(since=seq0, kind="memory.spill")
+    log(f"SERVER memory: revoked {int(revoked)} bytes, {len(spills)} memory.spill events over "
+        f"(a)-(d) and (f)")
+    del runner, server, rg
+
+    # (e) cluster mode through the server
+    crunner = ClusterQueryRunner(Session(catalog="tpch", schema=schema,
+                                         properties={"hash_kernels": "pallas"}),
+                                 min_workers=SERVER_CLUSTER_WORKERS, worker_wait_s=30.0,
+                                 device=device)
+    cluster_server = PrestoTpuServer(crunner, port=0, page_rows=SERVER_PAGE_ROWS)
+    cluster_server.start()
+    cbase = f"http://127.0.0.1:{cluster_server.port}"
+    try:
+        workers = [WorkerServer(port=0, coordinator_uri=cbase, device=device).start()
+                   for _ in range(SERVER_CLUSTER_WORKERS)]
+        deadline = time.monotonic() + 30
+        while len(crunner.nodes.active_nodes()) < SERVER_CLUSTER_WORKERS:
+            if time.monotonic() > deadline:
+                raise AssertionError("SERVER cluster: the workers never announced")
+            time.sleep(0.05)
+
+        def cluster_run(label, q, qschema, want):
+            # the coordinator's own session names the scale (a header-scoped
+            # copy of a cluster runner cannot replace its session)
+            crunner.local.session = Session(catalog="tpch", schema=qschema,
+                                            properties={"hash_kernels": "pallas"})
+            client = CountingClient(cbase, QUERIES[q])
+            RESIDENT_CACHE.clear()
+            before = zero()
+            t0 = time.perf_counter()
+            rows = client.rows()
+            wall = time.perf_counter() - t0
+            launches, delta = read(before)
+            if not same_json_rows(rows, want):
+                raise AssertionError(f"SERVER {label}: rows differ from the single-node run's")
+            if delta["pallas.join_fallbacks"] or delta["pallas.agg_fallbacks"]:
+                raise AssertionError(f"SERVER {label}: a fallback: {delta}")
+            out[f"SERVER {label}"] = {"launches": launches, "wall_s": wall}
+            return wall, launches
+
+        q1_s, q1_l = cluster_run("cluster Q1", 1, schema, wants[1])
+        q3_s, q3_l = cluster_run("cluster Q3", 3, SERVER_CLUSTER_Q3_SCHEMA, want_q3_tiny)
+        if on_card and not (q3_l["insert"] and q3_l["probe"]):
+            raise AssertionError(f"SERVER cluster Q3: a kernel never launched: {q3_l}")
+        _st, stats = _http_json(f"{cbase}/v1/cluster")
+        if stats["activeWorkers"] != SERVER_CLUSTER_WORKERS or \
+                sorted(n["nodeId"] for n in stats["nodes"]) != sorted(w.node_id for w in workers):
+            raise AssertionError(f"SERVER cluster: GET /v1/cluster gave {stats}")
+        _st, merged = _http_json(f"{cbase}/v1/cluster/metrics")
+        if merged.get("cluster.workers_merged") != SERVER_CLUSTER_WORKERS:
+            raise AssertionError(f"SERVER cluster: /v1/cluster/metrics merged "
+                                 f"{merged.get('cluster.workers_merged')} workers")
+        victim, survivor = workers
+        seq_d = JOURNAL.last_seq()
+        t0 = time.perf_counter()
+        status, body = _http_json(f"{cbase}/v1/cluster/drain/{victim.node_id}", "PUT")
+        if status != 202:
+            raise AssertionError(f"SERVER cluster drain: {status} {body}")
+        deadline = time.monotonic() + 60
+        while crunner.nodes.get(victim.node_id) is not None or victim.state != "DRAINED":
+            if time.monotonic() > deadline:
+                raise AssertionError(f"SERVER cluster drain: {victim.node_id} is "
+                                     f"{victim.state} and still in discovery")
+            time.sleep(0.05)
+        drain_s = time.perf_counter() - t0
+        crunner.min_workers = 1  # the operator lowered the floor with the drain
+        q1b_s, _l = cluster_run("cluster Q1 after drain", 1, schema, wants[1])
+        on = [n.node_id for n in crunner.nodes.active_nodes()]
+        if on != [survivor.node_id]:
+            raise AssertionError(f"SERVER cluster: after the drain the active nodes are {on}")
+        drained = JOURNAL.events(since=seq_d, kind="node.drained")
+        log(f"SERVER cluster ({card}): {SERVER_CLUSTER_WORKERS} WorkerServers announced over POST "
+            f"/v1/announcement; Q1 {schema} wall {q1_s:.4f}s launches {q1_l}, Q3 "
+            f"{SERVER_CLUSTER_Q3_SCHEMA} wall {q3_s:.4f}s launches {q3_l}, rows equal to the "
+            f"single-node runs; GET /v1/cluster: {stats['activeWorkers']} active workers; GET "
+            f"/v1/cluster/metrics merged {merged['cluster.workers_merged']} workers; PUT "
+            f"/v1/cluster/drain/{victim.node_id}: 202, DRAINED and out of discovery in "
+            f"{drain_s:.4f}s (node.drained journaled: {bool(drained)}); Q1 on "
+            f"{survivor.node_id} alone wall {q1b_s:.4f}s")
+    finally:
+        for w in workers:
+            w.stop()
+        crunner.detector.stop()
+        cluster_server.stop()
+        for w in workers:
+            if not w.join_tasks(120.0):
+                raise AssertionError(f"SERVER cluster: a task of {w.node_id} did not end")
+    del crunner, cluster_server, workers
+
+    # (g) device memory: every server stopped, every runner gone
+    mem1 = memory()
+    if on_card and mem1 != mem0:
+        raise AssertionError(f"SERVER memory: torch.cuda.memory_allocated {mem0} before the "
+                             f"phase's servers, {mem1} after")
+    log(f"SERVER memory ({card}): torch.cuda.memory_allocated {mem0} before the phase's servers "
+        f"were made, {mem1} after all of them stopped (resident page cache cleared both times)")
     return out
 
 
@@ -5317,12 +5756,17 @@ def main() -> int:
         warehouse_records = run_warehouse_phase(device)
         phase_done(f"19 warehouse connectors (Parquet and ORC at {HIVE_FORMAT_SCHEMA})")
         federation_records = run_federation_phase(device, records[3]["rows"])
-        phase_done("20 federated catalogs, access control")
+        phase_done(f"20 federated catalogs, access control (the kafka topic at {KAFKA_SCHEMA})")
         dist_records = run_distributed_phase(device, records, card)
-        phase_done(f"21 distributed TPC-H on {DIST_WORKERS} workers (Q5 at {Q5_SCHEMA})")
+        phase_done(f"21 distributed TPC-H on {DIST_WORKERS} workers (Q5 at {Q5_SCHEMA}, Q9 at "
+                   f"{DIST_SCHEMA[9]})")
         cluster_records = run_cluster_phase(device, records, card)
         phase_done(f"22 the cluster: {CLUSTER_WORKERS} HTTP workers (Q5 at {Q5_SCHEMA}, Q9 at "
-                   f"{CLUSTER_SCHEMA[9]}, the fault run at {CLUSTER_FAULT_SCHEMA})")
+                   f"{CLUSTER_SCHEMA[9]}, the merge at {CLUSTER_MERGE_SCHEMA}, the fault run at "
+                   f"{CLUSTER_FAULT_SCHEMA})")
+        server_records = run_server_phase(device, records, card)
+        phase_done(f"23 the server: /v1/statement, resource groups, dbapi, the verifier, the "
+                   f"proxy, {SERVER_CLUSTER_WORKERS} announced workers")
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -5356,7 +5800,8 @@ def main() -> int:
                     **{f"SQL {label}": rec["launches"][k]
                        for label, rec in dist_records.items()},
                     **{f"SQL {label}": rec["launches"][k]
-                       for label, rec in cluster_records.items()}}}
+                       for label, rec in cluster_records.items()},
+                    **{label: rec["launches"][k] for label, rec in server_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -3,9 +3,14 @@
 ``ClusterQueryRunner`` and in-process HTTP ``WorkerServer``s, held against
 the single-node runner, with where the host spends each run.
 
-    python3 cluster_walls.py [--queries 3,9] [--schema sf1] [--workers 4]
+    python3 cluster_walls.py [--queries 3,9,merge] [--schema sf1] [--workers 4]
                              [--rounds 2] [--sample-ms 0]
                              [--out walls_out/cluster_walls.jsonl] [--device cuda]
+
+``--queries`` takes TPC-H query ids and ``merge``, the merge query of
+``chip_smoke.py``'s phase 22 (``MERGE_SQL``: ORDER BY without LIMIT, each
+worker sorts and the root task merges their streams), which the phase runs
+at ``tiny`` and this script at ``--schema``.
 
 Runs each query once with ``LocalQueryRunner`` (the rows to hold the
 cluster against), then ``--rounds`` times through the cluster under the
@@ -29,6 +34,10 @@ import os
 import sys
 import threading
 import time
+
+# chip_smoke.py's CLUSTER_MERGE_SQL
+MERGE_SQL = ("select o_orderkey, o_totalprice from orders where o_totalprice > "
+             "150000.0 order by o_totalprice desc, o_orderkey")
 
 
 def main() -> int:
@@ -94,8 +103,9 @@ def main() -> int:
 
     ok = True
     try:
-        for q in (int(x) for x in args.queries.split(",")):
-            want = LocalQueryRunner(session, device=device).execute(QUERIES[q]).rows
+        for q in (x if x == "merge" else int(x) for x in args.queries.split(",")):
+            sql = MERGE_SQL if q == "merge" else QUERIES[q]
+            want = LocalQueryRunner(session, device=device).execute(sql).rows
             for rnd in range(args.rounds):
                 if rnd == 0:
                     RESIDENT_CACHE.clear()
@@ -107,7 +117,7 @@ def main() -> int:
                        for k in ("exchange.frames", "exchange.bytes", "exchange.rows")}
                 n_sched = len(schedule_s)
                 t0 = time.perf_counter()
-                res = coord.execute(QUERIES[q])
+                res = coord.execute(sql)
                 sync()
                 wall = time.perf_counter() - t0
                 if sampler is not None:

@@ -18,19 +18,20 @@ run on the worker's ``device`` (default ``"cuda"``; it raises without CUDA):
   PUT    /v1/info/state                            "DRAINING" (or the legacy
                                                    "SHUTTING_DOWN") enters the
                                                    drain machine
+  GET    /v1/metrics[/prefix][?raw=1|format=prometheus]  this process's metrics
+  GET    /v1/events?query_id=&since=&kind=         the event journal
 
 Lifecycle: ACTIVE → DRAINING → DRAINED → SHUT_DOWN (see _TRANSITIONS).
 
 Every in-process worker of one machine may share its one card: a task lets
 go of its device tensors when it ends, is cancelled, or its worker stops
-(``SqlTask``); ``join_tasks`` waits for the task threads. The reference's
-``/v1/metrics`` and ``/v1/events`` endpoints and ``main``'s ``--etc``
-catalog directory come with the server (``ROADMAP.md``).
+(``SqlTask``); ``join_tasks`` waits for the task threads.
 
 Control-plane bodies are structured JSON (cluster/codec.py allow-list
 codec). Workers announce themselves to the coordinator (discovery.Announcer).
 Run one as ``python -m presto_tpu_torch.cluster.worker --device cuda
---coordinator URI``."""
+--coordinator URI [--etc DIR]``; ``--etc`` loads the catalogs of
+``DIR/catalog/*.properties`` (every node loads the same set)."""
 from __future__ import annotations
 
 import re
@@ -328,6 +329,19 @@ class _WorkerHandler(BaseHTTPRequestHandler):
                 "spooledBytes": spooled,
                 "tasks": tasks,
             }).encode(), 200, [("Content-Type", "application/json")])
+        if path.rstrip("/").startswith("/v1/metrics"):
+            # the coordinator's surface: flat JSON, ?raw=1 (the mergeable
+            # snapshot GET /v1/cluster/metrics reads), ?format=prometheus
+            from ..utils.metrics import metrics_http_body
+
+            prefix = path.rstrip("/")[len("/v1/metrics"):].lstrip("/")
+            body, ctype = metrics_http_body(query, prefix=prefix)
+            return self._send(body, 200, [("Content-Type", ctype)])
+        if path.rstrip("/") == "/v1/events":
+            from ..utils.events import events_http_body
+
+            body, status = events_http_body(query)
+            return self._send(body, status, [("Content-Type", "application/json")])
         self._send(b"not found", 404)
 
     def do_HEAD(self) -> None:  # noqa: N802 — failure-detector ping
@@ -569,16 +583,27 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="where this worker's tasks run: cuda (the default; "
                          "fails without CUDA) or cpu")
+    ap.add_argument("--etc", default=None,
+                    help="config directory with catalog/*.properties (and an "
+                         "optional plugin/) — every node must load the same "
+                         "catalog set")
     ap.add_argument("--event-log", default=None, metavar="PATH",
                     help="append this worker's structured event journal "
                          "(task lifecycle, spills) as JSONL to PATH")
     args = ap.parse_args(argv)
+    device = resolve_device(args.device)  # no CUDA: fail before anything loads
     if args.event_log:
         from ..utils.events import JOURNAL
         JOURNAL.set_log_path(args.event_log)
+    catalogs = None
+    if args.etc:
+        from ..server.config import load_catalogs, load_plugins_for_etc
+
+        load_plugins_for_etc(args.etc)
+        catalogs = load_catalogs(args.etc)
     server = WorkerServer(port=args.port, coordinator_uri=args.coordinator,
                           host=args.host, announce_host=args.announce_host,
-                          node_id=args.node_id, device=args.device)
+                          node_id=args.node_id, catalogs=catalogs, device=device)
     if server._announcer:
         server._announcer.start()
     print(f"presto-tpu-torch worker {server.node_id} on {server.device} listening on "  # prestocheck: ignore[print-hygiene] - CLI startup banner

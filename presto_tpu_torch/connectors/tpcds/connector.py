@@ -13,7 +13,7 @@ TPC-DS scan regenerates its pages on every run.
 from __future__ import annotations
 
 import math
-from typing import Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,7 +21,8 @@ import torch
 from ...utils.batching import clamp_capacity
 from ...block import Block, Page
 from ...spi.connector import (ColumnHandle, ColumnMetadata, ColumnStatistics,
-                              Connector, ConnectorMetadata, ConnectorPageSource,
+                              Connector, ConnectorFactory, ConnectorMetadata,
+                              ConnectorPageSource,
                               ConnectorPageSourceProvider, ConnectorSplitManager,
                               Constraint, SchemaTableName, Split, TableHandle,
                               TableMetadata, TableStatistics)
@@ -173,3 +174,12 @@ class TpcdsConnector(Connector):
 
     def page_source_provider(self) -> ConnectorPageSourceProvider:
         return self._sources
+
+
+class TpcdsConnectorFactory(ConnectorFactory):
+    @property
+    def name(self) -> str:
+        return "tpcds"
+
+    def create(self, catalog_name: str, config: Dict[str, str]) -> Connector:
+        return TpcdsConnector(catalog_name, int(config.get("tpcds.splits-per-node", "8")))

@@ -18,7 +18,8 @@ import torch
 
 from ...block import Block, Page
 from ...spi.connector import (ColumnHandle, ColumnMetadata, ColumnStatistics,
-                              Connector, ConnectorMetadata, ConnectorPageSource,
+                              Connector, ConnectorFactory, ConnectorMetadata,
+                              ConnectorPageSource,
                               ConnectorPageSourceProvider, ConnectorSplitManager,
                               Constraint, SchemaTableName, Split, TableHandle,
                               TableMetadata, TableStatistics)
@@ -274,3 +275,12 @@ class TpchConnector(Connector):
 
     def page_source_provider(self) -> ConnectorPageSourceProvider:
         return self._sources
+
+
+class TpchConnectorFactory(ConnectorFactory):
+    @property
+    def name(self) -> str:
+        return "tpch"
+
+    def create(self, catalog_name: str, config: Dict[str, str]) -> Connector:
+        return TpchConnector(catalog_name, int(config.get("tpch.splits-per-node", "8")))

@@ -14,7 +14,7 @@ planned (``Session.check_supported``): no property is ignored quietly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -197,6 +197,9 @@ class CatalogManager:
 
     def get(self, name: str) -> Optional[Connector]:
         return self._catalogs.get(name)
+
+    def names(self) -> List[str]:
+        return list(self._catalogs)
 
 
 class MetadataManager:

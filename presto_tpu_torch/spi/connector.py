@@ -7,7 +7,11 @@ and masked; the table scan copies them to the device. A writable catalog's
 per writer driver, and its metadata commits the sinks' fragments
 (``create_table``, ``begin_insert``, ``finish_insert``, ``drop_table``);
 a read-only catalog returns None there. A bucketing catalog says how its
-tables are bucketed through ``node_partitioning_provider()``.
+tables are bucketed through ``node_partitioning_provider()``. A
+``ConnectorFactory`` makes a catalog's connector from its
+``etc/catalog/<name>.properties``, and a ``Plugin`` hands the server's
+loader its factories and function registration hooks
+(``server/config.load_plugins``).
 """
 from __future__ import annotations
 
@@ -313,3 +317,36 @@ class Connector(abc.ABC):
 
     def node_partitioning_provider(self) -> ConnectorNodePartitioningProvider:
         return ConnectorNodePartitioningProvider()
+
+    def shutdown(self) -> None:
+        """Release the catalog's threads and handles (raptor's organizer and
+        database); the server's owner calls it when a catalog goes away."""
+
+
+class ConnectorFactory(abc.ABC):
+    """Makes one catalog's connector from its properties."""
+
+    @property
+    @abc.abstractmethod
+    def name(self) -> str:
+        ...
+
+    @abc.abstractmethod
+    def create(self, catalog_name: str, config: Dict[str, str]) -> Connector:
+        ...
+
+
+class Plugin:
+    """What an external plugin contributes. Subclass and override."""
+
+    def connector_factories(self) -> List[ConnectorFactory]:
+        return []
+
+    def functions(self) -> List:
+        return []
+
+    def types(self) -> List[Type]:
+        return []
+
+    def event_listener_factories(self) -> List:
+        return []

@@ -14,8 +14,8 @@ its state under pressure), ``memory.revoke`` (``MemoryRevoker``),
 write or read failed, or the query went over ``spill_max_bytes``),
 ``spill.gc`` (a dead process's spill directories removed) and
 ``query.forensic_dumped`` (a failed query's black box written), as the
-reference does. The reference's HTTP renderer (``events_http_body``) waits
-for the server.
+reference does. ``events_http_body`` renders ``GET /v1/events`` for the
+server and the worker alike.
 """
 from __future__ import annotations
 
@@ -129,3 +129,28 @@ def emit(kind: str, severity: str = INFO, query_id: str = "", task_id: str = "",
     """Shorthand onto the process journal."""
     return JOURNAL.emit(kind, severity=severity, query_id=query_id, task_id=task_id,
                         **fields)
+
+
+def events_http_body(query: str) -> tuple:
+    """``GET /v1/events`` of the server and the worker: ``query`` is the raw
+    URL query string (``query_id=``, ``since=``, ``kind=``, ``limit=``);
+    returns (body bytes, status)."""
+    import urllib.parse
+
+    params = urllib.parse.parse_qs(query or "")
+
+    def p(name, default=""):
+        return params.get(name, [default])[0]
+
+    try:
+        since = int(p("since", "0") or 0)
+        limit = int(p("limit", "1000") or 1000)
+    except ValueError:
+        return (json.dumps(
+            {"error": {"message": "since/limit must be integers"}}).encode(), 400)
+    return (json.dumps({
+        "events": JOURNAL.events(query_id=p("query_id") or None, since=since,
+                                 kind=p("kind") or None, limit=limit),
+        "lastSeq": JOURNAL.last_seq(),
+        "dropped": JOURNAL.dropped,
+    }).encode(), 200)

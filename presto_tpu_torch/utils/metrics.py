@@ -25,7 +25,8 @@ same names:
 
 ``raw_snapshot`` gives the mergeable form (bucket counts, not percentiles);
 ``merge_raw_snapshots``, ``flatten_raw`` and ``prometheus_text`` merge and
-render it. The HTTP renderer (``metrics_http_body``) waits for the server.
+render it; ``metrics_http_body`` serves ``GET /v1/metrics`` on the server
+and the worker.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import math
 import sys
 import threading
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 # log2 histogram geometry: bucket 0 holds values <= _HIST_MIN seconds (1us);
 # bucket i holds (MIN*2^(i-1), MIN*2^i]. 64 buckets reach ~2.9e5 hours —
@@ -315,3 +316,22 @@ def prometheus_text(raw: Dict) -> str:
         lines.append(f"{name}_sum {h.total}")
         lines.append(f"{name}_count {h.n}")
     return "\n".join(lines) + "\n"
+
+
+def metrics_http_body(query: str, registry: Optional[MetricsRegistry] = None,
+                      prefix: str = "") -> tuple:
+    """``GET /v1/metrics`` of the server and the worker: ``query`` is the raw
+    URL query string. ``raw=1`` serves the mergeable snapshot,
+    ``format=prometheus`` the text exposition, anything else the flat JSON;
+    returns (body bytes, content type)."""
+    import json
+    import urllib.parse
+
+    reg = registry or METRICS
+    params = urllib.parse.parse_qs(query or "")
+    if params.get("raw", [""])[0] in ("1", "true"):
+        return json.dumps(reg.raw_snapshot(prefix)).encode(), "application/json"
+    if params.get("format", [""])[0] == "prometheus":
+        return (prometheus_text(reg.raw_snapshot(prefix)).encode(),
+                "text/plain; version=0.0.4")
+    return json.dumps(reg.snapshot(prefix)).encode(), "application/json"

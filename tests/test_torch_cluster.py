@@ -6,9 +6,9 @@ Every query of the reference's ``CLUSTER_QUERIES`` and TPC-H Q3 at ``tiny``
 gives rows equal to the reference's ``LocalQueryRunner`` (one shared run per
 query) and to the port's own local run, under each retry policy. Also
 ported: distributed EXPLAIN ANALYZE's roll-up, task-failure propagation,
-the failure detector, too few workers and the drain of an idle worker.
-``test_rest_protocol_over_cluster`` needs the REST server, which is not
-ported yet.
+the failure detector, too few workers, the drain of an idle worker, and the
+whole stack over REST: a worker that announces itself to the coordinator's
+``PrestoTpuServer``, a statement through the client, ``GET /v1/cluster``.
 """
 import json
 import math
@@ -169,6 +169,35 @@ def test_insufficient_workers_raises():
     runner.detector.stop()
     with pytest.raises(RuntimeError, match="active workers"):
         runner.execute("select count(*) from nation")
+
+
+def test_rest_protocol_over_cluster(ref_rows):
+    """The whole stack: REST coordinator (+ /v1/announcement discovery) ->
+    cluster scheduler -> worker tasks -> paged client results."""
+    from presto_tpu_torch import client
+    from presto_tpu_torch.server.http_server import PrestoTpuServer
+
+    runner = ClusterQueryRunner(session=Session(catalog="tpch", schema="tiny"), min_workers=1,
+                                worker_wait_s=15.0, device="cpu")
+    server = PrestoTpuServer(runner, port=0)
+    server.start()
+    worker = WorkerServer(port=0, coordinator_uri=f"http://127.0.0.1:{server.port}",
+                          device="cpu").start()
+    try:
+        sql = "select r_name from region order by r_name"
+        rows = client.execute(f"http://127.0.0.1:{server.port}", sql)
+        assert [r[0] for r in rows] == ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+        assert rows == ref_rows(sql)
+        # the cluster stats endpoint sees the announced worker
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/v1/cluster",
+                                    timeout=5) as r:
+            stats = json.loads(r.read())
+        assert stats["activeWorkers"] == 1
+        assert stats["nodes"][0]["nodeId"] == worker.node_id
+    finally:
+        worker.stop()
+        runner.detector.stop()
+        server.stop()
 
 
 def test_graceful_shutdown_drains():

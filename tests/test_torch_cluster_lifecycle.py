@@ -7,9 +7,9 @@ the memory-manager tests of ``tests/test_service_layer.py``.
 A PLANNED membership change loses no query: a draining worker refuses new
 work (503), keeps serving its live streams from pinned spools until their
 consumers are handed to replacements, and the queries it served finish with
-``query_attempts == 1`` and the reference's rows. The reference's
-``test_drained_worker_deregisters_from_discovery`` needs the REST server,
-which is not ported yet.
+``query_attempts == 1`` and the reference's rows. A DRAINED worker leaves
+the coordinator's discovery over REST (``DELETE /v1/announcement/{id}``),
+also when the drain is asked for with ``PUT /v1/cluster/drain/{id}``.
 """
 import json
 import threading
@@ -127,6 +127,75 @@ class _Cluster:
         self.runner.detector.stop()
         for w in self.workers:
             w.stop()
+
+
+class _Deadline:
+    def __init__(self, seconds):
+        self.t_end = time.time() + seconds
+
+    def tick(self, msg):
+        assert time.time() < self.t_end, msg
+        time.sleep(0.05)
+
+
+def _rest_coordinator():
+    from presto_tpu_torch.server.http_server import PrestoTpuServer
+
+    runner = ClusterQueryRunner(session=Session(catalog="tpch", schema="tiny"), min_workers=1,
+                                worker_wait_s=15.0, device="cpu")
+    server = PrestoTpuServer(runner, port=0)
+    server.start()
+    return runner, server
+
+
+def test_drained_worker_deregisters_from_discovery():
+    """A worker that reaches DRAINED sends DELETE /v1/announcement/{id} and
+    its discovery entry goes without waiting out the liveness expiry."""
+    runner, server = _rest_coordinator()
+    w = WorkerServer(port=0, coordinator_uri=f"http://127.0.0.1:{server.port}",
+                     device="cpu").start()
+    try:
+        deadline = _Deadline(10.0)
+        while runner.nodes.get(w.node_id) is None:
+            deadline.tick("worker never announced")
+        w.begin_drain(reason="test")
+        assert w.state == DRAINED
+        deadline = _Deadline(10.0)
+        while runner.nodes.get(w.node_id) is not None:
+            deadline.tick("DRAINED worker never deregistered")
+    finally:
+        w.stop()
+        runner.detector.stop()
+        server.stop()
+
+
+def test_operator_drain_over_http_deregisters_the_worker():
+    """PUT /v1/cluster/drain/{id} on the coordinator's server: 202, then the
+    worker walks to DRAINED and leaves discovery; an unknown node is a 404."""
+    runner, server = _rest_coordinator()
+    base = f"http://127.0.0.1:{server.port}"
+    w = WorkerServer(port=0, coordinator_uri=base, device="cpu").start()
+    try:
+        deadline = _Deadline(10.0)
+        while runner.nodes.get(w.node_id) is None:
+            deadline.tick("worker never announced")
+        seq0 = JOURNAL.last_seq()
+        req = urllib.request.Request(f"{base}/v1/cluster/drain/{w.node_id}", method="PUT")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            assert r.status == 202 and json.loads(r.read()) == {"draining": w.node_id}
+        deadline = _Deadline(15.0)
+        while runner.nodes.get(w.node_id) is not None or w.state != DRAINED:
+            deadline.tick("the drained worker never left discovery")
+        drained = JOURNAL.events(since=seq0, kind="node.drained")
+        assert drained and drained[0]["signal"]["trigger"] == "operator"
+        req = urllib.request.Request(f"{base}/v1/cluster/drain/no-such-node", method="PUT")
+        with pytest.raises(urllib.error.HTTPError) as exc:
+            urllib.request.urlopen(req, timeout=10)
+        assert exc.value.code == 404
+    finally:
+        w.stop()
+        runner.detector.stop()
+        server.stop()
 
 
 def test_drain_worker_idle_cluster_emits_events_and_removes_node():

@@ -632,3 +632,29 @@ def test_cluster_q3_on_two_workers_of_the_card(cuda):
             w.stop()
         for w in workers:
             assert w.join_tasks(60.0)
+
+
+def test_server_q3_on_the_card(cuda):
+    """Q3 at ``tiny`` served by ``PrestoTpuServer`` over a runner on the card
+    and fetched through ``StatementClient``: the rows of the in-process
+    run after the JSON round trip, with the insert and the probe launched."""
+    from presto_tpu_torch.client import StatementClient
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.runner import LocalQueryRunner
+    from presto_tpu_torch.server import PrestoTpuServer
+
+    session = Session(catalog="tpch", schema="tiny", properties={"hash_kernels": "pallas"})
+    runner = LocalQueryRunner(session, device=cuda)
+    server = PrestoTpuServer(runner, port=0, page_rows=3)
+    server.start()
+    try:
+        want = [server.manager._to_json_row(r) for r in runner.execute(QUERIES[3]).rows]
+        ph.insert_table.launches = ph.probe_table.launches = 0
+        client = StatementClient(f"http://127.0.0.1:{server.port}", QUERIES[3])
+        got = list(client.rows())
+        assert got == want and len(want) == 10
+        assert client.stats["state"] == "FINISHED"
+        assert ph.insert_table.launches >= 2 and ph.probe_table.launches >= 1
+    finally:
+        server.stop()

@@ -1,12 +1,19 @@
 """presto_tpu_torch, chip_smoke.py and the measurement scripts
 port_walls.py, file_walls.py, dist_walls.py and cluster_walls.py import neither jax
-nor presto_tpu, nor
+nor presto_tpu, nor the repo's ``tools`` (which imports presto_tpu), nor
 pyarrow or zstandard (the card's machine has neither: the file
-formats import ``zstandard`` only where a zstd page is met)."""
+formats import ``zstandard`` only where a zstd page is met).
+
+The server's entry points refuse CUDA where there is none unless asked for
+the CPU: ``PrestoTpuServer()``, ``python -m presto_tpu_torch.server`` and
+the worker's ``main``."""
 import os
 import pkgutil
 import subprocess
 import sys
+
+import pytest
+import torch
 
 import presto_tpu_torch
 
@@ -24,7 +31,8 @@ for script in ('chip_smoke', 'port_walls', 'file_walls', 'dist_walls', 'cluster_
     spec = importlib.util.spec_from_file_location(script, script + '.py')
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'presto_tpu', 'pyarrow', 'zstandard'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'presto_tpu', 'tools', 'pyarrow',
+                                     'zstandard'))
 print(json.dumps({'modules': names, 'bad': bad}))
 """
 
@@ -72,6 +80,13 @@ def test_port_imports_no_jax_and_no_reference():
         "retry", "codec", "serde", "buffers", "discovery", "exchange_client", "task",
         "worker", "scheduler", "coordinator", "memory_manager", "autoscaler",
         "faults")} <= set(res["modules"])
+    # the server, its clients and the verifier
+    assert {"presto_tpu_torch.server", "presto_tpu_torch.server.config",
+            "presto_tpu_torch.server.http_server", "presto_tpu_torch.server.protocol",
+            "presto_tpu_torch.server.proxy", "presto_tpu_torch.server.resource_groups",
+            "presto_tpu_torch.server.__main__", "presto_tpu_torch.client",
+            "presto_tpu_torch.client.dbapi", "presto_tpu_torch.cli",
+            "presto_tpu_torch.cli.__main__", "presto_tpu_torch.verifier"} <= set(res["modules"])
 
 
 def test_native_library_is_the_ports_own():
@@ -84,3 +99,29 @@ def test_native_library_is_the_ports_own():
     assert native._SO == os.path.join(here, "build", "libpcol.so")
     with open(os.path.join(ROOT, ".gitignore")) as f:
         assert "presto_tpu_torch/native/build/" in f.read().split()
+
+
+def test_server_package_files_present():
+    here = os.path.join(ROOT, "presto_tpu_torch", "server")
+    for name in ("config.py", "http_server.py", "protocol.py", "proxy.py",
+                 "resource_groups.py", "webui.html", "__init__.py", "__main__.py"):
+        assert os.path.isfile(os.path.join(here, name)), name
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="this machine has CUDA")
+def test_server_entry_points_refuse_cuda_without_it():
+    from presto_tpu_torch.cluster import worker
+    from presto_tpu_torch.server import PrestoTpuServer
+    from presto_tpu_torch.server import main as server_main
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PrestoTpuServer(port=0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        server_main(["--port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        worker.main(["--port", "0"])
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-m", "presto_tpu_torch.server", "--port", "0"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "CUDA is not available" in out.stderr
+    assert "listening" not in out.stdout

@@ -2,9 +2,18 @@
 against the reference's: the cases of ``tests/test_metrics.py`` that need
 no server. The same observations go into both registries, and the
 snapshots, percentiles, raw forms, merges and the Prometheus text must be
-equal exactly.
+equal exactly, and so must ``metrics_http_body``'s flat JSON keys and
+Prometheus lines.
+
+The endpoint cases of ``tests/test_metrics.py`` and ``tests/test_trace.py``
+run against the port's ``PrestoTpuServer`` and ``WorkerServer`` on the CPU:
+``/v1/metrics`` with its prefix and formats, ``/v1/cluster/metrics``
+merging two workers, and ``/v1/query/{id}/trace``.
 """
+import json
 import random
+import time
+import urllib.request
 
 import pytest
 
@@ -179,3 +188,167 @@ def test_query_wall_histogram_counts_every_statement():
         runner.execute("select definitely_missing from nation")
     after = metrics.METRICS.histogram_summary("query.wall_s")["count"]
     assert after - before == 2
+
+
+# ---------------------------------------------------------------------------
+# the HTTP surfaces
+# ---------------------------------------------------------------------------
+
+def _follow(base, resp):
+    """Follow ``nextUri`` to the final payload."""
+    for _ in range(400):
+        next_uri = resp.get("nextUri")
+        if next_uri is None:
+            return resp
+        if resp["stats"]["state"] in ("QUEUED", "RUNNING"):
+            time.sleep(0.02)
+        resp = json.loads(urllib.request.urlopen(urllib.request.Request(
+            next_uri, headers={"X-Presto-User": "test"}), timeout=10).read())
+    raise AssertionError("the statement never finished")
+
+
+def _get_json(url):
+    return json.loads(urllib.request.urlopen(
+        urllib.request.Request(url, headers={"X-Presto-User": "test"}), timeout=10).read())
+
+
+def test_query_lifecycle_counters_and_endpoint():
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.runner import LocalQueryRunner
+    from presto_tpu_torch.server import PrestoTpuServer
+
+    server = PrestoTpuServer(LocalQueryRunner(Session(catalog="tpch", schema="tiny"),
+                                              device="cpu"), port=0)
+    server.start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        before = metrics.METRICS.counter_value("query_manager.completed")
+        req = urllib.request.Request(f"{base}/v1/statement", data=b"select 1",
+                                     headers={"X-Presto-User": "test"})
+        final = _follow(base, json.loads(urllib.request.urlopen(req, timeout=10).read()))
+        assert final["stats"]["state"] == "FINISHED"
+        snap = _get_json(f"{base}/v1/metrics")
+        assert snap["query_manager.submitted"] >= 1
+        assert snap["query_manager.completed"] >= before + 1
+        only = _get_json(f"{base}/v1/metrics/query_manager")
+        assert only and all(k.startswith("query_manager") for k in only)
+    finally:
+        server.stop()
+
+
+def test_metrics_http_raw_and_prometheus_formats():
+    reg = MetricsRegistry()
+    reg.count("a.b", 2)
+    reg.histogram("h.s", 0.1)
+    body, ctype = metrics.metrics_http_body("raw=1", registry=reg)
+    snap = json.loads(body)
+    assert ctype == "application/json"
+    assert snap["counters"]["a.b"] == 2 and "h.s" in snap["histograms"]
+    body, ctype = metrics.metrics_http_body("format=prometheus", registry=reg)
+    assert ctype.startswith("text/plain")
+    assert b"# TYPE presto_tpu_a_b counter" in body
+    body, _ = metrics.metrics_http_body("", registry=reg)
+    flat = json.loads(body)
+    assert flat["a.b"] == 2 and flat["h.s.count"] == 1
+
+
+@pytest.mark.parametrize("query,prefix", [("", ""), ("raw=1", ""), ("raw=true", "q."),
+                                          ("format=prometheus", ""),
+                                          ("format=prometheus", "q."), ("", "pool")])
+def test_metrics_http_body_equal_reference(query, prefix):
+    """The same observations render the same flat JSON (keys and values but
+    for the uptime), the same raw snapshot and the same Prometheus lines in
+    both packages."""
+    bodies = {}
+    for pkg, mod in BOTH.items():
+        reg = mod.MetricsRegistry()
+        reg.count("queries.completed", 3)
+        reg.count("q.rows", 1234)
+        reg.set_gauge("pool.bytes", lambda: 123)
+        for v in (0.002, 0.004, 1.5, 0.25):
+            reg.histogram("q.wall_s", v)
+        bodies[pkg] = mod.metrics_http_body(query, registry=reg, prefix=prefix)
+    (got, got_type), (want, want_type) = bodies["port"], bodies["reference"]
+    assert got_type == want_type
+    if want_type.startswith("text/plain"):
+        assert got.decode().splitlines() == want.decode().splitlines()
+        return
+    got, want = json.loads(got), json.loads(want)
+    if "counters" not in want:
+        got.pop("uptime_seconds", None)
+        want.pop("uptime_seconds", None)
+    assert got == want
+
+
+def test_cluster_metrics_endpoint_merges_workers():
+    """GET /v1/cluster/metrics merges the workers' /v1/metrics?raw=1
+    snapshots; the flat answer equals a hand merge."""
+    import dataclasses
+
+    from presto_tpu_torch.cluster.worker import WorkerServer
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.runner import LocalQueryRunner
+    from presto_tpu_torch.server.http_server import PrestoTpuServer
+
+    workers = [WorkerServer(port=0, device="cpu").start() for _ in range(2)]
+    runner = LocalQueryRunner(Session(catalog="tpch", schema="tiny"), device="cpu")
+
+    @dataclasses.dataclass
+    class _Node:
+        node_id: str
+        uri: str
+
+    class _Nodes:  # a DiscoveryNodeManager stand-in
+        def active_nodes(self):
+            return [_Node(w.node_id, w.uri) for w in workers]
+
+    runner.nodes = _Nodes()
+    server = PrestoTpuServer(runner, port=0)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        raws = [_get_json(f"{w.uri}/v1/metrics?raw=1") for w in workers]
+        oracle = metrics.flatten_raw(metrics.merge_raw_snapshots(raws))
+        merged = _get_json(f"{base}/v1/cluster/metrics")
+        assert merged["cluster.workers_merged"] == 2
+        for k in oracle:
+            if k.endswith((".p50", ".p95", ".p99", ".count")):
+                assert merged.get(k) == oracle[k], (k, merged.get(k), oracle[k])
+        prom = urllib.request.urlopen(urllib.request.Request(
+            f"{base}/v1/cluster/metrics?format=prometheus",
+            headers={"X-Presto-User": "t"}), timeout=10).read().decode()
+        assert "# TYPE" in prom
+        evts = _get_json(f"{workers[0].uri}/v1/events?limit=5")
+        assert set(evts) == {"events", "lastSeq", "dropped"} and len(evts["events"]) <= 5
+    finally:
+        server.stop()
+        for w in workers:
+            w.stop()
+
+
+def test_trace_http_endpoint(tmp_path):
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.runner import LocalQueryRunner
+    from presto_tpu_torch.server import PrestoTpuServer
+    from presto_tpu_torch.utils import trace
+
+    runner = LocalQueryRunner(Session(catalog="tpch", schema="tiny", properties={
+        "query_trace": True, "query_trace_dir": str(tmp_path)}), device="cpu")
+    server = PrestoTpuServer(runner, port=0)
+    server.start()
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+        req = urllib.request.Request(f"{base}/v1/statement",
+                                     data=b"select count(*) from region",
+                                     headers={"X-Presto-User": "test"})
+        resp = json.loads(urllib.request.urlopen(req, timeout=10).read())
+        qid = resp["id"]
+        resp = _follow(base, resp)
+        assert resp["stats"]["state"] == "FINISHED", resp
+        doc = _get_json(f"{base}/v1/query/{qid}/trace")
+        assert trace.span_categories(doc).get("lifecycle", 0) > 0
+        info = _get_json(f"{base}/v1/query/{qid}")
+        assert info["hasTrace"] is True
+        assert info["elapsedMillis"] >= 0
+    finally:
+        server.stop()
