@@ -120,8 +120,9 @@ Phases, each of which must pass:
    ``count_if`` and ``arbitrary`` grouped by flag and status and global, a
    per-day DATE grouping (``min_by``, ``stddev``, ``count_if``) that must
    take the insert kernel, and a sketch grouping above 8,192 groups that
-   must spill. Each runs cold and warm (counters set to 0 just before it),
-   but the sketch grouping, which runs once (``P14_ONE_RUN``);
+   must spill. The per-day grouping runs cold and warm (counters set to 0
+   just before the warm run), the others once (``P14_ONE_RUN``; their
+   cold SF1 walls: ``port_walls.py --p14``);
    the rows must equal a numpy oracle (``check_p14_rows``: exact where the
    result is, the sketches within their error bounds, ``min_by``/``max_by``
    a row holding the extreme, the statistics to ``STAT_REL_TOL``); the
@@ -265,7 +266,9 @@ Phases, each of which must pass:
    HTTP over loopback, the workers announcing every second as the
    reference's test fixture does. TPC-H Q1 and Q3 at SF1, Q5 at
    ``Q5_SCHEMA`` and Q9 at ``tiny`` (``CLUSTER_SCHEMA``) with
-   ``hash_kernels="pallas"``, a cold and a warm run each, rows equal to
+   ``hash_kernels="pallas"``, a cold and a warm run each but Q3, run once
+   (``CLUSTER_ONE_RUN``; its cold SF1 wall: ``cluster_walls.py --queries
+   3``), rows equal to
    phase 11's (Q9's to the single-node run and the numpy oracle at its
    scale); the warm run's launches
    per worker (a kernel call is the worker's whose task runs the calling
@@ -306,7 +309,27 @@ Phases, each of which must pass:
    /v1/cluster/drain/{node}`` (DRAINED and out of discovery), Q1 on the
    other worker; (g) ``torch.cuda.memory_allocated()`` equal before the
    phase's servers and after they all stopped. Prints ``SERVER`` lines;
-24. print the kernels line (JSON, with each kernel's warm-run launches per
+24. the sanitizers (``run_sanitizer_phase``): a child process
+   (``--sanitizers``) started with ``PRESTO_TPU_TORCH_LOCKSAN``,
+   ``_LEAKSAN`` and ``_COMPILESAN`` set, so that the port's import arms
+   all three before its first lock exists (the shared pools' conditions
+   must be the lock sanitizer's wrappers). At ``SAN_SMALL_SCHEMA`` it
+   first takes the in-process rows of Q1, Q3 and Q6 and the device
+   memory; then TPC-H Q1 and Q3 at SF1 twice each on one runner with
+   ``hash_kernels="pallas"`` (rows equal to phase 11's on both passes,
+   Q3's second-pass launches phase 11's, no composition on the second
+   pass, fused-segment builds equal to ``segments.compiles``); at
+   ``SAN_SMALL_SCHEMA`` the distributed Q3 on four logical workers, a
+   served query cancelled at once, a ``spill.write`` fault under a
+   one-byte pool, and ``SAN_SERVE_CLIENTS`` ``StatementClient``s at once
+   on Q1, Q3 and Q6 through a ``PrestoTpuServer``. Fails on any finding
+   of the three, ``leaksan.live_bytes`` other than 0, an empty
+   ``locksan.hold_s``, or ``torch.cuda.memory_allocated()`` (resident
+   pages and compositions cleared) other than before; each dump is read
+   back by ``python -m tools.prestocheck --lock-graph-diff``,
+   ``--leak-diff`` and ``--compile-diff`` with exit 0. Prints
+   ``SANITIZERS`` lines: counts, percentiles, walls;
+25. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
    ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``, phase 16 as
@@ -316,7 +339,8 @@ Phases, each of which must pass:
    ``SQL HIVE q3 grouped unfused`` and ``SQL RAPTOR q6``, phase 20 as
    ``SQL FED kafka stream join``, phase 21 as ``SQL DIST Q3``, phase 22
    as ``SQL CLUSTER Q3``, phase 23 as ``SERVER Q3`` and ``SERVER
-   concurrent Q3``), the card line, and last the result line.
+   concurrent Q3``, phase 24 as ``SANITIZED Q3``), the card line, and last
+   the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
 cut pipeline runs as four drivers (``driver_parallelism`` AUTO) and every
@@ -2362,7 +2386,10 @@ def check_insert_at(device, label: str, comps, mask, slots, reps: int = 20,
 
 
 # the phase 14 queries that run once (no separate cold run)
-P14_ONE_RUN = ("agg sketch spill",)
+# run once each (their cold SF1 runs were cut for the script's budget:
+# ``port_walls.py --p14`` keeps them); the per-day grouping's cold run
+# captures its insert's shape
+P14_ONE_RUN = tuple(label for label in P14_SQL if label != "agg per day")
 
 
 def run_p14_phase(device, schema: str = "sf1") -> dict:
@@ -2371,8 +2398,9 @@ def run_p14_phase(device, schema: str = "sf1") -> dict:
     query cold (cache cleared; its kernel inputs captured), warm (launch
     counters and ``COUNTERS`` set to 0 just before it, the peak device
     memory reset); then on the card and the CPU at ``CPU_ROWS_SCHEMA``.
-    The sketch grouping (``P14_ONE_RUN``) runs once, with the counters set
-    to 0 before it: its cold SF1 run was cut for the script's budget.
+    Every query but the per-day grouping (``P14_ONE_RUN``) runs once, with
+    the counters set to 0 before it: its cold SF1 run was cut for the
+    script's budget.
     Fails unless the rows equal the numpy oracle's, the card's rows at
     ``CPU_ROWS_SCHEMA`` the CPU run's there, the insert launched once per
     join build and grouped page, nothing fell back, the per-day grouping took the insert
@@ -4860,6 +4888,9 @@ def run_distributed_phase(device, records: dict, card: str = "", schema: str = "
 CLUSTER_WORKERS = 4
 CLUSTER_QUERIES = (1, 3, 9, 5)
 CLUSTER_SCHEMA = {5: Q5_SCHEMA, 9: "tiny"}
+# run once (the cold SF1 run was cut for the script's budget:
+# ``cluster_walls.py --queries 3`` keeps it)
+CLUSTER_ONE_RUN = (3,)
 CLUSTER_MERGE_SQL = ("select o_orderkey, o_totalprice from orders where o_totalprice > "
                      "150000.0 order by o_totalprice desc, o_orderkey")
 # the merge query's scale (SF1's runs: ``cluster_walls.py --queries merge``)
@@ -5059,7 +5090,9 @@ def run_cluster_phase(device, records: dict, card: str = "", schema: str = "sf1"
                                          f"from the numpy oracle's")
             r.local.session = cluster.session(qschema)
             RESIDENT_CACHE.clear()
-            cold, cold_s = timed(r, QUERIES[q])
+            cold = cold_s = None
+            if q not in CLUSTER_ONE_RUN:
+                cold, cold_s = timed(r, QUERIES[q])
             before = {k: METRICS.counter_value(k) for k in COUNTERS}
             ex0 = exchange_counts()
             ph.insert_table.launches = 0
@@ -5069,10 +5102,11 @@ def run_cluster_phase(device, records: dict, card: str = "", schema: str = "sf1"
             launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
             delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
             ex = {k: int(v - ex0[k]) for k, v in exchange_counts().items()}
-            for label, rows in (("cold", cold.rows), ("warm", res.rows)):
-                if not same_rows(rows, want["rows"]):
+            for label, run_res in (("cold", cold), ("warm", res)):
+                if run_res is not None and not same_rows(run_res.rows, want["rows"]):
                     raise AssertionError(f"CLUSTER Q{q} {qschema}: the {label} run's rows "
-                                         f"differ from phase 11's:\n{rows}\n{want['rows']}")
+                                         f"differ from phase 11's:\n{run_res.rows}\n"
+                                         f"{want['rows']}")
             builds, pages = delta["pallas.join_builds"], delta["pallas.agg_pages"]
             by_worker = per.per_worker()
             if on_card and launches["insert"] != builds + pages:
@@ -5098,7 +5132,8 @@ def run_cluster_phase(device, records: dict, card: str = "", schema: str = "sf1"
                                               "HTTP)", *capture.probe_args)
             out[f"CLUSTER Q{q}"] = rec
             log(f"CLUSTER Q{q} {qschema} on {CLUSTER_WORKERS} workers ({card}): "
-                f"{len(res.rows)} rows equal to phase 11's; cold wall {cold_s:.4f}s, warm wall "
+                f"{len(res.rows)} rows equal to phase 11's; cold wall "
+                f"{'not run' if cold_s is None else f'{cold_s:.4f}s'}, warm wall "
                 f"{warm_s:.4f}s; tasks per fragment {rec['tasks']}; warm exchange.frames "
                 f"{ex['exchange.frames']}, exchange.bytes {ex['exchange.bytes']}, "
                 f"exchange.rows {ex['exchange.rows']}; warm launches {launches}, per worker "
@@ -5603,6 +5638,274 @@ def run_server_phase(device, records: dict, card: str = "", schema: str = "sf1")
     return out
 
 
+# phase 24: the sanitizers on the card
+SAN_ENV = ("PRESTO_TPU_TORCH_LOCKSAN", "PRESTO_TPU_TORCH_LEAKSAN", "PRESTO_TPU_TORCH_COMPILESAN")
+SAN_QUERIES = (1, 3)               # at SF1, twice each, against phase 11's rows
+SAN_SMALL_SCHEMA = "tiny"          # the distributed Q3, the leak shapes, the serving mix
+SAN_SERVE_QUERIES = (1, 3, 6)
+SAN_SERVE_CLIENTS = 4
+# each sanitizer's dump (DIR/<name>.json) and the tools.prestocheck mode that reads it
+SAN_DIFFS = {"locksan": "--lock-graph-diff", "leaksan": "--leak-diff",
+             "compilesan": "--compile-diff"}
+SAN_CHILD_TIMEOUT_S = 300
+
+
+def sanitizers_main(out_dir: str, device_name: str, schema: str) -> int:
+    """``--sanitizers DIR DEVICE SCHEMA``: phase 24's child, started with
+    the three ``PRESTO_TPU_TORCH_*SAN=1`` variables, so that the port's
+    import arms its sanitizers before any of its locks exists. Runs the
+    phase's steps, raises on any finding, and writes ``DIR/result.pkl``
+    and the three dumps."""
+    import threading
+
+    import torch
+
+    from presto_tpu_torch.exec import shared_pools
+    from presto_tpu_torch.utils import compilesan, kernel_cache, leaksan, locksan
+
+    sanitizers = {"locksan": locksan, "leaksan": leaksan, "compilesan": compilesan}
+    if not all(m.enabled() for m in sanitizers.values()):
+        raise AssertionError("SANITIZERS: the environment did not arm all three")
+    pools = {name: type(cv).__name__ for name, cv in shared_pools.pool_locks().items()}
+    if set(pools.values()) != {"_SanCondition"}:
+        raise AssertionError(f"SANITIZERS: a shared pool's condition is raw: {pools} (the "
+                             "lock sanitizer installed after the pools allocated)")
+
+    from presto_tpu_torch.cluster import faults
+    from presto_tpu_torch.client import StatementClient
+    from presto_tpu_torch.memory import shared_general_pool
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+    from presto_tpu_torch.parallel.mesh import MeshContext
+    from presto_tpu_torch.parallel.runner import DistributedQueryRunner
+    from presto_tpu_torch.server import PrestoTpuServer
+    from presto_tpu_torch.utils.metrics import METRICS
+
+    device = torch.device(device_name)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    small = SAN_SMALL_SCHEMA
+
+    def memory() -> int:
+        # what the caches keep on purpose goes first: the resident pages
+        # and the compositions
+        RESIDENT_CACHE.clear()
+        kernel_cache.clear()
+        gc.collect()
+        sync()
+        return torch.cuda.memory_allocated(device) if on_card else 0
+
+    walls = {}
+    clock = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        walls[name] = now - clock[0]
+        clock[0] = now
+
+    # the in-process rows of the small steps, and every lazy device state
+    # made once, before the first reading
+    wants = {q: sql_runner(device, "pallas", small).execute(QUERIES[q]).rows
+             for q in SAN_SERVE_QUERIES}
+    mem0 = memory()
+    step("warm-up at " + small)
+
+    # (a) Q1 and Q3 twice each on one runner: the second pass composes nothing
+    runner = sql_runner(device, "pallas", schema)
+    seg0 = METRICS.counter_value("segments.compiles")
+    builds0 = compilesan.SANITIZER.total_builds()
+    fused0 = compilesan.SANITIZER.family_totals()["fused-segment"]
+    rows, launches, seg_stats = {q: [] for q in SAN_QUERIES}, {}, {}
+    for q in SAN_QUERIES:
+        res = runner.execute(QUERIES[q])
+        sync()
+        step(f"Q{q} first")
+        rows[q].append(res.rows)
+        seg_stats[q] = (res.stats or {}).get("segments") or {"compiles": 0}
+    cold_builds = compilesan.SANITIZER.total_builds() - builds0
+    for q in SAN_QUERIES:
+        ph.insert_table.launches = ph.probe_table.launches = 0
+        rows[q].append(runner.execute(QUERIES[q]).rows)
+        sync()
+        step(f"Q{q} second")
+        launches[q] = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+    warm_builds = compilesan.SANITIZER.total_builds() - builds0 - cold_builds
+    fused = compilesan.SANITIZER.family_totals()["fused-segment"] - fused0
+    seg_compiles = int(METRICS.counter_value("segments.compiles") - seg0)
+    if warm_builds or fused != seg_compiles or fused != sum(s["compiles"] for s in
+                                                             seg_stats.values()):
+        raise AssertionError(f"SANITIZERS: the second pass built {warm_builds}; fused-segment "
+                             f"builds {fused}, segments.compiles {seg_compiles}, per query "
+                             f"{seg_stats}")
+    del runner
+
+    # (b) the distributed Q3 on four logical workers of the device
+    dist = DistributedQueryRunner(
+        MeshContext([device] * 4), device=device,
+        session=Session(catalog="tpch", schema=small, properties={"hash_kernels": "pallas"}))
+    if not same_rows(dist.execute(QUERIES[3]).rows, wants[3]):
+        raise AssertionError("SANITIZERS: the distributed Q3 differs from the local run")
+    del dist
+    step("distributed Q3")
+
+    # (c) the leak shapes beside the happy ones above: a cancelled served
+    # query, and a spill.write fault under a one-byte pool
+    server = PrestoTpuServer(sql_runner(device, "pallas", small), port=0)
+    server.start()
+    try:
+        info = server.manager.submit("select count(*) from lineitem")
+        if not server.manager.cancel(info.query_id):
+            raise AssertionError("SANITIZERS: the cancel was refused")
+        deadline = time.monotonic() + 30
+        while not info.done() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if info.state != "CANCELED":
+            raise AssertionError(f"SANITIZERS: the cancelled query ended {info.state}")
+    finally:
+        server.stop()
+    faults.install(faults.FaultInjector.from_spec("spill.write:error:times=1", seed=7))
+    try:
+        sql_runner(device, "pallas", small, **PRESSURE).execute(QUERIES[3])
+        raise AssertionError("SANITIZERS: the injected spill.write fault did not fire")
+    except faults.InjectedFault:
+        pass  # the owning query fails: the contract
+    finally:
+        faults.clear()
+    step("cancel and fault")
+
+    # (d) four StatementClients at once on Q1, Q3 and Q6 through the server
+    server = PrestoTpuServer(sql_runner(device, "pallas", small), port=0)
+    server.start()
+    errors, served = [], [0]
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+
+        def client(i):
+            try:
+                for j in range(len(SAN_SERVE_QUERIES)):
+                    q = SAN_SERVE_QUERIES[(i + j) % len(SAN_SERVE_QUERIES)]
+                    got = list(StatementClient(base, QUERIES[q], poll_interval_s=0.01).rows())
+                    if not same_json_rows(got, wants[q]):
+                        errors.append(f"client {i} Q{q}: rows differ")
+                    served[0] += 1
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(f"client {i}: {e!r}")
+        threads = [threading.Thread(target=client, args=(i,), name=f"san-client-{i}")
+                   for i in range(SAN_SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"SANITIZERS: serving failed: {errors[:3]}")
+    finally:
+        server.stop()
+    step("serving")
+
+    # the gate
+    leaksan.SANITIZER.check_exit()
+    reports = {name: m.SANITIZER.report() for name, m in sanitizers.items()}
+    findings = {name: len(m.SANITIZER.findings()) for name, m in sanitizers.items()}
+    if any(findings.values()):
+        raise AssertionError("SANITIZERS: findings:\n" + "\n".join(reports.values()))
+    live_bytes = METRICS.snapshot("leaksan")["leaksan.live_bytes"]
+    hold = METRICS.histogram_summary("locksan.hold_s")
+    if live_bytes != 0 or hold.get("count", 0) == 0:
+        raise AssertionError(f"SANITIZERS: leaksan.live_bytes {live_bytes}, locksan.hold_s {hold}")
+    if shared_general_pool().spill_by_query():
+        raise AssertionError("SANITIZERS: spill bytes left in the pool's ledger")
+    mem1 = memory()
+    if mem1 != mem0:
+        raise AssertionError(f"SANITIZERS: device memory {mem0} before the steps, {mem1} after")
+    for name, m in sanitizers.items():
+        m.SANITIZER.dump(os.path.join(out_dir, f"{name}.json"))
+    result = {
+        "rows": rows, "launches": launches, "walls": walls, "pools": pools,
+        "findings": findings, "cold_builds": cold_builds, "warm_builds": warm_builds,
+        "fused_builds": fused, "segments_compiles": seg_compiles, "served": served[0],
+        "locks": locksan.SANITIZER.n_locks, "edges": len(locksan.SANITIZER.edges()),
+        "hold": hold, "wait": METRICS.histogram_summary("locksan.wait_s"),
+        "live": leaksan.SANITIZER.live_counts(), "live_bytes": live_bytes,
+        "compile_sites": len(compilesan.SANITIZER.site_stats()), "memory": (mem0, mem1)}
+    with open(os.path.join(out_dir, "result.pkl.tmp"), "wb") as f:
+        pickle.dump(result, f)
+    os.replace(os.path.join(out_dir, "result.pkl.tmp"), os.path.join(out_dir, "result.pkl"))
+    return 0
+
+
+def run_sanitizer_phase(device, records: dict, card: str = "", schema: str = "sf1") -> dict:
+    """Phase 24: the port's main path under its lock, leak and compile
+    sanitizers, in a child process (see the module docstring); each dump
+    read back by ``tools.prestocheck``, also in a child. Returns the
+    records whose launches the kernels line reports, keyed ``SANITIZED
+    Q...``."""
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="chip-smoke-sanitizers-")
+    try:
+        env = dict(os.environ, **{name: "1" for name in SAN_ENV})
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--sanitizers", out_dir,
+             str(device), schema], env=env, cwd=here, capture_output=True, text=True,
+            timeout=SAN_CHILD_TIMEOUT_S)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"SANITIZERS: the child exited {child.returncode}:\n"
+                                 f"{(child.stdout + child.stderr)[-6000:]}")
+        with open(os.path.join(out_dir, "result.pkl"), "rb") as f:
+            res = pickle.load(f)
+        out = {}
+        for q in SAN_QUERIES:
+            want = records[q]
+            if want.get("schema", "sf1") != schema:
+                raise AssertionError(f"SANITIZERS: phase 11 holds Q{q} at {want.get('schema')}")
+            for i, got in enumerate(res["rows"][q]):
+                if not same_rows(got, want["rows"]):
+                    raise AssertionError(f"SANITIZERS Q{q}: run {i + 1}'s rows differ from "
+                                         f"phase 11's")
+            out[f"SANITIZED Q{q}"] = {"launches": res["launches"][q]}
+        if device.type == "cuda" and res["launches"][3] != records[3]["launches"]:
+            raise AssertionError(f"SANITIZERS Q3: warm launches {res['launches'][3]}, phase "
+                                 f"11's {records[3]['launches']}")
+        t0 = time.perf_counter()
+        diffs = {flag: subprocess.Popen(
+            [sys.executable, "-m", "tools.prestocheck", flag,
+             os.path.join(out_dir, f"{name}.json"), "presto_tpu_torch"], cwd=here,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, flag in SAN_DIFFS.items()}
+        summaries = []
+        for flag, proc in diffs.items():
+            text, _ = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"SANITIZERS: {flag} exited {proc.returncode}:\n{text[-3000:]}")
+            summaries.append(text.strip().splitlines()[-1] if text.strip() else "")
+        diff_s = time.perf_counter() - t0
+        hold, wait = res["hold"], res["wait"] or {}
+        log(f"SANITIZERS {schema} ({card}): locksan {res['locks']} locks, {res['edges']} order "
+            f"edges, hold_s count {hold['count']} p50 {hold['p50']} p95 {hold['p95']} p99 "
+            f"{hold['p99']}, wait_s count {wait.get('count', 0)} p50 {wait.get('p50')} p95 "
+            f"{wait.get('p95')} p99 {wait.get('p99')}; leaksan live {res['live']}, live_bytes "
+            f"{res['live_bytes']}; compilesan {res['cold_builds']} builds in the first pass "
+            f"(fused-segment {res['fused_builds']} = segments.compiles "
+            f"{res['segments_compiles']}), {res['warm_builds']} in the second, "
+            f"{res['compile_sites']} sites; findings {res['findings']}; pools {res['pools']}; "
+            f"Q1 and Q3 rows equal phase 11's on both passes, Q3 warm launches "
+            f"{res['launches'][3]}; {res['served']} served statements; device memory "
+            f"{res['memory'][0]} before and after; walls "
+            + ", ".join(f"{k} {v:.4f}s" for k, v in res["walls"].items())
+            + f"; child {child_s:.1f}s, the three diffs {diff_s:.1f}s")
+        for line in summaries:
+            log(f"SANITIZERS {line}")
+        return out
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def check_probe_at(device, label: str, slot_keys, slot_rows, keys, mask, trips,
                    reps: int = 20, plain_reps: int = 3) -> dict:
     """The probe against its plain version, bit for bit, at one captured
@@ -5674,6 +5977,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--host-rows"] and len(sys.argv) == 3:  # HostRows' child
         sys.path.insert(0, here)
         return host_rows_main(sys.argv[2])
+    if sys.argv[1:2] == ["--sanitizers"] and len(sys.argv) == 5:  # phase 24's child
+        sys.path.insert(0, here)
+        return sanitizers_main(*sys.argv[2:])
     try:
         import torch
     except ImportError:
@@ -5767,6 +6073,8 @@ def main() -> int:
         server_records = run_server_phase(device, records, card)
         phase_done(f"23 the server: /v1/statement, resource groups, dbapi, the verifier, the "
                    f"proxy, {SERVER_CLUSTER_WORKERS} announced workers")
+        sanitizer_records = run_sanitizer_phase(device, records, card)
+        phase_done(f"24 the sanitizers (Q1 and Q3 at SF1; the rest at {SAN_SMALL_SCHEMA})")
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -5801,7 +6109,8 @@ def main() -> int:
                        for label, rec in dist_records.items()},
                     **{f"SQL {label}": rec["launches"][k]
                        for label, rec in cluster_records.items()},
-                    **{label: rec["launches"][k] for label, rec in server_records.items()}}}
+                    **{label: rec["launches"][k] for label, rec in server_records.items()},
+                    **{label: rec["launches"][k] for label, rec in sanitizer_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

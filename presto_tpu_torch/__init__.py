@@ -24,6 +24,26 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+# The lock sanitizer (PRESTO_TPU_TORCH_LOCKSAN=1) replaces threading's
+# Lock/RLock/Condition before any module of the port allocates one: the
+# engine import below reaches exec/shared_pools, whose pools allocate their
+# conditions at import.
+from .utils import locksan as _locksan  # noqa: E402
+
+_locksan.install_from_env()
+
 # the plugin function libraries register themselves on import, as the
 # reference's do on ``import presto_tpu``
 from . import functions  # noqa: E402,F401
+
+# The leak sanitizer (PRESTO_TPU_TORCH_LEAKSAN=1) patches engine classes,
+# so it installs once they are importable; nothing it tracks exists before
+# the first query. The compile sanitizer (PRESTO_TPU_TORCH_COMPILESAN=1)
+# wraps the composition funnel, with the same timing.
+from .utils import leaksan as _leaksan  # noqa: E402
+
+_leaksan.install_from_env()
+
+from .utils import compilesan as _compilesan  # noqa: E402
+
+_compilesan.install_from_env()

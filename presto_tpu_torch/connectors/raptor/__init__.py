@@ -194,7 +194,7 @@ class ShardManager:
     def purge_deleted(self, grace_s: float) -> int:
         """Unlink the files of shards dropped more than ``grace_s`` ago."""
         # the wall clock: dropped_at holds epoch times that outlive a process
-        cutoff = time.time() - grace_s
+        cutoff = time.time() - grace_s  # prestocheck: ignore[wallclock-duration]
         with self.lock:
             rows = self._conn.execute(
                 "select shard_uuid from deleted_shards where dropped_at < ?",

@@ -154,8 +154,21 @@ class Driver:
             self._closed = True
 
     def run_to_completion(self, poll_sleep_s: float = 0.001) -> None:
-        """Drive until FINISHED, sleeping while the pipeline is blocked."""
-        while self.process() != ProcessState.FINISHED:
-            b = self.blocked_on()
-            while b is not None and not b():
-                time.sleep(poll_sleep_s)
+        """Drive until FINISHED. A BLOCKED pipeline waits for its future
+        through ``cluster/retry.Backoff`` (jittered, doubling from
+        ``poll_sleep_s`` up to 20 ms) rather than a fixed-interval sleep."""
+        from ..cluster.retry import Backoff
+
+        # a floor on the delay: poll_sleep_s=0 would spin (Backoff skips a
+        # zero-delay sleep)
+        backoff = Backoff(initial_delay_s=max(poll_sleep_s, 1e-4), max_delay_s=0.02)
+        while True:
+            state = self.process()
+            if state == ProcessState.FINISHED:
+                return
+            if state == ProcessState.BLOCKED:
+                b = self.blocked_on()
+                while b is not None and not b():
+                    backoff.failure()
+                    backoff.wait()
+                backoff.success()

@@ -448,7 +448,7 @@ class LocalExecutionPlanner:
         head = factories[0]
         n = min(self.driver_count(), getattr(head, "sources_per_worker", 1))
         if n <= 1 or not isinstance(head, TableScanOperatorFactory):
-            self.pipelines.append(factories)
+            self.pipelines.append(factories)  # prestocheck: ignore[shared-state-race] - planner instance is per-task: built and read on the one thread planning that task, never shared
             return
 
         def prefix_safe(f) -> bool:

@@ -35,7 +35,7 @@ import os
 import sys
 import threading
 from collections import OrderedDict, deque
-from typing import Iterator, List
+from typing import Dict, Iterator, List
 
 from ..utils import trace
 
@@ -111,7 +111,7 @@ class SharedWorkerPool:
 
     def _maybe_drop_locked(self, client: PoolClient) -> None:
         if client.refs <= 0 and client.live <= 0 and not client.gens:
-            self._clients.pop(client.key, None)
+            self._clients.pop(client.key, None)  # prestocheck: ignore[shared-state-race]
 
     def _next_work(self):
         """The next client (from the rotation cursor) with a runnable
@@ -168,6 +168,13 @@ SCAN_POOL = SharedWorkerPool("scan", max(4, min(8, os.cpu_count() or 4)))
 EXCHANGE_POOL = SharedWorkerPool("exchange", 4)
 
 _QUERY_KEYS = itertools.count(1)
+
+
+def pool_locks() -> Dict[str, object]:
+    """The pools' condition variables by pool name. They are allocated at
+    this module's import, after the lock sanitizer's import-time install,
+    so under PRESTO_TPU_TORCH_LOCKSAN=1 each is an instrumented wrapper."""
+    return {SCAN_POOL.name: SCAN_POOL._cv, EXCHANGE_POOL.name: EXCHANGE_POOL._cv}
 
 
 def next_query_key(prefix: str = "q") -> str:

@@ -28,6 +28,7 @@ registered resolver knows raises ``NotImplementedError`` naming itself.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, List, Optional, Sequence
 
@@ -264,7 +265,7 @@ EXTERNAL_AGGREGATES: dict = {}
 
 
 def register_aggregate(name: str, resolver) -> None:
-    EXTERNAL_AGGREGATES[name.lower()] = resolver
+    EXTERNAL_AGGREGATES[name.lower()] = resolver  # prestocheck: ignore[unbounded-cache] - plugin registry: one entry per registered function, not per request
 
 
 def _scalar(dtype: np.dtype, value):
@@ -432,17 +433,13 @@ def _floor_log2(x: torch.Tensor) -> torch.Tensor:
 
 
 _POW2_LO = 1022     # 2^-1022, the least normal float64, is table entry 0
-_POW2_TABLES = {}
 
 
-def _pow2_floor_log2(device) -> torch.Tensor:
-    dev = torch.device(device)
-    if dev not in _POW2_TABLES:
-        powers = torch.tensor([math.ldexp(1.0, k) for k in range(-_POW2_LO, 1024)],
-                              dtype=torch.float64)
-        vals = torch.floor(torch.log(powers) * _INV_LN2)
-        _POW2_TABLES[dev] = vals.to(dev)
-    return _POW2_TABLES[dev]
+@functools.lru_cache(maxsize=8)  # one table per device
+def _pow2_floor_log2(device: torch.device) -> torch.Tensor:
+    powers = torch.tensor([math.ldexp(1.0, k) for k in range(-_POW2_LO, 1024)],
+                          dtype=torch.float64)
+    return torch.floor(torch.log(powers) * _INV_LN2).to(device)
 
 
 def _hll_rho(rest: torch.Tensor) -> torch.Tensor:
@@ -471,17 +468,12 @@ def _percentile_centers() -> np.ndarray:
     return centers
 
 
-_EXP2_TABLES = {}
-
-
-def _octave_scale(device) -> torch.Tensor:
+@functools.lru_cache(maxsize=8)  # one table per device
+def _octave_scale(device: torch.device) -> torch.Tensor:
     """2^e for e in [-16, 31] as the reference computes it (exp(e * ln 2),
     a few ulps from the power of two), made once on the host."""
-    dev = torch.device(device)
-    if dev not in _EXP2_TABLES:
-        e = torch.arange(_OCT_LO, _OCT_HI + 1, dtype=torch.float64)
-        _EXP2_TABLES[dev] = torch.exp(e * math.log(2.0)).to(dev)
-    return _EXP2_TABLES[dev]
+    e = torch.arange(_OCT_LO, _OCT_HI + 1, dtype=torch.float64)
+    return torch.exp(e * math.log(2.0)).to(device)
 
 
 def _percentile_bucket(v: torch.Tensor) -> torch.Tensor:

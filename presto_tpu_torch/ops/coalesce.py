@@ -103,7 +103,7 @@ class CoalesceOperator(Operator):
         if self._mode is None:
             # one host read per stream: a scan's selectivity is stationary
             mask = page.mask.cpu()
-            if mask.double().mean().item() > self.PASSTHROUGH_SELECTIVITY:
+            if mask.double().mean().item() > self.PASSTHROUGH_SELECTIVITY:  # prestocheck: ignore[host-sync]
                 self._mode = "pass"
                 self._pending.append(page)
                 return

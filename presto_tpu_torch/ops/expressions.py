@@ -226,7 +226,7 @@ EXTERNAL_COMPILERS: Dict[str, Callable] = {}
 
 
 def register_compiler(name: str, fn) -> None:
-    EXTERNAL_COMPILERS[name.lower()] = fn
+    EXTERNAL_COMPILERS[name.lower()] = fn  # prestocheck: ignore[unbounded-cache] - plugin registry: one entry per registered function, not per request
 
 
 class ExpressionCompiler:

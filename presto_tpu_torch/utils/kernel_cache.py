@@ -20,6 +20,7 @@ from collections import OrderedDict
 from typing import Callable
 
 from . import trace
+from .metrics import METRICS
 
 _LOCK = threading.Lock()
 _CACHE: "OrderedDict[tuple, object]" = OrderedDict()
@@ -28,12 +29,23 @@ _NEXT_TOKEN = itertools.count(1)
 
 
 def get_or_install(key: tuple, make: Callable[[], object]):
-    """The cached function for ``key``, made with ``make()`` on a miss.
-    ``make`` runs under the lock (composing is cheap), so the drivers of
-    one segment that miss on one key at once make it exactly once."""
+    """The cached function for ``key``, made with ``make()`` on a miss."""
+    return get_or_build(key, make)[0]
+
+
+def get_or_build(key: tuple, make: Callable[[], object]):
+    """-> (function, built_now): like :func:`get_or_install`, and whether
+    ``make`` ran for this call. ``make`` runs under the lock (composing is
+    cheap), so the drivers of one segment that miss on one key at once
+    make it exactly once, and only that caller reports True.
+
+    Callers reach this through the module attribute, as ``get_or_install``
+    does: the compile sanitizer (``utils/compilesan.py``) observes every
+    composition by replacing the attribute."""
     with _LOCK:
         hit = _CACHE.get(key)
-        if hit is None:
+        built = hit is None
+        if built:
             if trace.active() is not None:
                 with trace.span(trace.KERNEL, f"build {key[0] if key else '?'}"):
                     hit = make()
@@ -43,7 +55,15 @@ def get_or_install(key: tuple, make: Callable[[], object]):
             while len(_CACHE) > _MAX_ENTRIES:
                 _CACHE.popitem(last=False)
         _CACHE.move_to_end(key)
-        return hit
+    # counted outside the lock, so the registry's lock never nests under it
+    METRICS.count("kernel_cache.misses" if built else "kernel_cache.hits")
+    return hit, built
+
+
+def clear() -> None:
+    """Drop every cached function (tests measure cold compositions)."""
+    with _LOCK:
+        _CACHE.clear()
 
 
 def new_token() -> int:

@@ -12,16 +12,19 @@ same names:
   and ``join.expansion_chunks`` (the expanding probe),
   ``join.semi_pages`` and ``join.semi_chunks`` (the filtered semi probe),
   ``coalesce.pages_in`` and ``coalesce.pages_out`` (page coalescing),
-  ``memory.revoked_bytes`` (bytes a revocation moved to host RAM) and
+  ``memory.revoked_bytes`` (bytes a revocation moved to host RAM),
   ``pcol.native_opens`` / ``pcol.numpy_opens`` (which reader opened a
-  PCOL file).
+  PCOL file) and ``kernel_cache.hits`` / ``kernel_cache.misses`` (the
+  composition cache).
 - ``set_gauge(name, fn)``: a callable sampled at snapshot time; one that
   raises reads null, counts ``metrics.gauge_errors`` and is logged to
   stderr once.
 - ``histogram(name, value)``: a fixed log2-bucket distribution (64
   buckets from 1e-6); ``snapshot()`` derives ``<name>.count/.p50/.p95/.p99``.
   Recorded: ``query.wall_s`` (every statement), ``segments.page_dispatch_s``
-  (every fused dispatch) and ``spill.write_s`` (every disk run).
+  (every fused dispatch) and ``spill.write_s`` (every disk run); under
+  the sanitizers also ``locksan.hold_s`` / ``locksan.wait_s``, with the
+  ``leaksan.live_*`` and ``compilesan.*`` gauges.
 
 ``raw_snapshot`` gives the mergeable form (bucket counts, not percentiles);
 ``merge_raw_snapshots``, ``flatten_raw`` and ``prometheus_text`` merge and
@@ -59,9 +62,9 @@ class Histogram:
         # registry-level lock discipline (class docstring): registry-owned
         # instances mutate only under MetricsRegistry._lock; merge-path
         # instances (from_raw/merge_raw) are function-local scratch
-        self.counts[self._bucket(value)] += 1
-        self.n += 1
-        self.total += value
+        self.counts[self._bucket(value)] += 1  # prestocheck: ignore[shared-state-race] - guarded by MetricsRegistry._lock
+        self.n += 1  # prestocheck: ignore[shared-state-race] - guarded by MetricsRegistry._lock
+        self.total += value  # prestocheck: ignore[shared-state-race] - guarded by MetricsRegistry._lock
 
     @staticmethod
     def _bucket(value: float) -> int:
@@ -100,9 +103,9 @@ class Histogram:
         # merge_raw_snapshots, never the registry's lock-guarded instances)
         counts = list(raw.get("counts") or ())[:_HIST_BUCKETS]
         for i, c in enumerate(counts):
-            self.counts[i] += int(c)
-        self.n += int(raw.get("n") or sum(int(c) for c in counts))
-        self.total += float(raw.get("total") or 0.0)
+            self.counts[i] += int(c)  # prestocheck: ignore[shared-state-race] - merge-local instance
+        self.n += int(raw.get("n") or sum(int(c) for c in counts))  # prestocheck: ignore[shared-state-race] - merge-local instance
+        self.total += float(raw.get("total") or 0.0)  # prestocheck: ignore[shared-state-race] - merge-local instance
 
     def percentile(self, q: float) -> float:
         """Value at quantile ``q`` in [0, 1]: the upper bound of the bucket

@@ -7,7 +7,9 @@ The sink is also a UNION branch's buffer: the planner's replay scan reads
 each worker's pages from it. A local query creates every operator for
 worker 0.
 
-Also here: ``normalize_value`` (a result value in a comparable form) and
+Also here: ``drive_operators`` (an operator chain on one driver),
+``assert_no_residue`` (a pool's ledgers and the leak sanitizer after a
+query), ``normalize_value`` (a result value in a comparable form) and
 ``SqliteOracle`` (the generated TPC-H or TPC-DS tables in an in-memory
 sqlite), which the verifier's oracle mode reads."""
 from __future__ import annotations
@@ -71,6 +73,34 @@ class PageConsumerFactory(OperatorFactory):
     def pages_for(self, worker: int) -> List[Page]:
         """Every page the consumers of ``worker`` received, in driver order."""
         return [p for c in self.consumers_by_worker.get(worker, []) for p in c.pages]
+
+
+def drive_operators(operators: List[Operator]) -> None:
+    """Run an operator chain to completion on one driver."""
+    from ..exec.driver import Driver
+
+    Driver(operators).run_to_completion()
+
+
+def assert_no_residue(pool, query_id: Optional[str] = None) -> None:
+    """The zero-residue gate: with ``query_id``, that query holds no RAM
+    and no spill bytes in ``pool``; without, the pool's spill ledger is
+    empty (RAM is not judged pool-wide: the shared pool outlives a test,
+    and another tenant's live reservation is not this test's residue).
+    When the leak sanitizer is installed its findings must be empty too,
+    so a leak the ledger happens to cancel still fails, with its stack."""
+    if query_id is not None:
+        held = pool.query_bytes(query_id)
+        assert held == 0, f"query {query_id!r} left {held} reserved byte(s) in the pool"
+        spilled = pool.spill_bytes(query_id)
+        assert spilled == 0, f"query {query_id!r} left {spilled} spill byte(s) charged"
+    else:
+        ledger = pool.spill_by_query()
+        assert ledger == {}, f"spill ledger residue: {ledger}"
+    from . import leaksan
+
+    if leaksan.enabled():
+        leaksan.SANITIZER.assert_clean()
 
 
 class SqliteOracle:

@@ -39,6 +39,8 @@ have yet):
   kernel     kernel-cache misses (compositions)
   http       cluster task and exchange requests
   pool       shared-pool generator steps (exec/shared_pools.py)
+  locksan    lock holds and contended waits of 1 ms or more, under the
+             lock sanitizer (utils/locksan.py)
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ SEGMENT = "segment"
 SCAN = "scan"
 EXCHANGE = "exchange"
 KERNEL = "kernel"
+LOCKSAN = "locksan"
 HTTP = "http"
 POOL = "pool"
 

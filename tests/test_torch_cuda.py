@@ -658,3 +658,33 @@ def test_server_q3_on_the_card(cuda):
         assert ph.insert_table.launches >= 2 and ph.probe_table.launches >= 1
     finally:
         server.stop()
+
+
+def test_q3_under_the_three_sanitizers_on_the_card(cuda):
+    """Q3 at ``tiny`` on the card with the port's lock, leak and compile
+    sanitizers installed: the rows of the uninstrumented run, both kernels
+    launched, zero findings from each sanitizer and no live bytes."""
+    from presto_tpu_torch.metadata import Session
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.runner import LocalQueryRunner
+    from presto_tpu_torch.utils import compilesan, leaksan, locksan
+
+    session = Session(catalog="tpch", schema="tiny", properties={"hash_kernels": "pallas"})
+    want = LocalQueryRunner(session, device=cuda).execute(QUERIES[3]).rows
+    sanitizers = (locksan, leaksan, compilesan)
+    for m in sanitizers:
+        m.SANITIZER.reset()
+        m.install()
+    try:
+        ph.insert_table.launches = ph.probe_table.launches = 0
+        got = LocalQueryRunner(session, device=cuda).execute(QUERIES[3]).rows
+        launches = (ph.insert_table.launches, ph.probe_table.launches)
+        leaksan.SANITIZER.check_exit()
+        for m in sanitizers:
+            m.SANITIZER.assert_clean()
+        assert leaksan.SANITIZER.live_counts()["bytes"] == 0
+    finally:
+        for m in reversed(sanitizers):
+            m.uninstall()
+    assert got == want and len(want) == 10
+    assert launches[0] >= 1 and launches[1] >= 1

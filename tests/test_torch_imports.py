@@ -87,6 +87,38 @@ def test_port_imports_no_jax_and_no_reference():
             "presto_tpu_torch.server.__main__", "presto_tpu_torch.client",
             "presto_tpu_torch.client.dbapi", "presto_tpu_torch.cli",
             "presto_tpu_torch.cli.__main__", "presto_tpu_torch.verifier"} <= set(res["modules"])
+    # the runtime sanitizers
+    assert {"presto_tpu_torch.utils.locksan", "presto_tpu_torch.utils.leaksan",
+            "presto_tpu_torch.utils.compilesan"} <= set(res["modules"])
+
+
+_ARMED = """
+import json
+import presto_tpu_torch
+from presto_tpu_torch.exec import shared_pools
+from presto_tpu_torch.utils import compilesan, leaksan, locksan
+print(json.dumps({"armed": [locksan.enabled(), leaksan.enabled(), compilesan.enabled()],
+                  "pools": sorted(type(c).__name__ for c in shared_pools.pool_locks().values())}))
+"""
+
+
+@pytest.mark.parametrize("prefix", ["PRESTO_TPU_TORCH_", "PRESTO_TPU_"])
+def test_sanitizers_arm_from_the_ports_own_variables(prefix):
+    """``PRESTO_TPU_TORCH_{LOCK,LEAK,COMPILE}SAN=1`` arm the port's three
+    sanitizers at import, the lock sanitizer before the shared pools
+    allocate their conditions; the reference's variables arm none."""
+    env = {k: v for k, v in os.environ.items() if "SAN" not in k}
+    env.update({f"{prefix}{s}SAN": "1" for s in ("LOCK", "LEAK", "COMPILE")},
+               PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _ARMED], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    import json
+
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    ours = prefix == "PRESTO_TPU_TORCH_"
+    assert res["armed"] == [ours] * 3
+    assert res["pools"] == ["_SanCondition" if ours else "Condition"] * 2
 
 
 def test_native_library_is_the_ports_own():
