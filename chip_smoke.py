@@ -329,7 +329,19 @@ Phases, each of which must pass:
    back by ``python -m tools.prestocheck --lock-graph-diff``,
    ``--leak-diff`` and ``--compile-diff`` with exit 0. Prints
    ``SANITIZERS`` lines: counts, percentiles, walls;
-25. print the kernels line (JSON, with each kernel's warm-run launches per
+25. the hand-built Q1/Q6 and the Q1 stream (``run_hand_stream_phase``):
+   ``models/hand_queries.run_query`` over ``build_q1`` (DIRECT grouping)
+   and ``build_q6`` (GLOBAL sum) at SF1, cold and warm, rows equal to the
+   numpy oracles and to phase 11's SQL rows; ``models/kernels.q1_stream``
+   over all of SF1's lineitem (three producers, pinned staging, a copy
+   stream), its finish dict equal to the numpy oracle's int64 sums; one
+   producer over the first ``STREAM_PREFIX_ROWS`` rows of SF10, against
+   numpy over the same prefix; the step's device ms on a 2^21-row batch
+   (``device_ms``) beside its bytes bound; ``q1_resident`` at 2^22 rows,
+   its one batch against numpy. Prints ``HAND`` and ``STREAM`` lines:
+   walls, rows/s, the producers' stall, the first dispatch, with the
+   card's name and power limit (``q1_walls.py`` keeps SF10 to its end);
+26. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
    ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``, phase 16 as
@@ -339,7 +351,8 @@ Phases, each of which must pass:
    ``SQL HIVE q3 grouped unfused`` and ``SQL RAPTOR q6``, phase 20 as
    ``SQL FED kafka stream join``, phase 21 as ``SQL DIST Q3``, phase 22
    as ``SQL CLUSTER Q3``, phase 23 as ``SERVER Q3`` and ``SERVER
-   concurrent Q3``, phase 24 as ``SANITIZED Q3``), the card line, and last
+   concurrent Q3``, phase 24 as ``SANITIZED Q3``, phase 25 as ``HAND
+   Q1``), the card line, and last
    the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
@@ -436,7 +449,7 @@ def time_ms(fn, reps: int, device) -> float:
     return float(np.median(times))
 
 
-def device_ms(wrapper, args, reps: int) -> float:
+def device_ms(wrapper, args, reps: int, counted: bool = True) -> float:
     """Device time of one call of ``wrapper(*args)``: the median over
     ``reps`` calls of the time between two CUDA events recorded around the
     call while a spin kernel (``torch.cuda._sleep``) holds the stream, so
@@ -445,7 +458,9 @@ def device_ms(wrapper, args, reps: int) -> float:
     whose spin ran out before it was queued (the host thread stalled, for
     instance waiting for the interpreter lock) is not device time and is
     taken again, up to ``reps`` times in all; then it raises. It also fails
-    unless the wrapper counts one launch per call. (``torch.profiler`` lost
+    unless the wrapper counts one launch per call; ``counted=False`` times a
+    function that is no kernel's wrapper (the Q1 step), which has no count.
+    (``torch.profiler`` lost
     kernel records in short windows, more of them the longer the process
     had profiled; PERF.md section 6.)"""
     import torch
@@ -472,11 +487,11 @@ def device_ms(wrapper, args, reps: int) -> float:
 
     wrapper(*args)
     torch.cuda.synchronize()
-    launches = wrapper.launches
+    launches = wrapper.launches if counted else 0
     gc.disable()  # as timeit does: a collection would stall the host thread
     try:
         busy = [span(lambda: wrapper(*args)) for _ in range(reps)]
-        calls = wrapper.launches - launches
+        calls = wrapper.launches - launches if counted else reps + retakes
         if calls != reps + retakes:  # a retaken bracket calls the wrapper again
             raise AssertionError(f"{wrapper.__name__}: {calls} launches for {reps} calls "
                                  f"and {retakes} retaken")
@@ -804,40 +819,100 @@ def profile_q3(device, schema: str = "sf1", top: int = 12, run=None,
         log(f"  {t / 1e3:9.3f} ms {c:6d}x {name[:110]}")
 
 
+Q1_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
+              "l_discount", "l_tax", "l_shipdate")
+# the six sums of Q1 per group code (returnflag * 2 + linestatus), the
+# port's q1_stream_finish keys in its order
+Q1_SUMS = ("sum_qty", "sum_base_price", "sum_disc_price", "sum_charge", "sum_disc", "count")
+
+
+def q1_sums_np(li) -> dict:
+    """Q1's int64 sums in numpy over lineitem columns: one (6,) array per
+    ``Q1_SUMS`` key, indexed by group code."""
+    keep = np.asarray(li["l_shipdate"]) <= civil_day(1998, 12, 1) - 90
+    col = {k: np.asarray(li[k])[keep].astype(np.int64) for k in Q1_COLUMNS}
+    gid = col["l_returnflag"] * 2 + col["l_linestatus"]
+    disc_price = col["l_extendedprice"] * (100 - col["l_discount"])  # scale 4
+    vals = (col["l_quantity"], col["l_extendedprice"], disc_price,
+            disc_price * (100 + col["l_tax"]), col["l_discount"], np.ones_like(gid))
+    out = {k: np.zeros(6, dtype=np.int64) for k in Q1_SUMS}
+    for code in range(6):
+        sel = gid == code
+        for k, v in zip(Q1_SUMS, vals):
+            out[k][code] = v[sel].sum()
+    return out
+
+
+def add_sums(total: dict, part: dict) -> None:
+    for k in Q1_SUMS:
+        total[k] += part[k]
+
+
+def q1_rows_from_sums(sums: dict) -> list:
+    """TPC-H Q1's rows from its sums: exact decimals, the averages as floats
+    of their exact ratios, groups in code order (the dictionaries' sorted
+    order)."""
+    from fractions import Fraction
+
+    from presto_tpu_torch.connectors.tpch import generator as g
+
+    rows = []
+    for code in range(6):
+        n = int(sums["count"][code])
+        if n == 0:
+            continue
+        qty, price, disc = (int(sums[k][code]) for k in ("sum_qty", "sum_base_price",
+                                                          "sum_disc"))
+        rows.append([g.DICT_RETURNFLAG.values[code // 2], g.DICT_LINESTATUS.values[code % 2],
+                     Decimal(qty) / 100, Decimal(price) / 100,
+                     Decimal(int(sums["sum_disc_price"][code])) / 10 ** 4,
+                     Decimal(int(sums["sum_charge"][code])) / 10 ** 6,
+                     float(Fraction(qty, 100 * n)), float(Fraction(price, 100 * n)),
+                     float(Fraction(disc, 100 * n)), n])
+    return rows
+
+
+def lineitem_chunks(sf: float, columns, threads: int = 4, chunk_orders: int = 1 << 17):
+    """The port's lineitem in chunks of ``chunk_orders`` orders, in the
+    generator's order, made ``threads`` chunks at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from presto_tpu_torch.connectors.tpch import generator as g
+
+    orders = g.table_row_count("orders", sf)
+    lows = list(range(0, orders, chunk_orders))
+
+    def make(lo):
+        return g.lineitem_for_orders(lo, min(lo + chunk_orders, orders), sf, list(columns))
+
+    with ThreadPoolExecutor(threads) as pool:
+        for i in range(0, len(lows), threads):
+            yield from pool.map(make, lows[i:i + threads])
+
+
+def q1_prefix_sums(sf: float, rows: Optional[int] = None):
+    """Q1's sums over the first ``rows`` lineitem rows in the generator's
+    order (all of them when None) -> (sums, rows summed)."""
+    total = {k: np.zeros(6, dtype=np.int64) for k in Q1_SUMS}
+    seen = 0
+    for li in lineitem_chunks(sf, Q1_COLUMNS):
+        n = len(li["l_shipdate"])
+        take = n if rows is None else min(n, rows - seen)
+        add_sums(total, q1_sums_np({k: v[:take] for k, v in li.items()}))
+        seen += take
+        if rows is not None and seen == rows:
+            break
+    return total, seen
+
+
 def oracle_q1(schema: str):
     """TPC-H Q1 in numpy over the port's generator: rows as Python values
     (exact decimals; the averages as floats of their exact ratios), and the
     number of source rows it read."""
-    from fractions import Fraction
-
-    from presto_tpu_torch.connectors.tpch import generator as g
     from presto_tpu_torch.connectors.tpch.connector import SCHEMAS
 
-    sf = SCHEMAS[schema]
-    li = g.lineitem_for_orders(0, g.table_row_count("orders", sf), sf,
-                               ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
-                                "l_returnflag", "l_linestatus", "l_shipdate"])
-    keep = li["l_shipdate"] <= civil_day(1998, 12, 1) - 90
-    col = {k: v[keep].astype(np.int64) for k, v in li.items()}
-    disc_price = col["l_extendedprice"] * (100 - col["l_discount"])  # scale 4
-    charge = disc_price * (100 + col["l_tax"])                         # scale 6
-    flags, stats = g.DICT_RETURNFLAG.values, g.DICT_LINESTATUS.values
-    groups = sorted({(flags[f], stats[s]) for f, s in
-                     zip(*np.unique(np.stack([col["l_returnflag"], col["l_linestatus"]]),
-                                    axis=1))})
-    rows = []
-    for f, s in groups:
-        sel = (col["l_returnflag"] == g.DICT_RETURNFLAG.code_of(f)) & \
-              (col["l_linestatus"] == g.DICT_LINESTATUS.code_of(s))
-        n = int(sel.sum())
-        qty, price, disc = (int(col[c][sel].sum()) for c in
-                            ("l_quantity", "l_extendedprice", "l_discount"))
-        rows.append([f, s, Decimal(qty) / 100, Decimal(price) / 100,
-                     Decimal(int(disc_price[sel].sum())) / 10 ** 4,
-                     Decimal(int(charge[sel].sum())) / 10 ** 6,
-                     float(Fraction(qty, 100 * n)), float(Fraction(price, 100 * n)),
-                     float(Fraction(disc, 100 * n)), n])
-    return rows, len(keep)
+    sums, n = q1_prefix_sums(SCHEMAS[schema])
+    return q1_rows_from_sums(sums), n
 
 
 def oracle_q6(schema: str):
@@ -5906,6 +5981,144 @@ def run_sanitizer_phase(device, records: dict, card: str = "", schema: str = "sf
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+# phase 25: the hand-built Q1 and Q6, and Q1 streamed through the card
+HAND_QUERIES = (1, 6)
+STREAM_BUDGET_S = 600.0         # above the script's own limit: the SF1 scan runs to its end
+STREAM_PREFIX_SF = 10.0         # the reference bench's --sf default
+STREAM_PREFIX_ROWS = 1 << 24    # eight of q1_stream's default 2^21-row batches
+STREAM_BATCH_ROWS = 1 << 21     # q1_stream's default batch; the step timed at it
+RESIDENT_BATCH_ROWS = 1 << 22   # q1_resident's default batch
+WIRE_BYTES_PER_ROW = 12         # the narrow wire format the step reads
+
+
+def oracle_resident_sums(sf: float, batch_rows: int) -> dict:
+    """Q1's sums in numpy over q1_resident's batch: the first orders'
+    lineitem at ``max(sf, 1)``, tiled to ``batch_rows`` rows."""
+    from presto_tpu_torch.connectors.tpch import generator as g
+
+    sf = max(sf, 1.0)
+    orders = min(int(batch_rows / g.AVG_LINES_PER_ORDER) + 1,
+                 g.table_row_count("orders", sf))
+    li = g.lineitem_for_orders(0, orders, sf, list(Q1_COLUMNS))
+    reps = batch_rows // len(li["l_shipdate"]) + 1
+    return q1_sums_np({k: np.tile(v, reps)[:batch_rows] for k, v in li.items()})
+
+
+def check_sums(label: str, got: dict, want: dict) -> None:
+    if list(got) != list(Q1_SUMS):
+        raise AssertionError(f"{label}: finish keys {list(got)}")
+    for k in Q1_SUMS:
+        if got[k].dtype != np.int64 or not np.array_equal(got[k], want[k]):
+            raise AssertionError(f"{label}: {k} {got[k]} ({got[k].dtype}) != {want[k]}")
+
+
+def run_hand_stream_phase(device, records: dict, card: str = "", schema: str = "sf1",
+                          prefix_sf: float = STREAM_PREFIX_SF,
+                          prefix_rows: int = STREAM_PREFIX_ROWS,
+                          batch_rows: int = STREAM_BATCH_ROWS,
+                          resident_rows: int = RESIDENT_BATCH_ROWS) -> dict:
+    """Phase 25: the hand-built Q1 and Q6 (``models/hand_queries.run_query``)
+    cold (the connector's generation cache cleared) and warm (replaying it),
+    rows equal to the numpy oracles and to phase 11's SQL rows;
+    ``q1_stream`` over all of ``schema``'s lineitem, its finish dict equal
+    to the oracle's sums; ``q1_stream`` with one producer over the
+    first ``prefix_rows`` rows at ``prefix_sf``, against numpy over the
+    same prefix; the step's device ms at ``batch_rows``; ``q1_resident`` at
+    ``resident_rows``, its one batch against numpy. Prints ``HAND`` and
+    ``STREAM`` lines; returns the records whose launches the kernels line
+    reports, keyed ``HAND Q...``."""
+    import torch
+
+    from presto_tpu_torch.connectors.tpch.connector import GEN_CACHE, SCHEMAS
+    from presto_tpu_torch.models import hand_queries as hq
+    from presto_tpu_torch.models import kernels as mk
+    from presto_tpu_torch.ops import pallas_hash as ph
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sf = SCHEMAS[schema]
+    t0 = time.perf_counter()
+    sums, n_rows = q1_prefix_sums(sf)
+    want = {1: q1_rows_from_sums(sums), 6: oracle_q6(schema)[0]}
+    oracle_s = time.perf_counter() - t0
+    out = {}
+    for q in HAND_QUERIES:
+        builder = getattr(hq, f"build_q{q}")
+        GEN_CACHE.clear()  # the cold run generates lineitem anew
+        t0 = time.perf_counter()
+        hq.run_query(builder, schema, device=device)
+        sync()
+        cold_s = time.perf_counter() - t0
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        t0 = time.perf_counter()
+        rows = hq.run_query(builder, schema, device=device)
+        sync()
+        warm_s = time.perf_counter() - t0
+        launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+        if not same_rows(rows, want[q]):
+            raise AssertionError(f"HAND Q{q} {schema}: rows differ from the numpy oracle:\n"
+                                 f"{rows}\n{want[q]}")
+        sql = records[q]
+        if sql.get("schema", "sf1") != schema or not same_rows(rows, sql["rows"]):
+            raise AssertionError(f"HAND Q{q} {schema}: rows differ from phase 11's SQL rows "
+                                 f"({sql.get('schema', 'sf1')}):\n{rows}\n{sql['rows']}")
+        src = hq.source_rows(f"q{q}", schema)
+        log(f"HAND Q{q} {schema} ({card}): {len(rows)} rows equal to the numpy oracle and to "
+            f"phase 11's SQL rows; cold wall {cold_s:.4f}s, warm wall {warm_s:.4f}s = "
+            f"{src / warm_s:.0f} source rows/s ({src} rows); warm launches {launches}")
+        out[f"HAND Q{q}"] = {"launches": launches}
+
+    rows, wall, stall, first_s, fin = mk.q1_stream(sf, seconds_budget=STREAM_BUDGET_S,
+                                                   batch_rows=batch_rows, device=device)
+    if rows != n_rows:
+        raise AssertionError(f"STREAM Q1 {schema}: {rows} rows of {n_rows}")
+    check_sums(f"STREAM Q1 {schema}", fin, sums)
+    log(f"STREAM Q1 {schema} ({card}): {rows} rows to the end, 3 producers, {batch_rows}-row "
+        f"batches; wall {wall:.4f}s = {rows / wall:.0f} rows/s; gen stall {stall:.4f}s; "
+        f"first dispatch {first_s:.4f}s; finish exact against the numpy oracle's sums "
+        f"(oracle {oracle_s:.1f}s, with Q6's)")
+
+    from presto_tpu_torch.connectors.tpch import generator as g
+
+    total = g.lineitem_row_count(prefix_sf)
+    rows, wall, stall, first_s, fin = mk.q1_stream(
+        prefix_sf, seconds_budget=STREAM_BUDGET_S, batch_rows=batch_rows, gen_threads=1,
+        max_rows=prefix_rows, device=device)
+    if not prefix_rows <= rows < total:
+        raise AssertionError(f"STREAM Q1 sf{prefix_sf:g} prefix: {rows} rows (max_rows "
+                             f"{prefix_rows}, table {total})")
+    t0 = time.perf_counter()
+    prefix_sums, seen = q1_prefix_sums(prefix_sf, rows)
+    if seen != rows:
+        raise AssertionError(f"STREAM Q1 sf{prefix_sf:g} prefix: oracle saw {seen} of {rows}")
+    check_sums(f"STREAM Q1 sf{prefix_sf:g} prefix", fin, prefix_sums)
+    oracle_s = time.perf_counter() - t0
+
+    step_args = tuple(torch.from_numpy(a).to(device) for a in mk.resident_batch(batch_rows,
+                                                                                prefix_sf))
+    acc = torch.zeros((len(Q1_SUMS), 6), dtype=torch.int64, device=device)
+    step_ms = (device_ms(mk.q1_stream_step, (*step_args, acc), 20, counted=False) if on_card
+               else time_ms(lambda: mk.q1_stream_step(*step_args, acc), 3, device))
+    bound_ms = batch_rows * WIRE_BYTES_PER_ROW / HBM_RATE * 1e3
+    del step_args, acc
+    log(f"STREAM Q1 sf{prefix_sf:g} prefix ({card}): {rows} of {total} rows, 1 producer; wall "
+        f"{wall:.4f}s = {rows / wall:.0f} rows/s; gen stall {stall:.4f}s; first dispatch "
+        f"{first_s:.4f}s; finish exact against numpy over the same prefix (oracle "
+        f"{oracle_s:.1f}s); the step on a {batch_rows}-row batch: "
+        f"{'device (bracket)' if on_card else 'host'} {step_ms:.4f} ms against a "
+        f"{bound_ms:.4f} ms bound ({batch_rows * WIRE_BYTES_PER_ROW} bytes read)")
+
+    rps, got_rows, resident_ms, one = mk.q1_resident(prefix_sf, batch_rows=resident_rows,
+                                                     device=device)
+    check_sums(f"RESIDENT Q1 sf{prefix_sf:g}", one,
+               oracle_resident_sums(prefix_sf, resident_rows))
+    log(f"STREAM Q1 resident sf{prefix_sf:g} ({card}): {got_rows}-row batch, 10 chained "
+        f"steps: {rps:.0f} rows/s, {resident_ms:.4f} ms a step (host clock); one batch exact "
+        f"against numpy")
+    return out
+
+
 def check_probe_at(device, label: str, slot_keys, slot_rows, keys, mask, trips,
                    reps: int = 20, plain_reps: int = 3) -> dict:
     """The probe against its plain version, bit for bit, at one captured
@@ -6075,6 +6288,9 @@ def main() -> int:
                    f"proxy, {SERVER_CLUSTER_WORKERS} announced workers")
         sanitizer_records = run_sanitizer_phase(device, records, card)
         phase_done(f"24 the sanitizers (Q1 and Q3 at SF1; the rest at {SAN_SMALL_SCHEMA})")
+        hand_records = run_hand_stream_phase(device, records, card)
+        phase_done(f"25 hand-built Q1/Q6 and the Q1 stream (SF1; a {STREAM_PREFIX_ROWS}-row "
+                   f"prefix of SF{STREAM_PREFIX_SF:g})")
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -6110,7 +6326,8 @@ def main() -> int:
                     **{f"SQL {label}": rec["launches"][k]
                        for label, rec in cluster_records.items()},
                     **{label: rec["launches"][k] for label, rec in server_records.items()},
-                    **{label: rec["launches"][k] for label, rec in sanitizer_records.items()}}}
+                    **{label: rec["launches"][k] for label, rec in sanitizer_records.items()},
+                    **{label: rec["launches"][k] for label, rec in hand_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -32,6 +32,9 @@ from .utils import locksan as _locksan  # noqa: E402
 
 _locksan.install_from_env()
 
+# the reference's package exports of the columnar substrate
+from .block import Block, Dictionary, Page, page_from_arrays, page_from_pylists  # noqa: E402,F401
+
 # the plugin function libraries register themselves on import, as the
 # reference's do on ``import presto_tpu``
 from . import functions  # noqa: E402,F401

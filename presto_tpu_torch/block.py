@@ -9,13 +9,13 @@ every function here runs on the tensors' own device.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import resolve_device
-from .types import VARCHAR, Type
+from .types import VARCHAR, DateType, DecimalType, Type, is_string
 
 
 def torch_dtype(t: Type) -> torch.dtype:
@@ -288,6 +288,16 @@ def _compact(page: Page) -> Page:
     return Page(tuple(new_blocks), new_mask)
 
 
+def block_from_numpy(type_: Type, arr: np.ndarray, dictionary: Optional[Dictionary] = None,
+                     nulls: Optional[np.ndarray] = None, device="cuda") -> Block:
+    """A host array (cast to the type's dtype) as a block on ``device``."""
+    device = resolve_device(device)
+    arr = np.ascontiguousarray(arr, dtype=type_.np_dtype)
+    mask = None if nulls is None else \
+        torch.from_numpy(np.ascontiguousarray(nulls, dtype=np.bool_)).to(device)
+    return Block(type_, torch.from_numpy(arr).to(device), mask, dictionary)
+
+
 def block_from_strings(values: Sequence[Optional[str]], type_: Type = VARCHAR,
                        dictionary: Optional[Dictionary] = None) -> Block:
     """Dictionary-encode Python strings into a host varchar block (int32
@@ -327,3 +337,57 @@ def page_from_arrays(types: Sequence[Type], arrays: Sequence[np.ndarray],
                             None, d))
     mask = torch.arange(cap, device=device) < count
     return Page(tuple(blocks), mask)
+
+
+def page_from_pylists(types: Sequence[Type], rows: Iterable[Sequence[Any]],
+                      dictionaries: Optional[Sequence[Optional[Dictionary]]] = None,
+                      capacity: Optional[int] = None, device="cuda") -> Page:
+    """Rows of Python values -> a page on ``device``, padded to ``capacity``
+    (the reference's test helper, presto-main's RowPagesBuilder). DECIMAL
+    values are rounded to the type's scale, dates become days since
+    1970-01-01, strings are dictionary-encoded (a new sorted dictionary
+    unless one is given)."""
+    import datetime
+
+    device = resolve_device(device)
+    rows = list(rows)
+    n = len(rows)
+    cap = capacity or max(n, 1)
+    cols = list(zip(*rows)) if rows else [[] for _ in types]
+    blocks = []
+    for i, t in enumerate(types):
+        vals = list(cols[i])
+        d = dictionaries[i] if dictionaries else None
+        if is_string(t):
+            b = block_from_strings(vals + [None] * (cap - n), t, d)
+            blocks.append(Block(t, b.data.to(device),
+                                None if b.nulls is None else b.nulls.to(device), b.dictionary))
+            continue
+        conv = []
+        for v in vals:
+            if v is None:
+                conv.append(0)
+            elif isinstance(t, DecimalType):
+                conv.append(round(float(v) * 10 ** t.scale))
+            elif isinstance(t, DateType):
+                conv.append((v - datetime.date(1970, 1, 1)).days
+                            if isinstance(v, datetime.date) else int(v))
+            else:
+                conv.append(v)
+        arr = np.zeros(cap, dtype=t.np_dtype)
+        arr[:n] = np.asarray(conv, dtype=t.np_dtype) if conv else []
+        nulls = np.zeros(cap, dtype=np.bool_)
+        nulls[:n] = [v is None for v in vals]
+        blocks.append(block_from_numpy(t, arr, None, nulls if nulls.any() else None, device))
+    return Page(tuple(blocks), torch.arange(cap, device=device) < n)
+
+
+def empty_page(types: Sequence[Type], capacity: int,
+               dictionaries: Optional[Sequence[Optional[Dictionary]]] = None,
+               device="cuda") -> Page:
+    """A page of ``capacity`` zeroed rows, none of them live."""
+    device = resolve_device(device)
+    blocks = tuple(Block(t, torch.zeros(capacity, dtype=torch_dtype(t), device=device), None,
+                         dictionaries[i] if dictionaries else None)
+                   for i, t in enumerate(types))
+    return Page(blocks, torch.zeros(capacity, dtype=torch.bool, device=device))

@@ -168,6 +168,13 @@ class _GenCache:
                     self._bytes += size
         return data
 
+    def clear(self) -> None:
+        """Drop every chunk, so the next scan generates anew (a cold run)."""
+        with self._lock:
+            self._data.clear()
+            self._order.clear()
+            self._bytes = 0
+
 
 GEN_CACHE = _GenCache()
 

@@ -24,9 +24,11 @@ of O(N * stages).
 The submitting thread's flight recorder (``utils/trace.py``) rides with
 each generator, and a worker binds it around every step it takes for that
 generator, recording a ``pool`` span ``<pool>_step``; ``PoolClient.steps``
-counts the steps taken for a client (live progress reads it). The
-reference's lock-sanitizer hooks, size override and metric gauges are not
-ported.
+counts the steps taken for a client (live progress reads it). The pools'
+sizes come from ``PRESTO_TPU_TORCH_SCAN_POOL_THREADS`` and
+``PRESTO_TPU_TORCH_EXCHANGE_POOL_THREADS``, read once at import (the
+reference reads ``PRESTO_TPU_*``). The reference's lock-sanitizer hooks
+and metric gauges are not ported.
 """
 from __future__ import annotations
 
@@ -161,11 +163,25 @@ class SharedWorkerPool:
                 self._cv.notify_all()
 
 
-# the process-wide scan pool; its threads start at the first query that
-# uses it
-SCAN_POOL = SharedWorkerPool("scan", max(4, min(8, os.cpu_count() or 4)))
-# the streaming exchanges' pumps, sized as the reference's
-EXCHANGE_POOL = SharedWorkerPool("exchange", 4)
+def _pool_size(env: str, default: int) -> int:
+    """A pool's thread count from ``env``; ``default`` where it is unset,
+    empty, not a number or not positive."""
+    try:
+        n = int(os.environ.get(env) or 0)
+    except ValueError:
+        n = 0
+    return n if n > 0 else default
+
+
+# process-wide pools, sized once at import; their threads start at the
+# first query that uses them:
+#   PRESTO_TPU_TORCH_SCAN_POOL_THREADS      scan reader/decode/upload stages
+#   PRESTO_TPU_TORCH_EXCHANGE_POOL_THREADS  streaming-exchange pumps
+SCAN_POOL = SharedWorkerPool(
+    "scan", _pool_size("PRESTO_TPU_TORCH_SCAN_POOL_THREADS",
+                       max(4, min(8, os.cpu_count() or 4))))
+EXCHANGE_POOL = SharedWorkerPool(
+    "exchange", _pool_size("PRESTO_TPU_TORCH_EXCHANGE_POOL_THREADS", 4))
 
 _QUERY_KEYS = itertools.count(1)
 

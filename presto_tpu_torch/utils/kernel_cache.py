@@ -66,6 +66,13 @@ def clear() -> None:
         _CACHE.clear()
 
 
+def stats() -> dict:
+    """Entries held, and compositions being made (always 0 once the lock is
+    free: ``make`` runs under it), as the reference's ``stats`` has them."""
+    with _LOCK:
+        return {"entries": len(_CACHE), "building": 0}
+
+
 def new_token() -> int:
     """A process-unique dictionary identity (never reused, unlike ``id``)."""
     return next(_NEXT_TOKEN)

@@ -11,11 +11,13 @@ Also here: ``drive_operators`` (an operator chain on one driver),
 ``assert_no_residue`` (a pool's ledgers and the leak sanitizer after a
 query), ``normalize_value`` (a result value in a comparable form) and
 ``SqliteOracle`` (the generated TPC-H or TPC-DS tables in an in-memory
-sqlite), which the verifier's oracle mode reads."""
+sqlite), which the verifier's oracle mode reads, and ``assert_rows_equal``
+(rows against the oracle's, in any order, floats to a tolerance)."""
 from __future__ import annotations
 
+import math
 import sqlite3
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -177,3 +179,34 @@ def normalize_value(v: Any) -> Any:
     if isinstance(v, np.generic):
         return v.item()
     return v
+
+
+def assert_rows_equal(actual: Iterable[Sequence], expected: Iterable[Sequence],
+                      ordered: bool = False, rel_tol: float = 1e-6) -> None:
+    """Rows equal as QueryAssertions.assertEqualsIgnoreOrder has it: in any
+    order unless ``ordered``; floats to ``rel_tol``, everything else exact
+    after ``normalize_value``."""
+    a = [tuple(normalize_value(x) for x in row) for row in actual]
+    e = [tuple(normalize_value(x) for x in row) for row in expected]
+    if not ordered:
+        a = sorted(a, key=_row_key)
+        e = sorted(e, key=_row_key)
+    assert len(a) == len(e), f"row count mismatch: {len(a)} != {len(e)}\n" \
+                             f"actual[:5]={a[:5]}\nexpected[:5]={e[:5]}"
+    for i, (ra, re_) in enumerate(zip(a, e)):
+        assert len(ra) == len(re_), f"row {i} arity: {ra} vs {re_}"
+        for j, (va, ve) in enumerate(zip(ra, re_)):
+            if isinstance(va, float) or isinstance(ve, float):
+                if va is None or ve is None:
+                    assert va is ve is None, f"row {i} col {j}: {va} != {ve}"
+                    continue
+                ok = math.isclose(float(va), float(ve), rel_tol=rel_tol, abs_tol=1e-9)
+                assert ok, f"row {i} col {j}: {va} != {ve}\nrow actual={ra}\nrow expected={re_}"
+            else:
+                assert va == ve, f"row {i} col {j}: {va!r} != {ve!r}\n" \
+                                 f"row actual={ra}\nrow expected={re_}"
+
+
+def _row_key(row):
+    """A sort key for rows of mixed types and NULLs."""
+    return tuple((x is None, str(type(x)), str(x)) for x in row)
