@@ -123,13 +123,14 @@ Phases, each of which must pass:
    must spill. The per-day grouping runs cold and warm (counters set to 0
    just before the warm run), the others once (``P14_ONE_RUN``; their
    cold SF1 walls: ``port_walls.py --p14``);
-   the rows must equal a numpy oracle (``check_p14_rows``: exact where the
-   result is, the sketches within their error bounds, ``min_by``/``max_by``
-   a row holding the extreme, the statistics to ``STAT_REL_TOL``); the
-   card's rows must equal the CPU run's at ``CPU_ROWS_SCHEMA`` (these host
-   runs once ran at SF1), both against the oracle there; nothing may fall
-   back. The insert is held against its plain version at the per-day
-   grouping's shape.
+   the rows at ``P14_ORACLE_SCHEMA`` (``tiny``) must equal a numpy oracle
+   (``check_p14_rows``: exact where the result is, the sketches within
+   their error bounds, ``min_by``/``max_by`` a row holding the extreme,
+   the statistics to ``STAT_REL_TOL``) on the card and in the CPU run,
+   and the card's rows there the CPU run's (these host runs and the
+   oracles once ran at SF1; ``port_walls.py --p14 all`` holds the
+   SF1 rows to the oracles); nothing may fall back. The insert is held
+   against its plain version at the per-day grouping's shape.
    Prints one ``WINDOW``/``FULLJOIN``/``AGG`` line per query;
 15. writes at ``tpch.sf1`` (``run_write_phase``), in one runner: CTAS of
    ``lineitem`` (6,001,215 rows on 4 scaled writer drivers), ``orders`` and
@@ -341,7 +342,26 @@ Phases, each of which must pass:
    its one batch against numpy. Prints ``HAND`` and ``STREAM`` lines:
    walls, rows/s, the producers' stall, the first dispatch, with the
    card's name and power limit (``q1_walls.py`` keeps SF10 to its end);
-26. print the kernels line (JSON, with each kernel's warm-run launches per
+26. the operator's lifecycle (``run_lifecycle_phase``), the port's drives
+   of the reference's cluster dry runs at ``LIFECYCLE_SCHEMA`` (``tiny``),
+   every worker and the single-node run on the card, ``hash_kernels=
+   "pallas"``: churn (``CHURN_SQL`` on two HTTP workers, clean and with a
+   third worker joining and the victim drained once a consumer asks for
+   token >= 1 of its leaf stream: equal rows, ``query_attempts == 1``,
+   ``task_retries >= 1``, DRAINED with a handoff, spooled-bytes peaks from
+   ``/v1/status``); the rolling upgrade (three tenants cycling Q1, Q3, Q6 on
+   three workers while each is drained, stopped and replaced: no query
+   failed or mismatched, every drain DRAINED); chaos (``CHAOS_SQL`` clean,
+   with a mid-stream kill and under speculation: equal rows, the kill
+   recovered in place with a spool, the straggler speculated); forensics
+   (a statement through the server that exhausts its retries into FAILED:
+   the forensic trace, the journal's ids, ``/v1/cluster/metrics`` equal to
+   a hand-merged oracle, the Prometheus text). Each drive fails if device
+   memory is higher after every worker stopped than before it, and prints
+   each worker's insert and probe launches in ``LIFECYCLE`` lines;
+   ``lifecycle_walls.py`` runs churn and the rolling upgrade at SF1 and
+   boots the server distribution;
+27. print the kernels line (JSON, with each kernel's warm-run launches per
    SQL query under ``launches_by_query``: TPC-H as ``SQL Q3``, TPC-DS as
    ``SQL DS Q64``, the set operations as ``SQL SETOP rollup``, phase 14 as
    ``SQL P14 agg per day``, phase 15 as ``SQL WRITE q3 mixed``, phase 16 as
@@ -352,7 +372,7 @@ Phases, each of which must pass:
    ``SQL FED kafka stream join``, phase 21 as ``SQL DIST Q3``, phase 22
    as ``SQL CLUSTER Q3``, phase 23 as ``SERVER Q3`` and ``SERVER
    concurrent Q3``, phase 24 as ``SANITIZED Q3``, phase 25 as ``HAND
-   Q1``), the card line, and last
+   Q1``, phase 26 as ``LIFECYCLE rolling upgrade``), the card line, and last
    the result line.
 
 The phases of 6-9 run under the session defaults too, so on the card each
@@ -2465,6 +2485,10 @@ def check_insert_at(device, label: str, comps, mask, slots, reps: int = 20,
 # ``port_walls.py --p14`` keeps them); the per-day grouping's cold run
 # captures its insert's shape
 P14_ONE_RUN = tuple(label for label in P14_SQL if label != "agg per day")
+# the numpy oracles hold phase 14's rows at this schema, on the card and in
+# the CPU run (their SF1 checks took most of the phase and were cut for the
+# script's budget: ``port_walls.py --p14 all`` keeps them)
+P14_ORACLE_SCHEMA = CPU_ROWS_SCHEMA
 
 
 def run_p14_phase(device, schema: str = "sf1") -> dict:
@@ -2476,8 +2500,9 @@ def run_p14_phase(device, schema: str = "sf1") -> dict:
     Every query but the per-day grouping (``P14_ONE_RUN``) runs once, with
     the counters set to 0 before it: its cold SF1 run was cut for the
     script's budget.
-    Fails unless the rows equal the numpy oracle's, the card's rows at
-    ``CPU_ROWS_SCHEMA`` the CPU run's there, the insert launched once per
+    Fails unless the rows at ``P14_ORACLE_SCHEMA`` (``schema`` too, when it
+    is that schema) equal the numpy oracle's, on the card and in the CPU
+    run, the card's rows there the CPU run's, the insert launched once per
     join build and grouped page, nothing fell back, the per-day grouping took the insert
     (and the insert equals its plain version at that shape) and the sketch
     grouping spilled. Returns the records."""
@@ -2515,7 +2540,8 @@ def run_p14_phase(device, schema: str = "sf1") -> dict:
         peak = torch.cuda.max_memory_allocated(device) if on_card else 0
         launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
         delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS + extra}
-        check_p14_rows(label, res.rows, schema)
+        if schema == P14_ORACLE_SCHEMA:
+            check_p14_rows(label, res.rows, schema)
         small = sql_runner(device, "pallas", CPU_ROWS_SCHEMA).execute(sql).rows
         t0 = time.perf_counter()
         cpu_rows = sql_runner("cpu", "pallas", CPU_ROWS_SCHEMA).execute(sql).rows
@@ -2545,9 +2571,9 @@ def run_p14_phase(device, schema: str = "sf1") -> dict:
         if label == "agg sketch spill" and delta["agg.spilled_folds"] <= 0:
             raise AssertionError(f"P14 {label}: the wide partials did not spill")
         out[label] = rec
-        log(f"{kind} {label} {schema}: {len(res.rows)} rows equal to the numpy oracle; at "
-            f"{CPU_ROWS_SCHEMA} the card's rows equal the CPU run's ({cpu_s:.2f}s on the "
-            f"host); drivers per pipeline {res.drivers}; "
+        log(f"{kind} {label} {schema}: {len(res.rows)} rows; at {CPU_ROWS_SCHEMA} the card's "
+            f"rows equal the numpy oracle's and the CPU run's ({cpu_s:.2f}s on the host); "
+            f"drivers per pipeline {res.drivers}; "
             f"cold wall {'not run' if cold_s is None else f'{cold_s:.4f}s'}, warm wall "
             f"{warm_s:.4f}s; launches {launches}; join "
             f"builds {int(builds)}, grouped pages {int(pages)}; epilogue rows "
@@ -4977,31 +5003,49 @@ CLUSTER_EXCHANGE = ("exchange.frames", "exchange.bytes", "exchange.rows")
 
 class CardCluster:
     """A ClusterQueryRunner and ``n`` in-process WorkerServers on
-    ``device``, the workers announced every second (the reference's test
-    fixture); ``close()`` stops every thread and server it started."""
+    ``device``, the workers announced every ``announce_s`` seconds (the
+    reference's test fixture) while ACTIVE or DRAINING: a DRAINED worker
+    left discovery with its drain and is never announced again.
+    ``close()`` stops every thread and server it started and waits for
+    every task it ran, the retired workers' too."""
 
-    def __init__(self, device, n: int, schema: str, **props):
+    def __init__(self, device, n: int, schema: str, announce_s: float = 1.0, **props):
         import threading
 
-        from presto_tpu_torch.cluster import ClusterQueryRunner, WorkerServer
-        from presto_tpu_torch.metadata import Session
+        from presto_tpu_torch.cluster import ClusterQueryRunner
 
+        self.device = device
         self.runner = ClusterQueryRunner(
-            Session(catalog="tpch", schema=schema, properties={"hash_kernels": "pallas", **props}),
-            min_workers=n, worker_wait_s=30.0, device=device)
-        self.workers = [WorkerServer(port=0, device=device).start() for _ in range(n)]
+            self.session(schema, **props), min_workers=n, worker_wait_s=30.0, device=device)
+        self.workers = []
+        self.retired = []  # workers replaced by add_worker(replacing=...)
         self.stopped = set()
-        for w in self.workers:
-            self.runner.nodes.announce(w.node_id, w.uri)
+        for _ in range(n):
+            self.add_worker()
+        self.announce_s = announce_s
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._keep_alive, name="cluster-announce",
                                         daemon=True)
         self._thread.start()
 
+    def add_worker(self, replacing=None):
+        """Start a WorkerServer on the cluster's device and announce it; with
+        ``replacing``, it takes that (stopped) worker's place in ``workers``."""
+        from presto_tpu_torch.cluster import WorkerServer
+
+        w = WorkerServer(port=0, device=self.device).start()
+        if replacing is None:
+            self.workers.append(w)
+        else:
+            self.workers[self.workers.index(replacing)] = w
+            self.retired.append(replacing)
+        self.runner.nodes.announce(w.node_id, w.uri)
+        return w
+
     def _keep_alive(self):
-        while not self._stop.wait(1.0):
-            for w in self.workers:
-                if w.node_id not in self.stopped:
+        while not self._stop.wait(self.announce_s):
+            for w in list(self.workers):
+                if w.node_id not in self.stopped and w.state in ("ACTIVE", "DRAINING"):
                     self.runner.nodes.announce(w.node_id, w.uri)
             for node_id in list(self.stopped):
                 self.runner.nodes.remove(node_id)
@@ -5017,8 +5061,12 @@ class CardCluster:
         return Session(catalog="tpch", schema=schema,
                        properties={"hash_kernels": "pallas", **props})
 
+    def every_worker(self) -> list:
+        """The workers, the retired ones too."""
+        return self.workers + self.retired
+
     def join_tasks(self, timeout_s: float = 120.0) -> None:
-        for w in self.workers:
+        for w in self.every_worker():
             if not w.join_tasks(timeout_s):
                 raise AssertionError(f"CLUSTER: a task of {w.node_id} did not end in "
                                      f"{timeout_s}s")
@@ -5039,7 +5087,9 @@ class WorkerLaunches:
     """While on, counts each kernel's launches per worker: a launch is the
     worker's whose task runs the driver that makes it (the task executor's
     drivers are tagged with their task's thread, the caller's stack names
-    its driver). The wrappers' own counters keep counting."""
+    its driver). ``workers`` is a function giving the workers at each
+    launch (a cluster's workers change). The wrappers' own counters keep
+    counting."""
 
     def __init__(self, workers):
         self.workers = workers
@@ -5069,7 +5119,7 @@ class WorkerLaunches:
                 d = f.f_locals.get("self")
                 if isinstance(d, Driver) and id(d) in owner:
                     tid = owner[id(d)]
-                    for w in self.workers:
+                    for w in self.workers():
                         if tid in w.tasks.tasks:
                             return w.node_id
                     return "?"
@@ -5172,7 +5222,7 @@ def run_cluster_phase(device, records: dict, card: str = "", schema: str = "sf1"
             ex0 = exchange_counts()
             ph.insert_table.launches = 0
             ph.probe_table.launches = 0
-            with WorkerLaunches(cluster.workers) as per, KernelCapture() as capture:
+            with WorkerLaunches(cluster.every_worker) as per, KernelCapture() as capture:
                 res, warm_s = timed(r, QUERIES[q])
             launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
             delta = {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
@@ -5436,12 +5486,6 @@ def run_server_phase(device, records: dict, card: str = "", schema: str = "sf1")
         launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
         return launches, {k: METRICS.counter_value(k) - before[k] for k in COUNTERS}
 
-    def memory() -> int:
-        RESIDENT_CACHE.clear()
-        gc.collect()
-        sync()
-        return torch.cuda.memory_allocated(device) if on_card else 0
-
     def want_rows(q: int, qschema: str):
         rec = records.get(q)
         if rec is not None and rec.get("schema", "sf1") == qschema:
@@ -5461,7 +5505,7 @@ def run_server_phase(device, records: dict, card: str = "", schema: str = "sf1")
     except Exception as e:  # noqa: BLE001 - the engine's own error type
         want_error = type(e).__name__
     del control
-    mem0 = memory()
+    mem0 = device_memory(device)
     seq0 = JOURNAL.last_seq()
     revoked0 = METRICS.counter_value("memory.revoked_bytes")
 
@@ -5704,7 +5748,7 @@ def run_server_phase(device, records: dict, card: str = "", schema: str = "sf1")
     del crunner, cluster_server, workers
 
     # (g) device memory: every server stopped, every runner gone
-    mem1 = memory()
+    mem1 = device_memory(device)
     if on_card and mem1 != mem0:
         raise AssertionError(f"SERVER memory: torch.cuda.memory_allocated {mem0} before the "
                              f"phase's servers, {mem1} after")
@@ -6119,6 +6163,575 @@ def run_hand_stream_phase(device, records: dict, card: str = "", schema: str = "
     return out
 
 
+# phase 26: the operator's lifecycle, the port's drives of the reference's
+# cluster dry runs (``__graft_entry__.dryrun_churn``, ``dryrun_rolling_upgrade``,
+# ``dryrun_chaos``, ``dryrun_forensics``), with their queries and settings
+LIFECYCLE_SCHEMA = "tiny"
+CHURN_SQL = "select l_suppkey, count(*), sum(l_quantity) from lineitem group by l_suppkey"
+CHAOS_SQL = "select l_orderkey, count(*), sum(l_quantity) from lineitem group by l_orderkey"
+FORENSICS_SQL = "select l_returnflag, count(*) from lineitem group by l_returnflag"
+# the churn and chaos runs' session (bench.bench_churn, bench.bench_chaos)
+STREAM_RETRY = {"retry_policy": "TASK", "exchange_flush_rows": 512,
+                "retry_initial_delay_s": 0.01, "retry_max_delay_s": 0.05}
+SPECULATION = {"speculative_execution": True, "speculation_min_wall_s": 0.4,
+               "speculation_multiplier": 2.0}
+ROLLING_QUERIES = (1, 3, 6)
+ROLLING_WORKERS = 3
+ROLLING_TENANTS = 3
+# seconds the load runs before the first drain, between cycles and after
+# the last (the reference's dry run's)
+ROLLING_SETTLE_S = 1.0
+# dryrun_forensics: one retry, then FAILED; attempts fail fast under 500s
+FORENSICS_PROPS = {"retry_policy": "QUERY", "query_retry_attempts": 1,
+                   "retry_initial_delay_s": 0.02, "retry_max_delay_s": 0.1,
+                   "exchange_error_budget_s": 1.0, "remote_task_error_budget_s": 1.0}
+
+
+def device_memory(device) -> int:
+    """``torch.cuda.memory_allocated`` with the resident page cache cleared
+    and the collector run; 0 off the card."""
+    import torch
+
+    from presto_tpu_torch.ops.scan import RESIDENT_CACHE
+
+    RESIDENT_CACHE.clear()
+    gc.collect()
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated(device)
+
+
+def _results_token(ctx) -> int:
+    """The token a results pull asks for (``.../results/{buffer}/{token}``)."""
+    return int(ctx["path"].partition("?")[0].rstrip("/").rsplit("/", 1)[-1])
+
+
+def _leaf_fragment(runner, sql: str):
+    from presto_tpu_torch.cluster.scheduler import _remote_source_ids
+
+    sub = runner.plan_sql(sql)
+    return next(f.id for f in sub.fragments
+                if not _remote_source_ids(f.root) and f.id != sub.root_fragment.id)
+
+
+def _sorted_rows_match(got, want) -> bool:
+    return same_rows(sorted(got, key=repr), sorted(want, key=repr))
+
+
+class SpoolMonitor:
+    """Reads every running worker's spool from ``GET /v1/status`` every 50
+    ms while on, and once more at the end: ``peak`` is the highest
+    ``spooledBytesPeak`` (the worker's own high-water mark of its replay
+    spool, done tasks' too, so no poll has to land on it) or live
+    ``spooledBytes`` read; ``window_peak`` the highest read inside
+    ``window`` ([start, end] wall times, end 0 while open), where a
+    high-water mark counts only if it rose since the worker's poll before
+    (so it was reached within one poll of the window)."""
+
+    def __init__(self, workers, window=None):
+        self.workers, self.window = workers, window
+        self.peak = self.window_peak = 0
+        self._high = {}  # node id -> the high-water mark it read last
+
+    def _poll(self):
+        import urllib.request
+
+        now = time.time()
+        inside = bool(self.window and self.window[0] and now >= self.window[0]
+                      and not self.window[1])
+        for w in list(self.workers):
+            if w.state == "SHUT_DOWN":
+                continue
+            try:
+                with urllib.request.urlopen(f"{w.uri}/v1/status", timeout=1.0) as r:
+                    st = json.loads(r.read())
+            except OSError:  # a worker stopping under the poll
+                continue
+            live, high = int(st.get("spooledBytes") or 0), int(st.get("spooledBytesPeak") or 0)
+            rose = high > self._high.get(w.node_id, 0)
+            self._high[w.node_id] = high
+            self.peak = max(self.peak, live, high)
+            if inside:
+                self.window_peak = max(self.window_peak, live, high if rose else 0)
+
+    def _sample(self):
+        while not self._stop.wait(0.05):
+            self._poll()
+
+    def __enter__(self):
+        import threading
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, name="spool-monitor", daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(10.0)
+        self._poll()
+        return False
+
+
+def _lifecycle_run(cluster, sql: str, window=None):
+    """One query on ``cluster`` with the launch counters set to 0 just
+    before it; returns (result, wall, launches, per-worker launches, spool
+    monitor)."""
+    from presto_tpu_torch.ops import pallas_hash as ph
+
+    with WorkerLaunches(cluster.every_worker) as per, \
+            SpoolMonitor(cluster.workers, window) as spool:
+        ph.insert_table.launches = 0
+        ph.probe_table.launches = 0
+        t0 = time.perf_counter()
+        res = cluster.runner.execute(sql)
+        wall = time.perf_counter() - t0
+    launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+    return res, wall, launches, per.per_worker(), spool
+
+
+def _check_memory(label: str, mem0: int, mem1: int) -> None:
+    if mem1 > mem0:
+        raise AssertionError(f"LIFECYCLE {label}: {mem1 - mem0} bytes of device memory left "
+                             f"behind ({mem0} before, {mem1} after every worker stopped)")
+
+
+def lifecycle_churn(device, schema: str = LIFECYCLE_SCHEMA, want=None, card: str = "") -> dict:
+    """``dryrun_churn`` over ``bench_churn``: ``CHURN_SQL`` on two HTTP
+    workers of ``device``, clean, then with a churn once a consumer asks
+    for token >= 1 of the victim's leaf stream: a third worker joins and
+    the victim is drained. Fails unless both runs' rows equal ``want``
+    (the port's single-node rows by default), the churn run kept
+    ``query_attempts == 1`` with ``task_retries >= 1``, the victim reached
+    DRAINED having handed off a task, and device memory is no higher after
+    the drive. Returns the record, keyed ``LIFECYCLE churn``."""
+    import threading
+
+    from presto_tpu_torch.cluster import faults
+
+    if want is None:
+        want = sql_runner(device, "pallas", schema).execute(CHURN_SQL).rows
+    mem0 = device_memory(device)
+    runs = {}
+    for mode in ("clean", "churn"):
+        cluster = CardCluster(device, 2, schema, announce_s=0.5, **STREAM_RETRY)
+        drain, window, churned = {}, [0.0, 0.0], threading.Event()
+        churner = []
+        try:
+            if mode == "churn":
+                victim = min(cluster.workers, key=lambda w: w.node_id)
+
+                def churn():
+                    # off the handler thread: a worker joins, the victim drains
+                    window[0] = time.time()
+                    joiner = cluster.add_worker()
+                    drain.update(cluster.runner.drain_worker(
+                        victim.node_id, signal={"trigger": "churn"}), joiner=joiner.node_id)
+                    window[1] = time.time()
+
+                def trigger(ctx):
+                    if _results_token(ctx) < 1 or churned.is_set():
+                        return
+                    churned.set()
+                    churner.append(threading.Thread(target=churn, name="churn", daemon=True))
+                    churner[0].start()
+                inj = faults.FaultInjector(seed=29)
+                inj.add("worker.results", faults.CALLBACK, node_id=victim.node_id,
+                        task_re=rf"\.{_leaf_fragment(cluster.runner, CHURN_SQL)}\.0$",
+                        times=None, callback=trigger)
+                faults.install(inj)
+            try:
+                res, wall, launches, per, spool = _lifecycle_run(cluster, CHURN_SQL, window)
+            finally:
+                faults.clear()
+            for t in churner:
+                t.join(120.0)
+        finally:
+            cluster.close()
+        runs[mode] = {"wall_s": wall, "rows_match": _sorted_rows_match(res.rows, want),
+                      "query_attempts": res.stats.get("query_attempts"),
+                      "task_retries": res.stats.get("task_retries"),
+                      "spooled_bytes_peak": spool.peak, "launches": launches,
+                      "per_worker": per}
+        if mode == "churn":
+            runs[mode].update(churn_fired=churned.is_set(), drain=drain,
+                              spooled_bytes_peak_drain_window=spool.window_peak,
+                              drain_s=window[1] - window[0])
+    mem1 = device_memory(device)
+    churn = runs["churn"]
+    for mode, run in runs.items():
+        if not run["rows_match"]:
+            raise AssertionError(f"LIFECYCLE churn: the {mode} run's rows differ: {run}")
+    if not churn["churn_fired"] or churn["query_attempts"] != 1 or churn["task_retries"] < 1:
+        raise AssertionError(f"LIFECYCLE churn: the drain was not a mid-stream handoff: {churn}")
+    if not churn["drain"].get("drained") or churn["drain"].get("tasks_handed_off", 0) < 1:
+        raise AssertionError(f"LIFECYCLE churn: the victim never drained with a handoff: {churn}")
+    _check_memory("churn", mem0, mem1)
+    rec = {"schema": schema, **runs, "overhead_x": churn["wall_s"] / runs["clean"]["wall_s"],
+           "memory_before": mem0, "memory_after": mem1, "launches": churn["launches"]}
+    log(f"LIFECYCLE churn {schema} ({card}): rows equal to the single-node run's, clean and "
+        f"churn; clean wall {runs['clean']['wall_s']:.4f}s, churn wall {churn['wall_s']:.4f}s "
+        f"({rec['overhead_x']:.3f}x); {churn['drain']['joiner']} joined and "
+        f"{churn['drain']['node']} drained in {churn['drain_s']:.4f}s: state "
+        f"{churn['drain']['state']}, {churn['drain']['tasks_handed_off']} tasks handed off; "
+        f"query_attempts {churn['query_attempts']}, task_retries {churn['task_retries']}; "
+        f"spooled bytes peak {churn['spooled_bytes_peak']} (clean "
+        f"{runs['clean']['spooled_bytes_peak']}), in the drain window "
+        f"{churn['spooled_bytes_peak_drain_window']}; launches per worker clean "
+        f"{runs['clean']['per_worker']}, churn {churn['per_worker']}; "
+        f"torch.cuda.memory_allocated {mem0} before, {mem1} after")
+    return {"LIFECYCLE churn": rec}
+
+
+def lifecycle_rolling_upgrade(device, schema: str = LIFECYCLE_SCHEMA, want=None,
+                              card: str = "") -> dict:
+    """``dryrun_rolling_upgrade``: ``ROLLING_TENANTS`` tenants cycle TPC-H
+    Q1, Q3 and Q6 on ``ROLLING_WORKERS`` HTTP workers under
+    ``retry_policy=TASK`` while each worker in turn is drained, stopped,
+    replaced by a fresh WorkerServer and announced in (``ROLLING_SETTLE_S``
+    between cycles). Fails unless no query failed or mismatched ``want``
+    (qid -> rows; the port's single-node rows by default; unordered, DOUBLE
+    to 1e-6 as the reference's ``assert_rows_equal``), every query ran in
+    one attempt (``query_attempts == 1``, as churn), every drain ended
+    DRAINED, at least 3 queries completed, and device memory is no higher
+    after the drive. Returns the record, keyed ``LIFECYCLE rolling
+    upgrade``."""
+    import threading
+
+    from presto_tpu_torch.models.tpch_sql import QUERIES
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.utils.events import JOURNAL
+    from presto_tpu_torch.utils.testing import assert_rows_equal
+
+    if want is None:
+        single = sql_runner(device, "pallas", schema)
+        want = {q: single.execute(QUERIES[q]).rows for q in ROLLING_QUERIES}
+        del single
+    mem0 = device_memory(device)
+    cluster = CardCluster(device, ROLLING_WORKERS, schema, announce_s=0.3,
+                          retry_policy="TASK", retry_initial_delay_s=0.01,
+                          retry_max_delay_s=0.05)
+    done, lock = threading.Event(), threading.Lock()
+    results = {"ok": 0, "failed": 0, "mismatched": 0, "errors": [], "walls": []}
+
+    def tenant(tid: int):
+        i = tid  # tenants stay out of phase
+        while not done.is_set():
+            q = ROLLING_QUERIES[i % len(ROLLING_QUERIES)]
+            i += 1
+            t0 = time.perf_counter()
+            try:
+                got = cluster.runner.execute(QUERIES[q])
+            except Exception as e:  # noqa: BLE001 - a failure is the signal
+                with lock:
+                    results["failed"] += 1
+                    results["errors"].append(f"q{q}: {e!r}"[:200])
+                continue
+            wall = time.perf_counter() - t0
+            attempts = (got.stats.get("query_attempts"), got.stats.get("task_retries"))
+            try:
+                assert_rows_equal(got.rows, want[q], ordered=False)
+            except AssertionError as e:
+                with lock:
+                    results["mismatched"] += 1
+                    results["errors"].append(f"q{q}: {e}"[:200])
+                continue
+            with lock:
+                results["ok"] += 1
+                results["walls"].append((wall, q, *attempts))
+
+    drains, tenants = [], []
+    seq0 = JOURNAL.last_seq()
+    try:
+        with WorkerLaunches(cluster.every_worker) as per:
+            ph.insert_table.launches = 0
+            ph.probe_table.launches = 0
+            t_start = time.perf_counter()
+            tenants = [threading.Thread(target=tenant, args=(i,), name=f"tenant-{i}",
+                                        daemon=True) for i in range(ROLLING_TENANTS)]
+            for t in tenants:
+                t.start()
+            time.sleep(ROLLING_SETTLE_S)  # the load establishes before the first drain
+            try:
+                for idx, old in enumerate(list(cluster.workers)):
+                    t0 = time.perf_counter()
+                    d = cluster.runner.drain_worker(
+                        old.node_id, signal={"trigger": "rolling-upgrade", "cycle": idx})
+                    d["drain_s"] = time.perf_counter() - t0
+                    drains.append(d)
+                    old.stop()
+                    cluster.add_worker(replacing=old)
+                    time.sleep(ROLLING_SETTLE_S)  # the replacement takes load first
+                time.sleep(ROLLING_SETTLE_S)
+            finally:
+                done.set()
+                for t in tenants:
+                    t.join(120.0)
+            wall = time.perf_counter() - t_start
+            launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+            by_worker = per.per_worker()
+    finally:
+        done.set()
+        cluster.close()
+    mem1 = device_memory(device)
+    if any(t.is_alive() for t in tenants):
+        raise AssertionError("LIFECYCLE rolling upgrade: a tenant did not end")
+    if len(drains) != ROLLING_WORKERS or not all(d["drained"] for d in drains):
+        raise AssertionError(f"LIFECYCLE rolling upgrade: drains {drains}")
+    if results["failed"] or results["mismatched"] or results["ok"] < 3:
+        raise AssertionError(f"LIFECYCLE rolling upgrade: {results}")
+    # every query's (Q, wall, query_attempts, task_retries), in completion
+    # order, and what lost each query attempt that was retried
+    queries = [(q, round(w, 4), a, r) for w, q, a, r in results["walls"]]
+    retry_causes = [e["message"][:240] for e in JOURNAL.events(
+        since=seq0, kind="query.attempt_failed", limit=100)]
+    if any(a != 1 for _q, _w, a, _r in queries):
+        # a planned drain hands tasks off; it never costs a query attempt
+        raise AssertionError(f"LIFECYCLE rolling upgrade: a query retried: {queries}; "
+                             f"lost attempts {retry_causes}")
+    _check_memory("rolling upgrade", mem0, mem1)
+    rec = {"schema": schema, "workers_cycled": len(drains), "queries_ok": results["ok"],
+           "queries_failed": results["failed"], "queries_mismatched": results["mismatched"],
+           "tasks_handed_off": sum(d["tasks_handed_off"] for d in drains),
+           "drain_s": [d["drain_s"] for d in drains], "wall_s": wall,
+           "slowest_query": max(results["walls"]), "queries": queries,
+           "retry_causes": retry_causes, "launches": launches,
+           "per_worker": by_worker, "memory_before": mem0, "memory_after": mem1}
+    log(f"LIFECYCLE rolling upgrade {schema} ({card}): {ROLLING_TENANTS} tenants cycling Q1, Q3, "
+        f"Q6 on {ROLLING_WORKERS} workers, every worker drained, stopped and replaced; "
+        f"{rec['queries_ok']} queries ok, {rec['queries_failed']} failed, "
+        f"{rec['queries_mismatched']} mismatched; drains "
+        f"{[(d['state'], d['tasks_handed_off'], round(d['drain_s'], 4)) for d in drains]} "
+        f"(state, tasks handed off, seconds); slowest query Q{rec['slowest_query'][1]} "
+        f"{rec['slowest_query'][0]:.4f}s (query_attempts {rec['slowest_query'][2]}, "
+        f"task_retries {rec['slowest_query'][3]}); every query (Q, wall s, query_attempts, "
+        f"task_retries) {queries}; query attempts lost to {retry_causes}; "
+        f"wall {wall:.4f}s; launches {launches}, per worker {by_worker}; "
+        f"torch.cuda.memory_allocated {mem0} before, {mem1} after")
+    return {"LIFECYCLE rolling upgrade": rec}
+
+
+def lifecycle_chaos(device, schema: str = LIFECYCLE_SCHEMA, want=None, card: str = "") -> dict:
+    """``dryrun_chaos`` over ``bench_chaos``: ``CHAOS_SQL`` on two HTTP
+    workers of ``device``, clean, with the victim killed once a consumer
+    asks for token >= 1 of its leaf stream, and with that leaf task
+    delayed 5 s under speculation. Fails unless every mode's rows equal
+    ``want`` (the port's single-node rows by default), the kill run kept
+    ``query_attempts == 1`` with ``task_retries >= 1`` and a spooled-bytes
+    peak above 0, the speculation run speculated, and device memory is no
+    higher after the drive. Returns the records, keyed ``LIFECYCLE chaos
+    <mode>``."""
+    from presto_tpu_torch.cluster import faults
+
+    if want is None:
+        want = sql_runner(device, "pallas", schema).execute(CHAOS_SQL).rows
+    mem0 = device_memory(device)
+    runs = {}
+    for mode in ("clean", "mid_stream_kill", "speculation"):
+        props = {**STREAM_RETRY, **(SPECULATION if mode == "speculation" else {})}
+        cluster = CardCluster(device, 2, schema, announce_s=0.5, **props)
+        try:
+            leaf = _leaf_fragment(cluster.runner, CHAOS_SQL)
+            inj = faults.FaultInjector(seed=23)
+            if mode == "mid_stream_kill":
+                victim = min(cluster.workers, key=lambda w: w.node_id)
+
+                def kill(ctx):
+                    # chunk 0 was delivered and acked: the recovery replays
+                    # mid-stream from the spool
+                    if _results_token(ctx) < 1 or victim.node_id in cluster.stopped:
+                        return
+                    cluster.stop_worker(victim)
+                    raise faults.InjectedDisconnect("worker killed")
+                inj.add("worker.results", faults.CALLBACK, node_id=victim.node_id,
+                        task_re=rf"\.{leaf}\.0$", times=None, callback=kill)
+            elif mode == "speculation":
+                inj.add("worker.task_run", faults.DELAY, delay_s=5.0, times=1,
+                        task_re=rf"\.{leaf}\.0$")
+            faults.install(inj)
+            try:
+                res, wall, launches, per, spool = _lifecycle_run(cluster, CHAOS_SQL)
+            finally:
+                faults.clear()
+        finally:
+            cluster.close()
+        runs[mode] = {"wall_s": wall, "rows_match": _sorted_rows_match(res.rows, want),
+                      "query_attempts": res.stats.get("query_attempts"),
+                      "task_retries": res.stats.get("task_retries"),
+                      "task_speculations": res.stats.get("task_speculations"),
+                      "faults_injected": res.stats.get("faults_injected"),
+                      "spooled_bytes_peak": spool.peak, "launches": launches,
+                      "per_worker": per}
+    mem1 = device_memory(device)
+    kill, spec = runs["mid_stream_kill"], runs["speculation"]
+    for mode, run in runs.items():
+        if not run["rows_match"]:
+            raise AssertionError(f"LIFECYCLE chaos: the {mode} run's rows differ: {run}")
+    if kill["query_attempts"] != 1 or kill["task_retries"] < 1 \
+            or (kill["faults_injected"] or 0) < 1 or kill["spooled_bytes_peak"] <= 0:
+        raise AssertionError(f"LIFECYCLE chaos: the kill was not a mid-stream replay: {kill}")
+    if (spec["task_speculations"] or 0) < 1:
+        raise AssertionError(f"LIFECYCLE chaos: the straggler never speculated: {spec}")
+    _check_memory("chaos", mem0, mem1)
+    for mode, run in runs.items():
+        log(f"LIFECYCLE chaos {mode} {schema} ({card}): rows equal to the single-node run's; "
+            f"wall {run['wall_s']:.4f}s ({run['wall_s'] / runs['clean']['wall_s']:.3f}x clean); "
+            f"query_attempts {run['query_attempts']}, task_retries {run['task_retries']}, "
+            f"task_speculations {run['task_speculations']}, faults_injected "
+            f"{run['faults_injected']}; spooled bytes peak {run['spooled_bytes_peak']}; "
+            f"launches {run['launches']}, per worker {run['per_worker']}")
+    log(f"LIFECYCLE chaos memory ({card}): torch.cuda.memory_allocated {mem0} before, {mem1} "
+        f"after every worker stopped")
+    return {f"LIFECYCLE chaos {mode}": {"schema": schema, **run}
+            for mode, run in runs.items()}
+
+
+def lifecycle_forensics(device, schema: str = LIFECYCLE_SCHEMA, card: str = "") -> dict:
+    """``dryrun_forensics``: ``FORENSICS_SQL`` through a PrestoTpuServer
+    over a ClusterQueryRunner of two HTTP workers of ``device`` under
+    ``retry_policy=QUERY`` and ``query_retry_attempts=1``; the victim is
+    killed on its first results pull and the survivor answers 500. Fails
+    unless the statement ends FAILED with ``hasFailureTrace``, ``GET
+    /v1/query/{id}/trace`` is a valid coarse trace with ``http`` spans,
+    ``GET /v1/events`` holds ``query.retry``, two or more
+    ``query.attempt_failed`` with ``cq`` ids and ``task.created`` events
+    whose task ids start with their query id, ``GET /v1/cluster/metrics``
+    equals the live workers' raw snapshots merged by hand on every
+    ``.p50/.p95/.p99/.count`` key, the Prometheus text carries the
+    ``task_wall_s`` count, and device memory is no higher after the drive.
+    Returns the record, keyed ``LIFECYCLE forensics``."""
+    import urllib.request
+
+    from presto_tpu_torch.cluster import faults
+    from presto_tpu_torch.ops import pallas_hash as ph
+    from presto_tpu_torch.server import PrestoTpuServer
+    from presto_tpu_torch.utils import trace
+    from presto_tpu_torch.utils.events import JOURNAL
+    from presto_tpu_torch.utils.metrics import flatten_raw, merge_raw_snapshots
+
+    # the single-node run makes the query's lazily built device tables
+    sql_runner(device, "pallas", schema).execute(FORENSICS_SQL)
+    mem0 = device_memory(device)
+    cluster = CardCluster(device, 2, schema, announce_s=0.5, **FORENSICS_PROPS)
+    victim, survivor = cluster.workers
+
+    def kill(ctx):
+        cluster.stop_worker(victim)
+        raise faults.InjectedDisconnect("worker killed")
+
+    inj = faults.FaultInjector(seed=17)
+    inj.add("worker.results", faults.CALLBACK, node_id=victim.node_id, times=1, callback=kill)
+    inj.add("worker.results", faults.HTTP_ERROR, code=500, node_id=survivor.node_id,
+            times=None)
+    faults.install(inj)
+    server = PrestoTpuServer(cluster.runner, port=0)
+    server.start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        seq0 = JOURNAL.last_seq()
+        with WorkerLaunches(cluster.every_worker) as per:
+            ph.insert_table.launches = 0
+            ph.probe_table.launches = 0
+            t0 = time.perf_counter()
+            _st, payload = _http_json(f"{base}/v1/statement", "POST", FORENSICS_SQL.encode())
+            qid = payload["id"]
+            deadline = time.monotonic() + 120.0
+            while True:
+                _st, q = _http_json(f"{base}/v1/query/{qid}")
+                if q["state"] in ("FAILED", "FINISHED"):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"LIFECYCLE forensics: {qid} never finished")
+                time.sleep(0.1)
+            wall = time.perf_counter() - t0
+            # every attempt's tasks have ended, so no launch of the query comes later
+            cluster.join_tasks()
+            launches = {"insert": ph.insert_table.launches, "probe": ph.probe_table.launches}
+            by_worker = per.per_worker()
+        faults.clear()
+        if q["state"] != "FAILED" or not q["hasFailureTrace"] or inj.rules[0].fired != 1:
+            raise AssertionError(f"LIFECYCLE forensics: want FAILED with a failure trace after "
+                                 f"one kill, got {q} (kills {inj.rules[0].fired})")
+        _st, doc = _http_json(f"{base}/v1/query/{qid}/trace")
+        events = doc.get("traceEvents")
+        if not (isinstance(events, list) and events and doc["otherData"]["coarse"] is True
+                and all({"name", "ph", "pid", "tid"} <= set(e) for e in events)):
+            raise AssertionError("LIFECYCLE forensics: the forensic trace is malformed")
+        cats = trace.span_categories(doc)
+        if cats.get("http", 0) <= 0:
+            raise AssertionError(f"LIFECYCLE forensics: no cluster HTTP spans: {cats}")
+
+        _st, journal = _http_json(f"{base}/v1/events?since={seq0}&limit=4000")
+        kinds = {}
+        for e in journal["events"]:
+            kinds.setdefault(e["kind"], []).append(e)
+        attempts = kinds.get("query.attempt_failed", [])
+        cluster_qids = {e["query_id"] for e in attempts}
+        created = kinds.get("task.created", [])
+        if not any(e["query_id"] == qid for e in kinds.get("query.failed", [])) \
+                or not kinds.get("query.retry") or len(attempts) < 2 \
+                or not all(c.startswith("cq") for c in cluster_qids) or not created \
+                or not all(e["task_id"].startswith(e["query_id"] + ".") for e in created) \
+                or not cluster_qids <= {e["query_id"] for e in created}:
+            raise AssertionError(f"LIFECYCLE forensics: the journal lacks the failure's "
+                                 f"events: { {k: len(v) for k, v in kinds.items()} }")
+
+        raws = []
+        for w in cluster.workers:
+            if w.node_id not in cluster.stopped:
+                with urllib.request.urlopen(f"{w.uri}/v1/metrics?raw=1", timeout=10) as r:
+                    raws.append(json.loads(r.read()))
+        oracle = flatten_raw(merge_raw_snapshots(raws))
+        _st, merged = _http_json(f"{base}/v1/cluster/metrics")
+        keys = [k for k in oracle if k.endswith((".p50", ".p95", ".p99", ".count"))]
+        if not raws or merged["cluster.workers_merged"] != len(raws) \
+                or not any(k.startswith("task.wall_s") for k in keys) \
+                or any(merged.get(k) != oracle[k] for k in keys):
+            raise AssertionError(f"LIFECYCLE forensics: /v1/cluster/metrics differs from the "
+                                 f"hand-merged oracle of {len(raws)} workers")
+        with urllib.request.urlopen(f"{base}/v1/cluster/metrics?format=prometheus",
+                                    timeout=10) as r:
+            prom = r.read().decode()
+        if "presto_tpu_task_wall_s_seconds_count" not in prom:
+            raise AssertionError("LIFECYCLE forensics: no task_wall_s count in the Prometheus "
+                                 "text")
+    finally:
+        faults.clear()
+        server.stop()
+        cluster.close()
+    mem1 = device_memory(device)
+    _check_memory("forensics", mem0, mem1)
+    rec = {"schema": schema, "state": q["state"], "wall_s": wall, "forensic_spans": cats,
+           "retry_events": len(kinds["query.retry"]), "attempt_failures": len(attempts),
+           "task_events": len(created), "merged_hist_keys": len(keys),
+           "workers_merged": merged["cluster.workers_merged"], "memory_before": mem0,
+           "memory_after": mem1, "launches": launches, "per_worker": by_worker}
+    log(f"LIFECYCLE forensics {schema} ({card}): {qid} FAILED in {wall:.4f}s after "
+        f"{len(attempts)} failed attempts ({sorted(cluster_qids)}); the forensic trace's spans "
+        f"{cats}; {rec['retry_events']} query.retry, {len(created)} task.created events; "
+        f"/v1/cluster/metrics equal to the hand-merged oracle on {len(keys)} keys of "
+        f"{rec['workers_merged']} live workers; launches {launches}, per worker {by_worker}; "
+        f"torch.cuda.memory_allocated {mem0} before, {mem1} after")
+    return {"LIFECYCLE forensics": rec}
+
+
+def run_lifecycle_phase(device, card: str = "", schema: str = LIFECYCLE_SCHEMA) -> dict:
+    """Phase 26: the churn, rolling-upgrade, chaos and forensics drives at
+    ``schema``; fails unless, on the card, both kernels launched over the
+    phase (the rolling upgrade's Q3 builds and probes on every worker).
+    Returns the records, keyed ``LIFECYCLE ...``."""
+    out = {}
+    out.update(lifecycle_churn(device, schema, card=card))
+    out.update(lifecycle_rolling_upgrade(device, schema, card=card))
+    out.update(lifecycle_chaos(device, schema, card=card))
+    out.update(lifecycle_forensics(device, schema, card=card))
+    total = {k: sum(rec["launches"][k] for rec in out.values()) for k in ("insert", "probe")}
+    if device.type == "cuda" and not (total["insert"] and total["probe"]):
+        raise AssertionError(f"LIFECYCLE: a kernel never launched over the phase: {total}")
+    return out
+
+
 def check_probe_at(device, label: str, slot_keys, slot_rows, keys, mask, trips,
                    reps: int = 20, plain_reps: int = 3) -> dict:
     """The probe against its plain version, bit for bit, at one captured
@@ -6291,6 +6904,9 @@ def main() -> int:
         hand_records = run_hand_stream_phase(device, records, card)
         phase_done(f"25 hand-built Q1/Q6 and the Q1 stream (SF1; a {STREAM_PREFIX_ROWS}-row "
                    f"prefix of SF{STREAM_PREFIX_SF:g})")
+        lifecycle_records = run_lifecycle_phase(device, card)
+        phase_done(f"26 the operator's lifecycle: churn, rolling upgrade, chaos, forensics (at "
+                   f"{LIFECYCLE_SCHEMA})")
     except Exception:  # a failed phase: report it and print no result
         import traceback
 
@@ -6327,7 +6943,9 @@ def main() -> int:
                        for label, rec in cluster_records.items()},
                     **{label: rec["launches"][k] for label, rec in server_records.items()},
                     **{label: rec["launches"][k] for label, rec in sanitizer_records.items()},
-                    **{label: rec["launches"][k] for label, rec in hand_records.items()}}}
+                    **{label: rec["launches"][k] for label, rec in hand_records.items()},
+                    **{label: rec["launches"][k]
+                       for label, rec in lifecycle_records.items()}}}
                for k, m in measured.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,8 +14,10 @@ in ``torch.cuda.synchronize()``. Prints one ``WALLS`` JSON line per query
 and the card's name and power limit. ``--p14 LABELS`` (comma-separated,
 or ``all``) runs the named entries of ``chip_smoke.P14_SQL`` (windows,
 FULL joins, the dashboard and sketch groupings) the same way, which keeps
-the cold SF1 walls that ``chip_smoke.py`` phase 14 no longer takes. To
-compare two checkouts, run it
+the cold SF1 walls that ``chip_smoke.py`` phase 14 no longer takes, and
+holds each query's cold rows to phase 14's numpy oracle at ``--schema``
+(``chip_smoke.check_p14_rows``, outside the timed span), the SF1 check the
+phase no longer makes. To compare two checkouts, run it
 once per checkout in turns (A, B, B, A) in one call on one card. Exits
 non-zero without CUDA. It imports nothing of JAX.
 """
@@ -54,7 +56,7 @@ def main() -> int:
     kernels.build(kernels.SOURCE)
     device = torch.device("cuda", 0)
     if args.p14:
-        from chip_smoke import P14_SQL
+        from chip_smoke import P14_SQL, check_p14_rows
 
         labels = list(P14_SQL) if args.p14 == "all" else args.p14.split(",")
         work = [(label, P14_SQL[label]) for label in labels]
@@ -66,14 +68,17 @@ def main() -> int:
                                   device=device)
         walls = []
         RESIDENT_CACHE.clear()
-        for _ in range(1 + args.rounds):
+        for run in range(1 + args.rounds):
             t0 = time.perf_counter()
-            runner.execute(sql)
+            rows = runner.execute(sql).rows
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+            if args.p14 and run == 0:
+                check_p14_rows(q, rows, args.schema)  # raises on a mismatch
         print("WALLS " + json.dumps({"root": root, "query": q, "schema": args.schema,
                                      "cold_s": walls[0], "warm_s": walls[1:],
-                                     "warm_median_s": statistics.median(walls[1:])}),
+                                     "warm_median_s": statistics.median(walls[1:]),
+                                     "rows_checked": bool(args.p14)}),
               flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -132,6 +132,10 @@ class ClusterQueryRunner:
             moved += m
             state = self._worker_state(node)
         drained = state in ("DRAINED", "SHUT_DOWN")
+        if drained:
+            # its tasks' later loss (the node stopped) is planned, not a failure
+            for sched in list(self._schedulers.values()):
+                sched.drained_nodes.add(node_id)
         self.nodes.remove(node_id)
         events.emit("node.drained", severity=events.INFO, node=node_id,
                     drained=drained, state=state or "UNREACHABLE",

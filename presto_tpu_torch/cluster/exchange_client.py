@@ -170,8 +170,11 @@ class PageBufferClient:
         numbers assert exactly-once delivery across the rewire. Bumps the
         epoch so an in-flight poll against the old location cannot commit;
         clears the pinned instance id (the replacement is a new instance by
-        design). A finished (`done`) client just releases the replacement's
-        buffer so the new task never wedges on backpressure."""
+        design). A finished (`done`) client acks the replacement's stream
+        through its cursor, so the new task never wedges on backpressure:
+        the re-produced frames land in the spool, where a later replacement
+        of this consumer (same buffer id, cursor 0) replays them; a release
+        would answer that replay with a 410 and retry the query."""
         was_done = False
         with self._lock:
             self.location = new_location.rstrip("/")
@@ -180,8 +183,18 @@ class PageBufferClient:
             self._backoff.success()
             was_done = self.done
         if was_done:
-            self.finished_ack()
+            self.ack_through()
         return True
+
+    def ack_through(self) -> None:
+        """Ack every frame below the cursor without waiting for one (a GET
+        at ``token`` with ``wait=0``); the buffer stays replayable."""
+        try:
+            url = f"{self.location}/results/{self.buffer_id}/{self.token}?wait=0"
+            urllib.request.urlopen(urllib.request.Request(url, method="GET"),
+                                   timeout=5.0).read()
+        except Exception:
+            pass  # best-effort, as the final ack: task teardown frees the buffer
 
     def finished_ack(self) -> None:
         """Final ack freeing the server-side buffer (abort endpoint)."""

@@ -64,6 +64,9 @@ class RemoteTask:
         self.task_id = task_id
         self.node = node
         self.attempt = attempt
+        # failures in this task's chain of replacements: what
+        # task_retry_attempts bounds (a planned move is not one)
+        self.failures = 0
         self.location = f"{node.uri}/v1/task/{task_id}"
         self.info: Optional[TaskInfo] = None
         self.request: Optional[TaskUpdateRequest] = None
@@ -232,6 +235,9 @@ class SqlQueryScheduler:
         # here are excluded from the NEXT attempt's placement too
         self.excluded_nodes: Set[str] = (
             excluded_nodes if excluded_nodes is not None else set())
+        # nodes that left through a completed drain (the coordinator's
+        # drain_worker adds them): a task lost with one was not a failure
+        self.drained_nodes: Set[str] = set()
         self.stages: Dict[int, StageExecution] = {}
         self._consumer_tasks = self._consumer_task_counts()
         # observability (surfaced via QueryResult.stats + /v1/metrics)
@@ -282,23 +288,32 @@ class SqlQueryScheduler:
                    else len(self.selector.nodes))
             for f in self.subplan.fragments}
         for frag in self.subplan.fragments:  # bottom-up order from fragmenter
-            nodes = self.selector.select(frag)
-            input_locations = {
-                fid: [t.location for t in self.stages[fid].tasks]
-                for fid in _remote_source_ids(frag.root)}
-            tasks: List[RemoteTask] = []
-            try:
-                for i, node in enumerate(nodes):
-                    tasks.append(self._create_task(frag, i, node, task_counts,
-                                                   input_locations))
-            except BaseException:
-                # a half-created stage is not in self.stages, so abort() and
-                # the coordinator's cleanup would never see these tasks —
-                # cancel them here or they leak on the workers per attempt
-                for task in tasks:
-                    task.cancel(abort=True)
-                raise
-            self.stages[frag.id] = StageExecution(frag, tasks)
+            # a stage is made under the monitor's lock: a planned drain
+            # (drain_node, on another thread) that moved a producer between
+            # this read of its location and the stage's entry would rewire
+            # no consumer of it, and the new tasks would pull from the
+            # aborted producer
+            with self._monitor_lock:
+                self._schedule_stage(frag, task_counts)
+
+    def _schedule_stage(self, frag: Fragment, task_counts: Dict[int, int]) -> None:
+        nodes = self.selector.select(frag)
+        input_locations = {
+            fid: [t.location for t in self.stages[fid].tasks]
+            for fid in _remote_source_ids(frag.root)}
+        tasks: List[RemoteTask] = []
+        try:
+            for i, node in enumerate(nodes):
+                tasks.append(self._create_task(frag, i, node, task_counts,
+                                               input_locations))
+        except BaseException:
+            # a half-created stage is not in self.stages, so abort() and
+            # the coordinator's cleanup would never see these tasks —
+            # cancel them here or they leak on the workers per attempt
+            for task in tasks:
+                task.cancel(abort=True)
+            raise
+        self.stages[frag.id] = StageExecution(frag, tasks)
 
     def _build_request(self, task_id: str, frag: Fragment, index: int,
                       task_counts: Dict[int, int],
@@ -467,9 +482,10 @@ class SqlQueryScheduler:
         410 escalation (the drained worker's spools are pinned and intact).
         Deliberately NOT gated on retry_policy: a drain is an operator
         action, and "zero queries lost" must hold for NONE-policy tenants
-        too. Tasks recovery cannot move (attempt budget exhausted, root
-        consumer not yet registered) are left to finish naturally on the
-        draining node — it keeps serving until they do.
+        too. A handoff spends none of the task's failure budget. Tasks
+        recovery cannot move (root consumer not yet registered, no other
+        node, a refused create or rewire) are left to finish naturally on
+        the draining node — it keeps serving until they do.
         Returns (tasks handed off, live tasks left to finish in place)."""
         moved = 0
         left = 0
@@ -485,8 +501,13 @@ class SqlQueryScheduler:
                     info = task.poll_info() or task.info
                     if info is not None and info.state in DONE_STATES:
                         continue
+                    # the full active list, draining nodes included: the
+                    # replacement's consumers on the draining node must be
+                    # rewired too (a consumer left in place there would pull
+                    # from the aborted producer); _recover_task places the
+                    # replacement on a node that is not draining
                     if candidates and self._recover_task(
-                            stage, idx, candidates, failure=None,
+                            stage, idx, active_nodes, failure=None,
                             retry_kind="drain"):
                         moved += 1
                     else:
@@ -516,8 +537,12 @@ class SqlQueryScheduler:
         if frag is self.subplan.root_fragment \
                 and self._root_consumer is None:
             return False  # nobody registered to rewire the coordinator's pull
+        # a drain's handoff, or the re-run of a task lost with a node that
+        # had drained, is planned: it spends none of the failure budget, so
+        # a rolling upgrade can move one task more often than that budget
+        planned = failure is None or old.node.node_id in self.drained_nodes
         budget = self.session.get("task_retry_attempts")
-        if old.attempt >= int(2 if budget is None else budget):
+        if not planned and old.failures >= int(2 if budget is None else budget):
             # a task that keeps dying would otherwise be recovered forever
             # (recovery resets nothing the failure reads); escalate to the
             # BOUNDED query-level retry instead
@@ -531,17 +556,24 @@ class SqlQueryScheduler:
                       if n.node_id not in self.excluded_nodes] or healthy
         if not candidates:
             return False
-        node = min(candidates, key=NodeScheduler._bucket)
         attempt = old.attempt + 1
         base_id = f"{self.query_id}.{frag.id}.{old.request.worker_index}"
-        new_task = self._launch_duplicate(
-            frag, old, f"{base_id}.r{attempt}", node, attempt=attempt)
+        new_task = None
+        for node in sorted(candidates, key=NodeScheduler._bucket):
+            new_task = self._launch_duplicate(
+                frag, old, f"{base_id}.r{attempt}", node, attempt=attempt)
+            # a node whose drain began after the candidates were read
+            # refuses the create (503): place on the next one, or a
+            # planned drain would turn this recovery into a query retry
+            if new_task is not None or not getattr(node, "draining", False):
+                break
         if new_task is None:
             return False
         if not self._rewire_consumers(frag, old, new_task, active_nodes):
             new_task.cancel(abort=True)
             return False
         old.cancel(abort=True)
+        new_task.failures = old.failures + (0 if planned else 1)
         stage.tasks[idx] = new_task
         METRICS.count("cluster.task_retries")
         from ..utils import events

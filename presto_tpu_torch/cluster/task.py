@@ -34,7 +34,7 @@ import threading
 import time
 import traceback
 import uuid
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -328,7 +328,7 @@ class SqlTask:
     """One fragment execution on this worker (execution/SqlTask.java:69)."""
 
     def __init__(self, request: TaskUpdateRequest, metadata: MetadataManager,
-                 device="cuda"):
+                 device="cuda", on_spool: Optional[Callable[[int], None]] = None):
         self.request = request
         self.metadata = metadata
         self.device = resolve_device(device)
@@ -368,12 +368,17 @@ class SqlTask:
         # reserved in the worker's process-shared pool under the QUERY id
         from ..memory import shared_general_pool
         pool = shared_general_pool(int(request.session.get("memory_pool_bytes")))
+
+        def reserve(delta: int) -> None:
+            if on_spool is not None:
+                on_spool(delta)  # the worker's own spool gauge
+            pool.reserve(request.query_id, delta)
         self.output = buffers.OutputBuffer(
             buffers.BROADCAST if kind == BROADCAST else
             (buffers.GATHER if request.output_buffers == 1 else buffers.PARTITIONED),
             request.output_buffers,
             spool_max_bytes=int(request.session.get("exchange_spool_bytes") or 0),
-            reserve=lambda delta: pool.reserve(request.query_id, delta))
+            reserve=reserve)
         self.thread = threading.Thread(
             target=self._run, name=f"task-{self.task_id}", daemon=True)
 
@@ -611,13 +616,23 @@ class WorkerTaskManager:
         self.tasks: Dict[str, SqlTask] = {}
         self._lock = threading.Lock()
         self.max_done_tasks = max_done_tasks
+        # the replay spool over every task held, done ones too, and its
+        # high-water mark since the worker started (GET /v1/status)
+        self.spooled_bytes = 0
+        self.spooled_bytes_peak = 0
+        self._spool_lock = threading.Lock()
+
+    def _spooled(self, delta: int) -> None:
+        with self._spool_lock:
+            self.spooled_bytes += delta
+            self.spooled_bytes_peak = max(self.spooled_bytes_peak, self.spooled_bytes)
 
     def create_or_update(self, request: TaskUpdateRequest) -> TaskInfo:
         created = False
         with self._lock:
             task = self.tasks.get(request.task_id)
             if task is None:
-                task = SqlTask(request, self.metadata, self.device)
+                task = SqlTask(request, self.metadata, self.device, on_spool=self._spooled)
                 self.tasks[request.task_id] = task
                 task.start()
                 self._cleanup_locked()
@@ -658,3 +673,4 @@ class WorkerTaskManager:
         done.sort(key=lambda t: t.created)
         for t in done[:len(done) - self.max_done_tasks]:
             self.tasks.pop(t.task_id, None)
+            self._spooled(-t.output.spooled_bytes())  # its spool leaves with it

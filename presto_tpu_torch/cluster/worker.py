@@ -291,6 +291,10 @@ class _WorkerHandler(BaseHTTPRequestHandler):
                 # acked-frame replay spool across live tasks (also counted
                 # inside queryMemory via the shared pool)
                 "spooledBytes": spooled,
+                # the high-water mark of the spool over every task held,
+                # done ones too, since the worker started: a peak that no
+                # poll has to land on
+                "spooledBytesPeak": self.worker.tasks.spooled_bytes_peak,
                 # per-task drain progress (empty map when ACTIVE): what an
                 # operator watches while the node works toward DRAINED
                 "drain": drain_tasks,

@@ -53,7 +53,12 @@ def build(source: str) -> Path:
     lib = BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot make the kernel build directory {BUILD_DIR}: {e}") from e
+    if not os.access(BUILD_DIR, os.W_OK):
+        raise RuntimeError(f"the kernel build directory {BUILD_DIR} is not writable")
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)

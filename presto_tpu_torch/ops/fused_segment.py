@@ -220,11 +220,13 @@ class _TopNTerminal:
         return True
 
 
-def _compose(mid_plan, terminal_plan):
-    """-> f(page, auxes, state, out_groups): the whole segment as one function."""
-    tkind = terminal_plan[0]
+def _compose(mid_plan, tkind: str):
+    """-> f(page, auxes, state, out_groups, terminal): the whole segment as
+    one function. The terminal's step (a bound method of one operator's
+    builder) comes with each call: the process-wide cache must not keep an
+    operator's builder, and its state, alive past its query."""
 
-    def fn(page, auxes, state, out_groups):
+    def fn(page, auxes, state, out_groups, terminal):
         ai = 0
         for kind, obj in mid_plan:
             if kind == "proc":
@@ -235,10 +237,10 @@ def _compose(mid_plan, terminal_plan):
         if tkind == "none":
             return page
         if tkind == "agg_partial":
-            return terminal_plan[1](page, out_groups)
+            return terminal(page, out_groups)
         if tkind == "agg_raw":
-            return terminal_plan[1](page)
-        return terminal_plan[1](page, state)  # agg_state | topn
+            return terminal(page)
+        return terminal(page, state)  # agg_state | topn
 
     return fn
 
@@ -261,6 +263,7 @@ class FusedSegmentOperator(Operator):
             self._terminal = _TopNTerminal(tf, context.worker)
         self._pending: Optional[Page] = None
         self._fused = None
+        self._tstep = None  # the terminal's step, handed to the composed function
         self._in_key = None
         self._tvariant = None
         self._pages = 0
@@ -322,16 +325,16 @@ class FusedSegmentOperator(Operator):
             cur_dicts = [cur_dicts[c] for c in cfg.probe_output_channels] + \
                 [d for _, d in cfg.payload_meta]
         if self._terminal is None:
-            terminal_plan, tkey, self._tvariant = ("none",), ("none",), None
+            tkind, self._tstep, tkey, self._tvariant = "none", None, ("none",), None
         else:
-            terminal_plan = self._terminal.stage_plan()
+            tkind, self._tstep = self._terminal.stage_plan()
             tkey = self._terminal.cache_key(cur_dicts)
             self._tvariant = self._terminal.variant()
         key = ("fused-segment", page.device.type, in_key, tuple(keys), tkey)
 
         def make():
             self.f.note_compile()
-            return _compose(mid_plan, terminal_plan)
+            return _compose(mid_plan, tkind)
 
         self._fused = kc.get_or_install(key, make)
 
@@ -349,14 +352,16 @@ class FusedSegmentOperator(Operator):
         launches = pallas_hash.thread_launches(pallas_hash.probe_table)
         try:
             if t is None:
-                self._pending = self._fused(page, auxes, None, 0)
+                self._pending = self._fused(page, auxes, None, 0, None)
                 return
             og = t.out_groups(page.capacity)
-            if not t.absorb(self._fused(page, auxes, t.state(), og), page.capacity, og):
+            if not t.absorb(self._fused(page, auxes, t.state(), og, self._tstep),
+                            page.capacity, og):
                 # the builder's shrunken partial overflowed on this page and
                 # reset to full size: recompute at the new size
                 og = t.out_groups(page.capacity)
-                if not t.absorb(self._fused(page, auxes, t.state(), og), page.capacity, og):
+                if not t.absorb(self._fused(page, auxes, t.state(), og, self._tstep),
+                                page.capacity, og):
                     raise AssertionError("a full-size partial cannot overflow")
         finally:
             self._probe_launches += \

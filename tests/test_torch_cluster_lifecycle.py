@@ -186,6 +186,10 @@ def test_operator_drain_over_http_deregisters_the_worker():
         deadline = _Deadline(15.0)
         while runner.nodes.get(w.node_id) is not None or w.state != DRAINED:
             deadline.tick("the drained worker never left discovery")
+        # the worker leaves discovery itself at DRAINED; the coordinator's
+        # drain thread journals node.drained once its next poll sees that
+        while not JOURNAL.events(since=seq0, kind="node.drained"):
+            deadline.tick("the coordinator never journaled the drain")
         drained = JOURNAL.events(since=seq0, kind="node.drained")
         assert drained and drained[0]["signal"]["trigger"] == "operator"
         req = urllib.request.Request(f"{base}/v1/cluster/drain/no-such-node", method="PUT")
@@ -220,11 +224,13 @@ def test_drain_worker_idle_cluster_emits_events_and_removes_node():
         cluster.close()
 
 
-def test_drain_hands_off_live_interior_tasks_mid_stream():
+@pytest.mark.parametrize("joiner", [False, True], ids=["no-joiner", "joiner"])
+def test_drain_hands_off_live_interior_tasks_mid_stream(joiner):
     """Drain a worker while a consumer is mid-stream on its output (chunk 0
     delivered and acked): the replacement is spliced in exactly once — the
     reference's rows, no query-level retry, task.retry journaled as a
-    drain."""
+    drain. With ``joiner``, a third worker joins the cluster first, as in
+    the reference's churn drive (``bench.bench_churn``)."""
     from presto_tpu_torch.cluster.scheduler import _remote_source_ids
 
     sql = ("select l_suppkey, count(*), sum(l_quantity) "
@@ -254,11 +260,17 @@ def test_drain_hands_off_live_interior_tasks_mid_stream():
         qt = threading.Thread(target=lambda: holder.update(res=cluster.runner.execute(sql)))
         qt.start()
         assert mid_stream.wait(30.0), "query never went mid-stream"
+        if joiner:
+            w = _worker().start()
+            cluster.workers.append(w)
+            cluster.runner.nodes.announce(w.node_id, w.uri)
         out = cluster.runner.drain_worker(victim.node_id, signal={"trigger": "test-mid-stream"})
         qt.join(60.0)
         res = holder["res"]
         assert out["drained"] and out["tasks_handed_off"] >= 1, out
         assert victim.state == DRAINED
+        if joiner:
+            assert cluster.runner.nodes.get(cluster.workers[-1].node_id) is not None
         assert_same_rows(res.rows, want, ordered=False)
         assert res.stats["query_attempts"] == 1, res.stats
         assert res.stats["task_retries"] >= 1, res.stats

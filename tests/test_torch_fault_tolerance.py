@@ -11,6 +11,7 @@ injected task failures. Rows of retried queries are held against the
 reference's ``LocalQueryRunner``, one shared run per query.
 """
 import threading
+import time
 
 import pytest
 
@@ -142,6 +143,39 @@ def test_streaming_source_rewire_preserves_mid_stream_cursor():
     assert src.clients[1].token == 3
     assert not src.reset_location("http://127.0.0.1:1/v1/task/zz",
                                   "http://127.0.0.1:1/v1/task/b3")
+
+
+def test_finished_client_rewire_keeps_the_replacement_replayable():
+    """A consumer that already read a whole stream, rewired to the
+    producer's replacement, acks the replacement's frames through its
+    cursor instead of releasing the buffer: a later replacement of that
+    consumer (cursor 0) still replays the stream (a release would answer it
+    with a 410, ``replay window lost``), and the stream counts as delivered
+    once the replacement ends."""
+    from types import SimpleNamespace
+
+    from presto_tpu_torch.cluster.buffers import GATHER, OutputBuffer
+
+    worker = WorkerServer(port=0, device="cpu").start()
+    try:
+        out = OutputBuffer(GATHER, 1)
+        worker.tasks.tasks["q.0.0.r1"] = SimpleNamespace(output=out, instance_id="i1")
+        for frame in (b"a", b"b", b"c"):  # the replacement re-produces three frames
+            out.enqueue(0, frame)
+        src = StreamingRemoteSource(["http://127.0.0.1:1/v1/task/q.0.0"], 0, [BIGINT],
+                                    [None], 1024)
+        client = src.clients[0]
+        client.token, client.complete, client.done = 3, True, True
+        assert src.reset_location("http://127.0.0.1:1/v1/task/q.0.0",
+                                  f"{worker.uri}/v1/task/q.0.0.r1")
+        assert out.retained_bytes() == 0  # acked: no backpressure on the replacement
+        assert out.get(0, 0, wait_s=0) == (b"a", 1, False)  # a fresh cursor replays
+        assert out.replayable(0) and not out.output_drained()
+        out.set_no_more_pages()
+        assert out.output_drained()
+    finally:
+        worker.tasks.tasks.clear()
+        worker.stop()
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +365,86 @@ def test_task_policy_replays_spooled_chunks_after_mid_stream_kill(want):
     assert "task.retry" in kinds and "query.retry" not in kinds
     assert any(e.get("retry_kind") == "in-place-recovery"
                for e in JOURNAL.events(since=seq0, kind="task.retry"))
+
+
+def test_recovery_re_places_when_its_node_begins_draining(want):
+    """The node an in-place recovery picked begins draining before the
+    replacement's create reaches it (a planned drain starting under the
+    recovery): the create is refused with 503, the replacement goes to the
+    next node, and the query still runs once."""
+    cluster = _Cluster(properties={"retry_policy": "TASK", "exchange_flush_rows": 512,
+                                   "retry_initial_delay_s": 0.01,
+                                   "retry_max_delay_s": 0.05}, min_workers=3, n_workers=3)
+    leaf = _leaf_fragment_id(cluster, HICARD_SQL)
+    victim = min(cluster.workers, key=lambda w: w.node_id)
+    killed = threading.Event()
+    drained = []
+
+    def kill(ctx):
+        token = int(ctx["path"].partition("?")[0].rstrip("/").rsplit("/", 1)[-1])
+        if token < 1 or killed.is_set():
+            return
+        killed.set()
+        cluster.kill(victim)
+        raise faults.InjectedDisconnect("worker killed")
+
+    def drain(ctx):
+        # the drain's onset, as coordinator.drain_worker makes it
+        drained.append(ctx["node_id"])
+        cluster.runner.nodes.set_draining(ctx["node_id"], True)
+        next(w for w in cluster.workers if w.node_id == ctx["node_id"]).begin_drain("test")
+
+    inj = faults.FaultInjector(seed=11)
+    inj.add("worker.results", faults.CALLBACK, node_id=victim.node_id,
+            task_re=rf"\.{leaf}\.0$", times=None, callback=kill)
+    inj.add("client.task_create", faults.CALLBACK, task_re=r"\.r1$", times=1, callback=drain)
+    faults.install(inj)
+    try:
+        got = cluster.runner.execute(HICARD_SQL)
+    finally:
+        cluster.close()
+    assert killed.is_set() and len(drained) == 1
+    assert_same_rows(got.rows, want(HICARD_SQL), ordered=False)
+    assert got.stats["query_attempts"] == 1
+    assert got.stats["task_retries"] >= 1
+
+
+def test_drains_move_a_task_past_its_failure_budget(want):
+    """A drain's handoff spends none of a task's failure budget
+    (``task_retry_attempts``, 2): three drains in a row each move the
+    live leaf task, and the query runs once."""
+    cluster = _Cluster(properties={"retry_policy": "TASK", "exchange_flush_rows": 512,
+                                   "retry_initial_delay_s": 0.01,
+                                   "retry_max_delay_s": 0.05}, min_workers=4, n_workers=4)
+    leaf = _leaf_fragment_id(cluster, HICARD_SQL)
+    inj = faults.FaultInjector(seed=11)
+    # every run of the leaf's first task (and of its replacements) waits, so
+    # each drain finds it live
+    inj.add("worker.task_run", faults.DELAY, delay_s=1.0, times=None,
+            task_re=rf"\.{leaf}\.0(\.r\d+)?$")
+    faults.install(inj)
+    out = {}
+    query = threading.Thread(target=lambda: out.update(got=cluster.runner.execute(HICARD_SQL)))
+    query.start()
+    try:
+        deadline = time.monotonic() + 30.0
+        while not (cluster.runner._schedulers
+                   and leaf in next(iter(cluster.runner._schedulers.values())).stages):
+            assert time.monotonic() < deadline, "the query never scheduled its leaf"
+            time.sleep(0.01)
+        sched = next(iter(cluster.runner._schedulers.values()))
+        ids = []
+        for _ in range(3):
+            task = sched.stages[leaf].tasks[0]
+            sched.drain_node(task.node.node_id, cluster.runner.nodes.active_nodes())
+            ids.append(sched.stages[leaf].tasks[0].task_id)
+        query.join(60.0)
+    finally:
+        cluster.close()
+    assert [i.rsplit(".", 1)[-1] for i in ids] == ["r1", "r2", "r3"]
+    got = out["got"]
+    assert_same_rows(got.rows, want(HICARD_SQL), ordered=False)
+    assert got.stats["query_attempts"] == 1 and got.stats["task_retries"] >= 3
 
 
 def test_speculation_duplicates_straggler_and_journals_winner(want):

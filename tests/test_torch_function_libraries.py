@@ -11,6 +11,9 @@ and one port runner per module.
 """
 import json
 import math
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -259,20 +262,37 @@ def test_learn_grouped(ml_runners):
 
 # ----------------------------------------------------------- registration
 
+_REGISTRIES = """
+import json
+import presto_tpu, presto_tpu_torch
+from presto_tpu.ops.aggregates import EXTERNAL_AGGREGATES as REF_AGGS
+from presto_tpu.ops.expressions import EXTERNAL_COMPILERS as REF_COMPILERS
+from presto_tpu.sql.analyzer import EXTERNAL_FUNCTIONS as REF_FUNCTIONS
+from presto_tpu_torch.ops.aggregates import EXTERNAL_AGGREGATES
+from presto_tpu_torch.ops.expressions import EXTERNAL_COMPILERS
+from presto_tpu_torch.sql.analyzer import EXTERNAL_FUNCTIONS, PLUGIN_FUNCTIONS
+print(json.dumps({name: sorted(names) for name, names in (
+    ("functions", EXTERNAL_FUNCTIONS), ("ref_functions", REF_FUNCTIONS),
+    ("plugin_functions", PLUGIN_FUNCTIONS), ("compilers", EXTERNAL_COMPILERS),
+    ("ref_compilers", REF_COMPILERS), ("aggregates", EXTERNAL_AGGREGATES),
+    ("ref_aggregates", REF_AGGS))}))
+"""
+
+
 def test_import_registers_the_reference_libraries():
     """``import presto_tpu_torch`` registers every function the reference's
-    libraries register, and no other name."""
-    import presto_tpu  # noqa: F401 - registers the reference's
-    from presto_tpu.ops.aggregates import EXTERNAL_AGGREGATES as REF_AGGS
-    from presto_tpu.ops.expressions import EXTERNAL_COMPILERS as REF_COMPILERS
-    from presto_tpu.sql.analyzer import EXTERNAL_FUNCTIONS as REF_FUNCTIONS
-    from presto_tpu_torch.ops.aggregates import EXTERNAL_AGGREGATES
-    from presto_tpu_torch.ops.expressions import EXTERNAL_COMPILERS
-    from presto_tpu_torch.sql.analyzer import EXTERNAL_FUNCTIONS, PLUGIN_FUNCTIONS
-
-    assert set(EXTERNAL_FUNCTIONS) == set(REF_FUNCTIONS) == PLUGIN_FUNCTIONS
-    assert set(EXTERNAL_COMPILERS) == set(REF_COMPILERS)
-    assert set(EXTERNAL_AGGREGATES) == set(REF_AGGS)
+    libraries register, and no other name. The registries are read in a
+    fresh interpreter: a test that registers a plugin function in this
+    process cannot reach them."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _REGISTRIES], capture_output=True,
+                         text=True, timeout=300, cwd=repo,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr
+    got = {name: set(names) for name, names in json.loads(out.stdout.splitlines()[-1]).items()}
+    assert got["functions"] == got["ref_functions"] == got["plugin_functions"]
+    assert got["compilers"] == got["ref_compilers"]
+    assert got["aggregates"] == got["ref_aggregates"]
 
 
 @pytest.mark.parametrize("name,sql", [

@@ -234,3 +234,25 @@ def test_unfused_semi_and_anti_probe_through_the_stage(join_type):
         got = probe.get_output()
         _assert_pages_equal(thj.apply_probe_stage(pt, thj.probe_stage_aux(src), cfg), got)
     assert probe._stage_cfg == cfg
+
+
+def test_cached_segment_keeps_no_operators_builder():
+    """The process-wide composition cache holds a fused segment's function,
+    never the builder of the operator that composed it: once the query is
+    gone, no grouping builder of its fused terminal is alive (a kept builder
+    held its partial pages on the device after a cluster's tasks ended)."""
+    import gc
+
+    from presto_tpu_torch.ops import hash_agg
+
+    def live_builders():
+        gc.collect()
+        return [o for o in gc.get_objects() if type(o) is hash_agg.GroupedAggregationBuilder]
+
+    runner = _runner()
+    assert runner.execute(QUERIES[3]).rows  # its probes fuse into the grouping
+    factories, _plan = _segments(runner, QUERIES[3])
+    assert any(isinstance(f.terminal_factory, hash_agg.HashAggregationOperatorFactory)
+               for f in factories)
+    del runner, factories, _plan
+    assert live_builders() == []

@@ -1,5 +1,6 @@
-"""presto_tpu_torch, chip_smoke.py and the measurement scripts
-port_walls.py, file_walls.py, dist_walls.py and cluster_walls.py import neither jax
+"""presto_tpu_torch (its server distribution ``dist.py`` too), chip_smoke.py
+and the measurement scripts port_walls.py, file_walls.py, dist_walls.py,
+cluster_walls.py and lifecycle_walls.py import neither jax
 nor presto_tpu, nor the repo's ``tools`` (which imports presto_tpu), nor
 pyarrow or zstandard (the card's machine has neither: the file
 formats import ``zstandard`` only where a zstd page is met).
@@ -27,7 +28,8 @@ names = ['presto_tpu_torch'] + [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import importlib.util
-for script in ('chip_smoke', 'port_walls', 'file_walls', 'dist_walls', 'cluster_walls'):
+for script in ('chip_smoke', 'port_walls', 'file_walls', 'dist_walls', 'cluster_walls',
+               'lifecycle_walls'):
     spec = importlib.util.spec_from_file_location(script, script + '.py')
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
@@ -90,6 +92,8 @@ def test_port_imports_no_jax_and_no_reference():
     # the runtime sanitizers
     assert {"presto_tpu_torch.utils.locksan", "presto_tpu_torch.utils.leaksan",
             "presto_tpu_torch.utils.compilesan"} <= set(res["modules"])
+    # the server distribution
+    assert "presto_tpu_torch.dist" in res["modules"]
 
 
 _ARMED = """

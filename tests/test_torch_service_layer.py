@@ -427,8 +427,15 @@ def test_load_plugins_registers_factory_and_function(tmp_path):
         r = LocalQueryRunner(catalogs=catalogs, device="cpu")
         assert r.execute("select sum(n) from demo.default.numbers").rows == [[45]]
     finally:
+        # take back everything the plugin registered: later tests in this
+        # process compare the registries with the reference's
+        from presto_tpu_torch.ops import expressions
+        from presto_tpu_torch.sql import analyzer
+
         C.FACTORIES.pop("demo", None)
         sys.modules.pop("presto_tpu_torch_plugin_demo", None)
+        analyzer.EXTERNAL_FUNCTIONS.pop("demo_fortytwo", None)
+        expressions.EXTERNAL_COMPILERS.pop("demo_fortytwo", None)
 
 
 def test_plugin_dir_missing_is_noop(tmp_path):
